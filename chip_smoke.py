@@ -5,22 +5,34 @@
 
 In order, failing (exit 1) on the first check that does not hold:
   1. requires CUDA and prints the card's name and power limit;
-  2. builds the CUDA kernels from csrc/ and prints the build time;
-  3. holds the ConvGRU kernel against its plain PyTorch version
-     (`convgru_parity`, T=42, B=8, 512->128) in bf16 under the JAX
-     package's gate, and in f32 with TF32 off;
+  2. builds the CUDA kernels from csrc/ (one nvcc per source, all started
+     together) and prints the build time;
+  3. holds each kernel against its plain PyTorch version in bf16 under the
+     JAX package's gate, and in f32 with TF32 off: the forward recurrence
+     B1 (`convgru_parity`, T=42, B=8, 512->128), then the backward kernels
+     B2 `convgru_bwd` and B4 `convgru_bwd_mono` (`backward_parity`, the
+     same shapes, on inputs from a real forward);
   4. serves a full-width gaze_grcn (1024->512->128, T=42, 49x49 maps, bf16,
      seeded random weights) over HTTP from a bundle: concurrent single-clip
-     POSTs, each reply checked against the plain path's predict of the same
-     clip, and the kernel's launch count over that run checked;
-  5. times the kernel and its plain version (B=8, B=16), the feature-fed
-     predict (B=16) and the HTTP requests, with CUDA events or the host
-     clock after warm-up;
-  6. prints the kernels' JSON line, then, last, the device JSON line.
+     POSTs, each reply checked against a plain-scan predict of the same
+     clip, and B1's launch count over that run checked;
+  5. trains full-width gaze_grcn through the normal entry point
+     (`cli.train_gaze`, B=28, T=42, bf16, synthetic corpus): the loss is
+     finite at every step and falls, B1 and B2 launch once per step, a
+     checkpoint and metrics.jsonl are written; then takes train steps
+     through `convgru_scan_trainable` (B4 backward), counting its launches;
+  6. checks the train step's gradients at full width, through either
+     backward, against plain autograd of `ConvGRU.scan` on one batch;
+  7. times the kernels and their plain versions (B=8, B=16), the feature-fed
+     predict (B=16), the HTTP requests, and the train step (B=28) through
+     the kernels and through plain autograd with a breakdown, with CUDA
+     events or the host clock after warm-up;
+  8. prints the kernels' JSON line, then, last, the device JSON line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import statistics
@@ -35,20 +47,33 @@ import numpy as np
 import torch
 
 from recurrent_gaze_prediction_tpu_torch import registry
+from recurrent_gaze_prediction_tpu_torch.cli import train_gaze
+from recurrent_gaze_prediction_tpu_torch.config import OptimizerConfig
+from recurrent_gaze_prediction_tpu_torch.data import synthetic
 from recurrent_gaze_prediction_tpu_torch.models.common import (
     apply_c3d_projection, apply_decoder)
 from recurrent_gaze_prediction_tpu_torch.ops.cells import ConvGRU
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import build
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru as kconv
+from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp as v1
+from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp2 as v2
 from recurrent_gaze_prediction_tpu_torch.ops.kernels.parity import (
-    MIN_CORR, convgru_parity, parity_ok)
+    MIN_CORR, backward_inputs, backward_kernel_and_plain, backward_parity,
+    backward_parity_ok, convgru_parity, parity_ok)
 from recurrent_gaze_prediction_tpu_torch.ops.normalize import softmax_2d
 from recurrent_gaze_prediction_tpu_torch.serving import (
     load_bundle, save_bundle, server_from_bundle)
+from recurrent_gaze_prediction_tpu_torch.train import (
+    Checkpointer, create_train_state, make_train_step)
+from recurrent_gaze_prediction_tpu_torch.train.loop import device_batch
 
 SEED = 0
 T = 42
 N_REQUESTS = 8
+TRAIN_BATCH = 28  # the reference's training batch (cli/train_gaze.py:135)
+TRAIN_STEPS = 20
+MONO_STEPS = 3    # train steps through the B4 backward
+UNITS = 128
 # f32 mode: the kernel's scalar f32 FMAs against cuDNN's f32 convs with
 # TF32 off differ only in summation order (~1e-7 per step), amplified by
 # the recurrence over 42 steps; 1e-3 leaves a wide margin above that and
@@ -61,6 +86,11 @@ MAP_MIN_CORR = 0.999
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 STATE_STDDEV = 0.05  # the reference init (1e-4) leaves the recurrence ~0
+# Train-step gradients, kernels against plain autograd (bf16): the
+# kernels keep conv results in f32 where the plain scan rounds them to
+# bf16, so they agree to bf16 resolution, as the served maps do.
+GRAD_MIN_CORR = 0.999
+LOSS_MAX_REL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -79,6 +109,20 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0].strip()
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """TF32 off for cuDNN and matmuls, so an f32 plain version is f32."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -149,11 +193,258 @@ def kernel_timing(fused: dict, b: int, rng: np.random.RandomState) -> dict:
     nbytes = (wx.numel() * 2 + T * b * 49 * units * 4          # wx, ys
               + (fused["Uh_zr"].numel() + fused["U_c"].numel()) * 2
               + 2 * b * 49 * units * 4)                        # h0, hT
+    return {"ms": ms, "plain_ms": plain_ms, **bound(flops, nbytes)}
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the bf16 peak and the bytes (each input read once, each output
+    written once) over the memory rate."""
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return {"ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+
+
+def backward_timing(kernel: str, b: int, seed: int) -> dict:
+    """A backward kernel and its plain version on the same inputs from a
+    real forward (bf16, T=42, 512->128)."""
+    x = backward_inputs(T, b, 512, UNITS, torch.bfloat16, seed, "cuda")
+    run_kernel, run_plain, _ = backward_kernel_and_plain(kernel, x)
+    with torch.no_grad():
+        ms = cuda_ms(run_kernel, 10)
+        plain_ms = cuda_ms(run_plain, 3)
+    convs = T * b * 49 * 9 * 3 * UNITS * UNITS * 2  # one set of state convs
+    stream = T * b * 49 * UNITS * 4                 # one f32 [T,B,7,7,U]
+    state = b * 49 * UNITS * 4                      # h0 or dh0
+    weights = (x["uzr"].numel() + x["uc"].numel()) * 2
+    if kernel == "convgru_bwd":
+        # two transposed convs; u, r, c, h_prev, g in, dzr (2U), da out
+        flops, nbytes = convs, 8 * stream + weights + state
+    else:
+        # recompute, transposed convs and weight grads; wx (bf16), ys, g,
+        # h0 in, dwx (3U), dh0, dU_zr, dU_c out
+        flops = 3 * convs
+        nbytes = (x["wx"].numel() * 2 + 2 * stream + 3 * stream + 2 * state
+                  + weights + 9 * UNITS * 3 * UNITS * 4)
+    return {"ms": ms, "plain_ms": plain_ms, **bound(flops, nbytes)}
+
+
+def plain_predict(model, c3d: torch.Tensor) -> torch.Tensor:
+    """gaze_grcn's predict with the recurrence run by the plain
+    `ConvGRU.scan` (bf16 compute, no dropout): the reference the served
+    maps are held against."""
+    cdt = torch.bfloat16
+    b, t = c3d.shape[:2]
+    stage = dict(keep_prob=1.0, generator=None, train=False,
+                 compute_dtype=cdt)
+    with torch.no_grad():
+        xs = apply_c3d_projection(model.c3d_proj, c3d, **stage).transpose(
+            0, 1)
+        h0 = ConvGRU.zero_state(b, (7, 7), UNITS, device=c3d.device)
+        _, ys = ConvGRU.scan(model.cell, xs, h0, compute_dtype=cdt)
+        folded = ys.transpose(0, 1).reshape(b * t, 7, 7, UNITS)
+        return softmax_2d(apply_decoder(model.decoder, folded, **stage)
+                          .reshape(b, t, 49, 49))
+
+
+def full_width_model():
+    """gaze_grcn at the registry's full width, bf16, seeded random weights
+    with the ConvGRU weights at N(0, STATE_STDDEV)."""
+    gen = torch.Generator().manual_seed(SEED)
+    model = registry.create_model(
+        "gaze_grcn", dim_feature=1024, dim_cnn_proj=512,
+        rnn_state_size=UNITS, n_lstm_steps=T, gazemap_height=49,
+        gazemap_width=49, compute_dtype="bfloat16", device="cuda",
+        generator=gen)
+    with torch.no_grad():
+        for p in model.cell.values():
+            p.copy_(torch.randn(p.shape, generator=gen) * STATE_STDDEV)
+    return model
+
+
+def reset_launches() -> None:
+    kconv.launches = v2.launches = v1.launches = 0
+
+
+def read_launches() -> dict:
+    torch.cuda.synchronize()
+    return {"convgru_fwd": kconv.launches, "convgru_bwd": v2.launches,
+            "convgru_bwd_mono": v1.launches}
+
+
+def train_through_cli(card: str) -> dict:
+    """The slice's main path: `cli.train_gaze` at full width on the card,
+    the reference's batch, the loss read back at every step."""
+    with tempfile.TemporaryDirectory() as tmp:
+        run = f"{tmp}/run"
+        argv = ["--dataset", "synthetic", "--batch_size", str(TRAIN_BATCH),
+                "--synthetic_clips", str(TRAIN_BATCH), "--n_lstm_steps",
+                str(T), "--compute_dtype", "bfloat16", "--max_steps",
+                str(TRAIN_STEPS), "--steps_per_logprint", "1", "--seed",
+                str(SEED), "--train_dir", run]
+        reset_launches()
+        start = time.perf_counter()
+        rc = train_gaze.main(argv)
+        launches = read_launches()
+        seconds = time.perf_counter() - start
+        check(rc == 0, f"cli.train_gaze returned {rc}")
+        with open(f"{run}/metrics.jsonl") as f:
+            records = [json.loads(line) for line in f]
+        saved = Checkpointer(run).steps()
+    losses = [r["loss/train"] for r in records]
+    print(f"train (cli.train_gaze, B={TRAIN_BATCH}, T={T}, bf16, "
+          f"{TRAIN_STEPS} steps, {seconds:.1f} s wall with data and model "
+          f"set-up): losses {[round(x, 4) for x in losses]}, launches "
+          f"{launches}, checkpoints {saved} [{card}]", flush=True)
+    check([r["step"] for r in records] == list(range(1, TRAIN_STEPS + 1)),
+          f"metrics.jsonl steps {[r['step'] for r in records]}")
+    check(all(np.isfinite(losses)), f"non-finite train loss: {losses}")
+    check(statistics.mean(losses[-5:]) < losses[0],
+          f"loss did not fall: first {losses[0]}, mean of the last 5 "
+          f"{statistics.mean(losses[-5:])}")
+    check(launches == {"convgru_fwd": TRAIN_STEPS,
+                       "convgru_bwd": TRAIN_STEPS, "convgru_bwd_mono": 0},
+          f"launches over {TRAIN_STEPS} train steps: {launches}")
+    check(saved == [TRAIN_STEPS], f"checkpoints written: {saved}")
+    return {"launches": launches, "losses": losses}
+
+
+def train_through_mono(model, batch: dict) -> dict:
+    """Train steps with `convgru_scan_trainable` (forward B1, backward
+    B4), the JAX package's v1 entry point, through `make_train_step`."""
+    model.train_scan = v1.convgru_scan_trainable
+    try:
+        state, tx = create_train_state(model, OptimizerConfig())
+        step = make_train_step(model, tx)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        reset_launches()
+        losses = [step(state, batch, gen)[1]["loss"]
+                  for _ in range(MONO_STEPS)]
+        launches = read_launches()
+    finally:
+        del model.train_scan
+    losses = [float(x) for x in losses]
+    print(f"train (make_train_step + convgru_scan_trainable, B4 backward, "
+          f"B={TRAIN_BATCH}): losses {losses}, launches {launches}",
+          flush=True)
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(launches == {"convgru_fwd": MONO_STEPS, "convgru_bwd": 0,
+                       "convgru_bwd_mono": MONO_STEPS},
+          f"launches over {MONO_STEPS} train steps: {launches}")
+    return {"launches": launches, "losses": losses}
+
+
+def gradient_check(model, batch: dict) -> dict:
+    """The train loss and gradients on one batch, from the same weights,
+    through each backward against plain autograd of `ConvGRU.scan` (no
+    dropout; the flip is not applied)."""
+    names = [n for n, _ in model.named_parameters()]
+    params = [p for _, p in model.named_parameters()]
+    keep = model.cfg.dropout_keep_prob
+    model.cfg.dropout_keep_prob = 1.0
+    out = {}
+    try:
+        for label, scan in (("plain", ConvGRU.scan),
+                            ("v2 (B2)", v2.convgru_scan_trainable_v2),
+                            ("v1 (B4)", v1.convgru_scan_trainable)):
+            model.train_scan = scan
+            loss, _ = model.loss(batch, train=True)
+            grads = torch.autograd.grad(loss, params)
+            out[label] = (loss.item(), [g.float().cpu().numpy()
+                                        for g in grads])
+    finally:
+        model.cfg.dropout_keep_prob = keep
+        del model.train_scan
+    plain_loss, plain_grads = out.pop("plain")
+    scale = max(float(np.abs(g).max()) for g in plain_grads)
+    results = {}
+    for label, (loss, grads) in out.items():
+        rel = abs(loss - plain_loss) / abs(plain_loss)
+        check(rel <= LOSS_MAX_REL, f"{label}: loss {loss} vs plain "
+                                   f"{plain_loss} (rel {rel})")
+        worst = (1.0, None)
+        for name, a, k in zip(names, plain_grads, grads):
+            if a.size > 1:
+                c = corr(k, a)
+                check(c >= GRAD_MIN_CORR,
+                      f"{label}: grad {name} corr {c} vs plain autograd")
+                worst = min(worst, (c, name))
+            else:
+                # the head bias: zero up to rounding under xentropy
+                # (softmax ignores a shift), so held to the gradients' scale
+                check(float(np.abs(k - a).max()) <= 1e-3 * scale,
+                      f"{label}: grad {name} {k} vs plain {a}")
+        results[label] = {"loss": loss, "plain_loss": plain_loss,
+                          "loss_rel": rel, "min_corr": worst[0],
+                          "min_corr_param": worst[1]}
+    print(f"gradient check (B={TRAIN_BATCH}, T={T}, bf16, vs plain "
+          f"autograd): {json.dumps(results)}", flush=True)
+    return results
+
+
+def train_step_timing(model, raw: dict) -> dict:
+    """The train step at B=28 through the kernels and through plain
+    autograd (in turns: plain, kernels, kernels, plain), and a breakdown
+    of the kernel path."""
+    cdt = torch.bfloat16
+    dev = torch.device("cuda")
+    start = time.perf_counter()
+    batch = device_batch(raw, dev, cdt)
+    torch.cuda.synchronize()
+    h2d_ms = (time.perf_counter() - start) * 1e3
+    state, tx = create_train_state(model, OptimizerConfig())
+    step = make_train_step(model, tx)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    runs = {"plain": [], "kernels": []}
+    try:
+        for label in ("plain", "kernels", "kernels", "plain"):
+            model.train_scan = (ConvGRU.scan if label == "plain"
+                                else v2.convgru_scan_trainable_v2)
+            runs[label].append(cuda_ms(lambda: step(state, batch, gen), 5))
+    finally:
+        del model.train_scan
+    params = list(state.params.values())
+
+    def forward_backward():
+        loss, _ = model.loss(batch, train=True, generator=gen)
+        return torch.autograd.grad(loss, params)
+
+    stages = {"batch prep + H2D (host clock)": h2d_ms,
+              "forward (loss)": cuda_ms(
+                  lambda: model.loss(batch, train=True, generator=gen), 5),
+              "forward + backward": cuda_ms(forward_backward, 5)}
+    grads = dict(zip(state.params, forward_backward()))
+    stages["optimizer (clip + adam)"] = cuda_ms(
+        lambda: tx.apply(state.params, grads, state.opt_state), 5)
+    # the ConvGRU's own pieces at this batch, on the forward's wx and ys
+    with torch.no_grad():
+        fused = ConvGRU.fuse(model.cell)
+        xs = apply_c3d_projection(
+            model.c3d_proj, batch["c3d"], keep_prob=1.0, generator=None,
+            train=False, compute_dtype=cdt).transpose(0, 1)
+        wx = ConvGRU.input_gates(fused, xs, cdt)
+        h0 = ConvGRU.zero_state(TRAIN_BATCH, (7, 7), UNITS, device=dev)
+        _, ys = kconv.convgru_recurrence(fused, wx, h0)
+        g = torch.randn(ys.shape, device=dev, generator=gen)
+        uzr, uc = fused["Uh_zr"], fused["U_c"]
+        stages["  B1 convgru_fwd (in forward)"] = cuda_ms(
+            lambda: kconv.convgru_recurrence(fused, wx, h0), 5)
+        stages["  backward stage 1: gate recompute (library convs)"] = \
+            cuda_ms(lambda: v2.recompute_gates(uzr, uc, wx, h0, ys), 5)
+        u, r, c, hprev, rh = v2.recompute_gates(uzr, uc, wx, h0, ys)
+        stages["  backward stage 2: B2 convgru_bwd"] = cuda_ms(
+            lambda: v2.dh_bwd(u, r, c, hprev, g, uzr, uc, cdt), 5)
+        dzr, da, _ = v2.dh_bwd(u, r, c, hprev, g, uzr, uc, cdt)
+        stages["  backward stage 3: weight grads (2 matmuls)"] = cuda_ms(
+            lambda: (v1.kernel_grad(hprev, dzr, cdt),
+                     v1.kernel_grad(rh, da, cdt)), 5)
+    kernels_ms = statistics.mean(runs["kernels"])
+    plain_ms = statistics.mean(runs["plain"])
+    return {"kernels_ms": kernels_ms, "plain_ms": plain_ms, "runs": runs,
+            "clips_per_s": TRAIN_BATCH / kernels_ms * 1e3,
+            "plain_clips_per_s": TRAIN_BATCH / plain_ms * 1e3,
+            "stages": stages}
 
 
 def predict_breakdown(model, c3d: torch.Tensor) -> dict:
@@ -196,34 +487,37 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
-    # 3. kernel against plain version
+    # 3. each kernel against its plain version, bf16 then f32 (TF32 off)
     bf16 = convgru_parity(t=T, b=8, device="cuda")
-    print(f"parity bf16: {json.dumps(bf16)}", flush=True)
+    print(f"parity convgru_fwd bf16: {json.dumps(bf16)}", flush=True)
     check(parity_ok(bf16), f"bf16 parity gate failed: {bf16}")
-    tf32 = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with tf32_off():
         f32 = convgru_parity(t=T, b=8, compute_dtype=torch.float32,
                              device="cuda")
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = tf32
-    print(f"parity f32 (TF32 off): {json.dumps(f32)}", flush=True)
+    print(f"parity convgru_fwd f32 (TF32 off): {json.dumps(f32)}", flush=True)
     check(parity_ok(f32, max_rel_delta=F32_MAX_REL_DELTA),
           f"f32 parity failed (corr >= {MIN_CORR}, max_rel_delta <= "
           f"{F32_MAX_REL_DELTA}, final h == ys[-1]): {f32}")
+    bwd_parity = {}
+    for kernel in ("convgru_bwd", "convgru_bwd_mono"):
+        stats = backward_parity(kernel, t=T, b=8, device="cuda")
+        print(f"parity {kernel} bf16: {json.dumps(stats['outputs'])}",
+              flush=True)
+        check(backward_parity_ok(stats), f"{kernel} bf16 parity gate "
+                                         f"failed: {stats}")
+        with tf32_off():
+            stats32 = backward_parity(kernel, t=T, b=8,
+                                      compute_dtype=torch.float32,
+                                      device="cuda")
+        print(f"parity {kernel} f32 (TF32 off): "
+              f"{json.dumps(stats32['outputs'])}", flush=True)
+        check(backward_parity_ok(stats32, max_rel_delta=F32_MAX_REL_DELTA),
+              f"{kernel} f32 parity failed (corr >= {MIN_CORR}, "
+              f"max_rel_delta <= {F32_MAX_REL_DELTA}): {stats32}")
+        bwd_parity[kernel] = stats
 
     # 4. serving at full width through the kernel
-    gen = torch.Generator().manual_seed(SEED)
-    model = registry.create_model(
-        "gaze_grcn", dim_feature=1024, dim_cnn_proj=512, rnn_state_size=128,
-        n_lstm_steps=T, gazemap_height=49, gazemap_width=49,
-        compute_dtype="bfloat16", device="cuda", generator=gen)
-    with torch.no_grad():
-        for p in model.cell.values():
-            p.copy_(torch.randn(p.shape, generator=gen) * STATE_STDDEV)
+    model = full_width_model()
     rng = np.random.RandomState(SEED)
     c3d = rng.randn(N_REQUESTS, T, 1024, 7, 7).astype(np.float32)
     frames = rng.rand(N_REQUESTS, T, 98, 98, 3).astype(np.float32)
@@ -234,14 +528,14 @@ def main() -> int:
         try:
             host, port = server.address
             url = f"http://{host}:{port}"
-            kconv.launches = 0
+            reset_launches()
             served = post_all(f"{url}/predict", frames, c3d)
-            torch.cuda.synchronize()
-            main_launches = kconv.launches
+            serve_launches = read_launches()
+            main_launches = serve_launches["convgru_fwd"]
             with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
                 health = json.loads(r.read())
             print(f"serving: {N_REQUESTS} concurrent requests, healthz "
-                  f"{health}, kernel launches {main_launches}", flush=True)
+                  f"{health}, kernel launches {serve_launches}", flush=True)
             check(main_launches >= 1, "the served path never launched the "
                                       "ConvGRU kernel")
             check(health["requests"] == N_REQUESTS
@@ -250,10 +544,7 @@ def main() -> int:
                   f"requests / {main_launches} kernel launches")
 
             reference = load_bundle(f"{tmp}/bundle", device="cuda")
-            reference.cfg.dropout_keep_prob = 1.0  # train path = plain scan
-            with torch.no_grad():
-                plain = softmax_2d(reference(
-                    None, torch.from_numpy(c3d).cuda(), train=True))
+            plain = plain_predict(reference, torch.from_numpy(c3d).cuda())
             plain = plain.cpu().numpy()
             for i, (status, maps, _) in enumerate(served):
                 check(status == 200, f"request {i}: HTTP {status}")
@@ -273,21 +564,39 @@ def main() -> int:
                   f"plain path {min(corr(m, plain[i]) for i, (_, m, _) in enumerate(served)):.6f}",
                   flush=True)
 
-            # 5. timings
             again = post_all(f"{url}/predict", frames, c3d)
             http_ms = statistics.median(s for _, _, s in again) * 1e3
         finally:
             server.close()
 
+    # 5. training at full width: the normal entry point (B1 + B2), then
+    # the v1 entry point (B1 + B4)
+    trained = train_through_cli(card)
+    raw_batch = synthetic.make_clip_windows(
+        TRAIN_BATCH, T, seed=SEED + 3).next_batch(TRAIN_BATCH)
+    batch = device_batch(raw_batch, torch.device("cuda"), torch.bfloat16)
+    gradient_check(full_width_model(), batch)  # 6.
+    mono = train_through_mono(full_width_model(), batch)
+
+    # 7. timings
     fused = ConvGRU.fuse({k: v.detach() for k, v in model.cell.items()})
     timing_rng = np.random.RandomState(SEED + 1)
     k8 = kernel_timing(fused, 8, timing_rng)
     k16 = kernel_timing(fused, 16, timing_rng)
     for b, k in ((8, k8), (16, k16)):
-        print(f"timing: convgru kernel T={T} B={b} U=128 bf16: "
+        print(f"timing: convgru_fwd T={T} B={b} U=128 bf16: "
               f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}: {k['gflop']:.2f} "
               f"GFLOP, {k['mbytes']:.1f} MB) [{card}]", flush=True)
+    bwd_timing = {}
+    for kernel in ("convgru_bwd", "convgru_bwd_mono"):
+        for b in (8, 16):
+            k = bwd_timing[kernel, b] = backward_timing(kernel, b, SEED + b)
+            print(f"timing: {kernel} T={T} B={b} U=128 bf16: "
+                  f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound "
+                  f"{k['bound_ms']:.4f} ms ({k['bound_by']}: "
+                  f"{k['gflop']:.2f} GFLOP, {k['mbytes']:.1f} MB) [{card}]",
+                  flush=True)
     c3d16 = torch.from_numpy(
         timing_rng.randn(16, T, 1024, 7, 7).astype(np.float32)).cuda()
     predict_ms = cuda_ms(lambda: model.predict(None, c3d16), 10)
@@ -298,21 +607,41 @@ def main() -> int:
         f"{k} {v:.3f}" for k, v in stages.items()) + f" [{card}]")
     print(f"timing: HTTP request latency, median of {N_REQUESTS} concurrent "
           f"single-clip POSTs: {http_ms:.1f} ms [{card}]")
+    step = train_step_timing(full_width_model(), raw_batch)
+    print(f"timing: train step B={TRAIN_BATCH} T={T} bf16 (fwd + bwd + "
+          f"clip + adam, flip, dropout): kernels {step['kernels_ms']:.3f} "
+          f"ms ({step['clips_per_s']:.1f} clips/s), plain autograd "
+          f"{step['plain_ms']:.3f} ms ({step['plain_clips_per_s']:.1f} "
+          f"clips/s); runs {json.dumps(step['runs'])} [{card}]", flush=True)
+    print("timing: train step B=28 breakdown, kernel path (ms): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in step["stages"].items()) + f" [{card}]",
+          flush=True)
 
-    # 6. result lines
-    print(json.dumps({"kernels": [{
-        "name": "convgru_fwd",
-        "route": "cuda",
-        "source": "recurrent_gaze_prediction_tpu_torch/csrc/convgru_fwd.cu",
-        "replaces": "recurrent_gaze_prediction_tpu/ops/pallas/convgru.py:45",
-        "launches": main_launches,
-        "max_abs_err": bf16["max_delta"],
-        "ms": k8["ms"],
-        "plain_ms": k8["plain_ms"],
-        "bound_ms": k8["bound_ms"],
-        "bound_by": k8["bound_by"],
-        "library_ms": None,
-    }]}))
+    # 8. result lines
+    def entry(name, source, replaces, launches, err, t):
+        return {"name": name, "route": "cuda",
+                "source": f"recurrent_gaze_prediction_tpu_torch/csrc/{source}",
+                "replaces": f"recurrent_gaze_prediction_tpu/ops/pallas/"
+                            f"{replaces}",
+                "launches": launches, "max_abs_err": err, "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": None}
+
+    def max_err(stats):
+        return max(o["max_delta"] for o in stats["outputs"].values())
+
+    print(json.dumps({"kernels": [
+        entry("convgru_fwd", "convgru_fwd.cu", "convgru.py:45", main_launches,
+              bf16["max_delta"], k8),
+        entry("convgru_bwd", "convgru_bwd.cu", "convgru_vjp2.py:56",
+              trained["launches"]["convgru_bwd"],
+              max_err(bwd_parity["convgru_bwd"]),
+              bwd_timing["convgru_bwd", 8]),
+        entry("convgru_bwd_mono", "convgru_bwd_mono.cu", "convgru_vjp.py:85",
+              mono["launches"]["convgru_bwd_mono"],
+              max_err(bwd_parity["convgru_bwd_mono"]),
+              bwd_timing["convgru_bwd_mono", 8]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

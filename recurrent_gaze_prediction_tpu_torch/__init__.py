@@ -8,11 +8,16 @@ entry points on the card unless the caller passes device="cpu".
 
   config    — the port's copy of the config dataclasses
   ops       — layers, normalizers, initializers, the ConvGRU cell, and the
-              hand-written CUDA kernels (ops.kernels, sources in csrc/)
+              hand-written CUDA kernels (ops.kernels, sources in csrc/):
+              the forward recurrence and its two backward kernels, with
+              the autograd Functions the trainer runs
   models    — gaze_grcn and gaze_grcn77 as nn.Modules
   registry  — name -> model
-  bridge    — weights to and from the JAX package's parameter trees
+  bridge    — weights and optimizer moments from the JAX package's trees
+  data      — clip datasets and the synthetic corpus (numpy copies)
+  train     — optimizer, train/eval steps, fit loop, checkpoints, metrics
   serving   — bundles, the dynamic batcher and the HTTP server
+  cli       — serve, train_gaze
 """
 
 __version__ = "0.1.0"

@@ -5,7 +5,9 @@ nested (`{"cell": {"W_z": ...}}`) or flat with the `"a/b/c"` keys of its
 `serving/export.py::flatten_params` (a bundle's params.npz), and returns
 the port's state dict (`"cell.W_z"`). `params_to_jax(model)` is its
 inverse, with the same names and shapes, so a bundle written by either
-package loads in the other's reader.
+package loads in the other's reader. `opt_state_from_jax(state)` carries an
+optax state's moments and update count over, so both packages can train on
+from the same point.
 """
 
 from __future__ import annotations
@@ -55,6 +57,40 @@ def params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
     """JAX parameters (nested or flat "a/b/c") -> the port's state dict."""
     flat = flatten_params(tree)
     return {key.replace(_SEP, "."): _to_tensor(v) for key, v in flat.items()}
+
+
+def jax_name(name: str) -> str:
+    """The port's parameter name ("cell.W_z") -> the JAX package's flat
+    name ("cell/W_z")."""
+    return name.replace(".", _SEP)
+
+
+def opt_state_from_jax(opt_state) -> dict:
+    """An optax state of the JAX package's optimizer (`build_optimizer`:
+    clip + adam | rmsprop | sgd, optionally inside `multi_transform`), with
+    numpy leaves and its namedtuples kept, -> the port's `Optimizer` state:
+    {"count": int, "mu"/"nu"/"trace": the port's state dict of moments}."""
+    out: dict = {}
+
+    def walk(node) -> None:
+        if hasattr(node, "_fields"):  # an optax state namedtuple
+            for field in node._fields:
+                value = getattr(node, field)
+                if field == "count":
+                    out["count"] = int(np.asarray(value))
+                elif field in ("mu", "nu", "trace"):
+                    out[field] = params_from_jax(value)
+                else:
+                    walk(value)
+        elif isinstance(node, Mapping):
+            for value in node.values():
+                walk(value)
+        elif isinstance(node, (tuple, list)):
+            for value in node:
+                walk(value)
+
+    walk(opt_state)
+    return out
 
 
 def params_to_jax(model: nn.Module) -> dict:

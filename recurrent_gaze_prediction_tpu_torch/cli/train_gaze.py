@@ -1,0 +1,128 @@
+"""Train a gaze-prediction model on the card: the port's counterpart of the
+JAX package's `cli/train_gaze.py`.
+
+    python -m recurrent_gaze_prediction_tpu_torch.cli.train_gaze \\
+        --dataset synthetic --max_steps 200 --train_dir /tmp/rgp
+
+Model registry selection, config overrides (CLI wins), the synthetic
+corpus, fit with auto-resume from `--train_dir`. The train step runs the
+ConvGRU through the CUDA kernels (forward B1, backward B2) on the card.
+
+Not ported yet: the real-data loaders (`--dataset crc|hollywood2|crcxh2`
+stop with an error), ShallowNet grafting, the prefetch thread, profiling,
+the mesh flags, and the final test-split evaluation (it needs the
+evaluator, ROADMAP.md queue A item 12).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Optional
+
+import torch
+
+from ..config import ExperimentConfig
+from ..data import synthetic
+from ..data.datasets import DataSplits
+from ..registry import available_models, create_model
+from ..train import create_train_state, fit
+from ..train.writer import MetricWriter
+from ..utils import log, resolve_device
+
+
+def load_datasets(exp: ExperimentConfig, args) -> DataSplits:
+    gh, gw = exp.model.gazemap_height, exp.model.gazemap_width
+    return synthetic.make_splits(
+        n_train=args.synthetic_clips,
+        n_valid=max(args.synthetic_clips // 2, 2),
+        n_test=max(args.synthetic_clips // 2, 2),
+        t=exp.model.n_lstm_steps, gazemap_hw=(gh, gw), seed=exp.seed)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    parser.add_argument("--model", default="gaze_grcn",
+                        choices=available_models())
+    parser.add_argument("--dataset", default="synthetic",
+                        choices=["crc", "hollywood2", "crcxh2", "synthetic"])
+    parser.add_argument("--synthetic_clips", default=16, type=int)
+    parser.add_argument("--batch_size", default=None, type=int)
+    parser.add_argument("--learning_rate", default=None, type=float)
+    parser.add_argument("--learning_rate_decay", default=None, type=float)
+    parser.add_argument("--accum_steps", default=None, type=int,
+                        help="gradient-accumulation microbatches per "
+                             "optimizer update (memory lever; batch "
+                             "size must divide evenly)")
+    parser.add_argument("--max_steps", default=None, type=int)
+    parser.add_argument("--steps_per_logprint", default=None, type=int,
+                        help="log (and write to metrics.jsonl) every N "
+                             "steps; each log reads the loss back")
+    parser.add_argument("--loss_type", default=None,
+                        choices=[None, "l2", "xentropy", "kld"])
+    parser.add_argument("--n_lstm_steps", default=None, type=int)
+    parser.add_argument("--train_dir", default=None)
+    parser.add_argument("--train_tag", "--tag", default="")
+    parser.add_argument("--compute_dtype", default=None,
+                        choices=[None, "bfloat16", "float32"])
+    parser.add_argument("--seed", default=0, type=int)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device; the default needs a CUDA card")
+    return parser
+
+
+def main(argv: Optional[list[str]] = None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.dataset != "synthetic":
+        parser.error(f"--dataset {args.dataset}: the real-data loaders are "
+                     f"not ported yet (ROADMAP.md queue A item 15); use "
+                     f"--dataset synthetic")
+    device = resolve_device(args.device)
+
+    exp = ExperimentConfig()
+    exp.dataset = args.dataset
+    exp.seed = args.seed
+    exp.train_dir = args.train_dir
+    exp.train_tag = args.train_tag
+    exp.model.name = args.model
+    exp.apply_overrides({
+        "model.batch_size": args.batch_size,
+        "model.loss_type": args.loss_type,
+        "model.n_lstm_steps": args.n_lstm_steps,
+        "model.compute_dtype": args.compute_dtype,
+        "optimizer.initial_learning_rate": args.learning_rate,
+        "optimizer.learning_rate_decay": args.learning_rate_decay,
+        "optimizer.accum_steps": args.accum_steps,
+        "schedule.max_steps": args.max_steps,
+        "schedule.steps_per_logprint": args.steps_per_logprint,
+    })
+
+    model = create_model(args.model, exp.model, device=device,
+                         generator=torch.Generator().manual_seed(exp.seed))
+    exp.model = model.cfg  # registry defaults applied
+
+    log.warn("Loading %s input data ...", exp.dataset)
+    data = load_datasets(exp, args)
+    log.info("%s", data)
+
+    log.warn("Building model %s on %s ...", args.model, device)
+    state, tx = create_train_state(model, exp.optimizer)
+    writer = MetricWriter(exp.train_dir) if exp.train_dir else None
+
+    log.warn("Start fitting ...")
+    try:
+        fit(model, state, tx, data, exp, train_dir=exp.train_dir,
+            metric_writer=writer)
+    finally:
+        if writer:
+            writer.close()
+    if data.test is not None and len(data.test) >= model.cfg.batch_size:
+        log.warn("final test-split evaluation skipped: the evaluator is not "
+                 "ported yet (ROADMAP.md queue A item 12)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -84,12 +84,14 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"   # conv/matmul compute dtype
     param_dtype: str = "float32"
     # Read from configs and manifests written by the JAX package, and has
-    # no effect here: inference on a CUDA tensor always runs the
-    # hand-written ConvGRU kernel (ops/kernels/convgru.py), and a CPU
-    # tensor always runs its plain PyTorch version.
+    # no effect here: inference and training on a CUDA tensor always run
+    # the hand-written ConvGRU kernels (ops/kernels/), and a CPU tensor
+    # always runs their plain PyTorch versions.
     use_pallas: bool = False
     # rematerialize each recurrence step in the backward pass (kept for
-    # manifest compatibility; the port has no training path yet)
+    # manifest compatibility and has no effect: the port's trainable
+    # recurrence saves only the hidden states and recomputes the gates in
+    # its backward either way)
     remat_cells: bool = True
 
     def __post_init__(self):

@@ -8,9 +8,16 @@ deconv decoder. The port's counterpart of the JAX package's
       -> logits [B, T, 49, 49]
 
 and `gaze_grcn77`: the same trunk at 7x7 with a per-cell 128->1 linear
-head and no upsampling. Inference runs the recurrence through the CUDA
-kernel's wrapper (`ops/kernels/convgru.py`); training keeps the
-differentiable plain scan.
+head and no upsampling. Inference runs the recurrence through the forward
+kernel's wrapper (`ops/kernels/convgru.py`); training runs it through the
+autograd Function `convgru_scan_trainable_v2` (forward kernel B1, backward
+kernel B2, `ops/kernels/convgru_vjp2.py`). On a CPU tensor both use their
+kernels' plain versions.
+
+Unlike the JAX package, whose train step keeps the differentiable
+`lax.scan` (its custom VJP was a fusion barrier for XLA on the TPU), the
+port trains through the kernels; `ConvGRU.scan` under autograd stays the
+plain version of the whole trainable recurrence (`train_scan`).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from ..config import ModelConfig
 from ..ops import initializers as init
 from ..ops.cells import ConvGRU
 from ..ops.kernels.convgru import convgru_scan
+from ..ops.kernels.convgru_vjp2 import convgru_scan_trainable_v2
 from ..ops.layers import dropout, linear
 from .common import (GazeModel, apply_c3d_projection, apply_decoder,
                      compute_dtype_of, init_c3d_projection, init_decoder)
@@ -31,6 +39,11 @@ from .common import (GazeModel, apply_c3d_projection, apply_decoder,
 
 class _GRCNTrunk(GazeModel):
     """Projection + ConvGRU shared by both heads."""
+
+    # The recurrence of the train path. An instance may set `ConvGRU.scan`
+    # (plain autograd, the reference the kernels are held against) or
+    # `convgru_scan_trainable` (backward kernel B4) instead.
+    train_scan = staticmethod(convgru_scan_trainable_v2)
 
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator] = None):
@@ -51,7 +64,7 @@ class _GRCNTrunk(GazeModel):
                                         compute_dtype=cdt)  # [B,T,7,7,P]
         xs = embedded.transpose(0, 1)                      # [T,B,7,7,P]
         h0 = ConvGRU.zero_state(b, (7, 7), units, device=c3d.device)
-        scan = ConvGRU.scan if train else convgru_scan
+        scan = self.train_scan if train else convgru_scan
         _, ys = scan(self.cell, xs, h0, compute_dtype=cdt)
         return ys.transpose(0, 1).reshape(b * t, 7, 7, units)
 

@@ -1,2 +1,4 @@
 """Hand-written CUDA kernels of the port (sources in ../../csrc), their
-wrappers, the build, and the on-card parity check."""
+wrappers and autograd Functions, the build, and the on-card parity checks:
+`convgru` (forward, B1), `convgru_vjp2` (backward stage 2, B2, the default
+train path) and `convgru_vjp` (monolithic backward, B4)."""

@@ -1,11 +1,13 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-`load()` compiles every `csrc/*.cu` with `nvcc` into one shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds),
-under `_build/` in the package (listed in .gitignore), and loads it. The
-library's name carries a hash of the sources and flags, so an edited
-source is rebuilt. The first CUDA tensor that reaches a kernel triggers
-the build; a failed build raises with the compiler's output.
+`load()` compiles every `csrc/*.cu` with `nvcc` (one process per source,
+all started together) and links them into one shared library with a plain
+C interface (no PyTorch headers, so a build takes seconds), under `_build/`
+in the package (listed in .gitignore), and loads it. The library's name
+carries a hash of the sources, the shared headers (`csrc/*.cuh`) and the
+flags, so an edited source is rebuilt. The first CUDA tensor that reaches a
+kernel triggers the build; a failed build raises with the compiler's
+output.
 """
 
 from __future__ import annotations
@@ -20,11 +22,13 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -52,22 +56,43 @@ def _sources() -> list[Path]:
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.convgru_fwd.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, vp]
-    lib.convgru_fwd.restype = i
-    lib.convgru_fwd_smem_bytes.argtypes = [i, i, i, i]
-    lib.convgru_fwd_smem_bytes.restype = ctypes.c_size_t
+    vp, i, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    lib.convgru_fwd.argtypes = [vp] * 6 + [i] * 6 + [vp]
+    lib.convgru_bwd.argtypes = [vp] * 10 + [i] * 6 + [vp]
+    lib.convgru_bwd_mono.argtypes = [vp] * 12 + [i] * 6 + [vp]
+    for name in ("convgru_fwd_smem_bytes", "convgru_bwd_smem_bytes",
+                 "convgru_bwd_mono_smem_bytes"):
+        getattr(lib, name).argtypes = [i, i, i, i]
+        getattr(lib, name).restype = size
+    lib.convgru_bwd_mono_workspace_bytes.argtypes = [i] * 5
+    lib.convgru_bwd_mono_workspace_bytes.restype = size
+    for name in ("convgru_fwd", "convgru_bwd", "convgru_bwd_mono"):
+        getattr(lib, name).restype = i
     lib.convgru_fwd_smem_limit.argtypes = []
-    lib.convgru_fwd_smem_limit.restype = ctypes.c_size_t
+    lib.convgru_fwd_smem_limit.restype = size
     lib.convgru_fwd_error_string.argtypes = [i]
     lib.convgru_fwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def _run(procs: list) -> str:
+    """Wait for every (cmd, Popen); raise with the first failure's output."""
+    logs, failed = [], None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out)
+    if failed is not None:
+        cmd, rc, out = failed
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+    return "".join(logs)
+
+
 def _build() -> ctypes.CDLL:
     sources = _sources()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -75,13 +100,21 @@ def _build() -> ctypes.CDLL:
     start = time.perf_counter()
     log = ""
     if not out.exists():
+        nvcc = _nvcc()
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        objects = [BUILD_DIR / f"{src.stem}-{tag}.o" for src in sources]
+        log = _run([(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for src, obj in zip(sources, objects))])
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                "-o", str(tmp), *map(str, objects)]
+        log += _run([(link, subprocess.Popen(
+            link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))])
+        for obj in objects:
+            obj.unlink()
         os.replace(tmp, out)
     lib = _declare(ctypes.CDLL(str(out)))
     last_build.update(seconds=time.perf_counter() - start, log=log,
@@ -96,3 +129,41 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             _lib = _build()
         return _lib
+
+
+def check_shared_memory(kernel: str, h: int, w: int, units: int,
+                        elem_bytes: int) -> None:
+    """Raise if one block of `kernel` needs more shared memory than the
+    card gives a block at this grid and width."""
+    lib = load()
+    need = getattr(lib, f"{kernel}_smem_bytes")(h, w, units, elem_bytes)
+    if need > lib.convgru_fwd_smem_limit():
+        raise ValueError(f"{kernel} needs {need} B of shared memory at H={h} "
+                         f"W={w} U={units} (limit "
+                         f"{lib.convgru_fwd_smem_limit()})")
+
+
+def launch(kernel: str, device: torch.device, *args) -> None:
+    """Call the library's `kernel(*args, stream)` on the current stream of
+    `device`, with that device bound: the batcher launches from its worker
+    thread and autograd runs the backward on its own thread, so neither
+    the thread's current device nor its stream can be relied on. Raises if
+    the launch failed. Temporaries the caller made on that stream may be
+    freed as soon as this returns: the caching allocator hands their memory
+    out again only in that stream's order, after the kernel."""
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, kernel)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: "
+                           f"{lib.convgru_fwd_error_string(err).decode()}")
+
+
+def same_device(kernel: str, *tensors: torch.Tensor) -> torch.device:
+    """The one device all of a kernel's inputs lie on; raises otherwise."""
+    devices = {x.device for x in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{kernel} inputs on several devices: "
+                         f"{sorted(map(str, devices))}")
+    return devices.pop()

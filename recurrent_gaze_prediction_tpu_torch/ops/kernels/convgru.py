@@ -54,36 +54,20 @@ def _launch(u_zr: torch.Tensor, u_c: torch.Tensor, wx: torch.Tensor,
             f"of 16, h0 [B,H,W,U], U_zr [3,3,U,2U], U_c [3,3,U,U]; got "
             f"wx {tuple(wx.shape)}, h0 {tuple(h0.shape)}, U_zr "
             f"{tuple(u_zr.shape)}, U_c {tuple(u_c.shape)}")
-    devices = {x.device for x in (u_zr, u_c, wx, h0)}
-    if len(devices) != 1:
-        raise ValueError(f"convgru kernel inputs on several devices: "
-                         f"{sorted(map(str, devices))}")
-    lib = build.load()
+    device = build.same_device("convgru_fwd", u_zr, u_c, wx, h0)
     elem = _DTYPES[wx.dtype]
-    smem = lib.convgru_fwd_smem_bytes(hh, ww, units, elem)
-    if smem > lib.convgru_fwd_smem_limit():
-        raise ValueError(f"convgru kernel needs {smem} B of shared memory "
-                         f"at H={hh} W={ww} U={units} (limit "
-                         f"{lib.convgru_fwd_smem_limit()})")
+    build.check_shared_memory("convgru_fwd", hh, ww, units, elem)
     wx = wx.contiguous()
     u_zr = u_zr.to(wx.dtype).contiguous()
     u_c = u_c.to(wx.dtype).contiguous()
     h0 = h0.float().contiguous()
     ys = torch.empty((t, b, hh, ww, units), dtype=torch.float32,
-                     device=wx.device)
+                     device=device)
     h_final = torch.empty((b, hh, ww, units), dtype=torch.float32,
-                          device=wx.device)
-    # the batcher launches from its worker thread: bind the device and the
-    # stream explicitly instead of relying on the thread's current ones
-    with torch.cuda.device(wx.device):
-        stream = torch.cuda.current_stream(wx.device).cuda_stream
-        err = lib.convgru_fwd(
-            wx.data_ptr(), u_zr.data_ptr(), u_c.data_ptr(), h0.data_ptr(),
-            ys.data_ptr(), h_final.data_ptr(), t, b, hh, ww, units, elem,
-            stream)
-    if err != 0:
-        raise RuntimeError(f"convgru_fwd launch failed: "
-                           f"{lib.convgru_fwd_error_string(err).decode()}")
+                          device=device)
+    build.launch("convgru_fwd", device, wx.data_ptr(), u_zr.data_ptr(),
+                 u_c.data_ptr(), h0.data_ptr(), ys.data_ptr(),
+                 h_final.data_ptr(), t, b, hh, ww, units, elem)
     with _count_lock:
         launches += 1
     return h_final, ys

@@ -1,11 +1,12 @@
-"""Parity check on the card: the CUDA ConvGRU kernel against its plain
-version (`ConvGRU.scan`), the counterpart of the JAX package's
-`ops/pallas/parity.py`.
+"""Parity checks on the card: the CUDA ConvGRU kernels against their plain
+versions, the counterpart of the JAX package's `ops/pallas/parity.py`.
 
-`convgru_parity()` runs the SAME params and inputs through the kernel's
-wrapper and the plain scan on one device and reports agreement. On a CPU
-device both paths are the plain scan, so only a CUDA run checks the
-kernel (chip_smoke.py).
+`convgru_parity()` runs the SAME params and inputs through the forward
+kernel's wrapper and the plain scan; `backward_parity()` runs the backward
+kernels (B2 `convgru_bwd`, B4 `convgru_bwd_mono`) and their plain versions
+on inputs from a real forward. Each reports agreement. On a CPU device
+both sides are the plain versions, so only a CUDA run checks a kernel
+(chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -15,13 +16,17 @@ import torch
 
 from ...utils import resolve_device
 from ..cells import ConvGRU
-from .convgru import convgru_scan
+from . import convgru_vjp, convgru_vjp2
+from .convgru import convgru_recurrence, convgru_scan
 
 # The gate the JAX package puts on its TPU kernel (bf16 production mode):
 # loose enough for run-to-run and rounding-order noise, tight enough that a
 # wrong gate or a wrong conv shift (corr << 0.99) cannot pass.
 BF16_MAX_REL_DELTA = 0.05
 MIN_CORR = 0.999
+# cell weights of the backward checks: the reference init (1e-4) leaves the
+# recurrence ~0, so the cotangents would barely cross the state convs
+STATE_STDDEV = 0.05
 
 
 def convgru_parity(t: int = 42, b: int = 8, hw: tuple[int, int] = (7, 7),
@@ -73,3 +78,85 @@ def parity_ok(stats: dict, max_rel_delta: float = BF16_MAX_REL_DELTA) -> bool:
     return bool(np.isfinite(stats["corr"]) and stats["corr"] >= MIN_CORR
                 and stats["max_rel_delta"] <= max_rel_delta
                 and stats["final_h_max_delta"] == 0.0)
+
+
+def _agreement(kernel: torch.Tensor, plain: torch.Tensor) -> dict:
+    k = kernel.float().cpu().numpy().ravel()
+    a = plain.float().cpu().numpy().ravel()
+    scale = float(np.abs(a).max()) or 1.0
+    max_delta = float(np.abs(k - a).max())
+    return {"max_delta": max_delta, "max_rel_delta": max_delta / scale,
+            "corr": (float(np.corrcoef(k, a)[0, 1]) if a.std() > 0
+                     else float("nan"))}
+
+
+def backward_inputs(t: int = 42, b: int = 8, c: int = 512, units: int = 128,
+                    compute_dtype=torch.bfloat16, seed: int = 0,
+                    device=None) -> dict:
+    """Inputs of the backward kernels from a real forward: cell weights
+    N(0, STATE_STDDEV), features N(0, 1), wx from the input-side conv, ys
+    from kernel B1 (its plain version on a CPU device), the stage-1 gates
+    recomputed from them, and a random cotangent g of ys."""
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    params = {k: torch.from_numpy((rng.randn(*v.shape) * STATE_STDDEV)
+                                  .astype(np.float32)).to(dev)
+              for k, v in ConvGRU.init(c, units).items()}
+    xs = torch.from_numpy(rng.randn(t, b, 7, 7, c).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.randn(t, b, 7, 7, units).astype(np.float32)).to(
+        dev)
+    with torch.no_grad():
+        fused = ConvGRU.fuse(params)
+        wx = ConvGRU.input_gates(fused, xs, compute_dtype)
+        h0 = ConvGRU.zero_state(b, (7, 7), units, device=dev)
+        _, ys = convgru_recurrence(fused, wx, h0)
+        u, r, cand, hprev, _ = convgru_vjp2.recompute_gates(
+            fused["Uh_zr"], fused["U_c"], wx, h0, ys)
+    return {"uzr": fused["Uh_zr"], "uc": fused["U_c"], "wx": wx, "h0": h0,
+            "ys": ys, "g": g, "u": u, "r": r, "c": cand, "hprev": hprev}
+
+
+def backward_kernel_and_plain(kernel: str, x: dict):
+    """(kernel call, plain call, output names) of a backward kernel on the
+    inputs of `backward_inputs`, as zero-argument functions."""
+    if kernel == "convgru_bwd":
+        args = (x["u"], x["r"], x["c"], x["hprev"], x["g"], x["uzr"],
+                x["uc"], convgru_vjp.mode_of(x["wx"]))
+        return (lambda: convgru_vjp2.dh_bwd(*args),
+                lambda: convgru_vjp2.dh_bwd_plain(*args),
+                ("dzr", "da", "dh0"))
+    if kernel == "convgru_bwd_mono":
+        args = (x["uzr"], x["uc"], x["wx"], x["ys"], x["h0"], x["g"])
+        return (lambda: convgru_vjp.convgru_bwd(*args),
+                lambda: convgru_vjp.convgru_bwd_plain(*args),
+                ("dwx", "dh0", "dU_zr", "dU_c"))
+    raise ValueError(f"unknown backward kernel {kernel!r}")
+
+
+def backward_parity(kernel: str, t: int = 42, b: int = 8, c: int = 512,
+                    units: int = 128, compute_dtype=torch.bfloat16,
+                    seed: int = 0, device=None) -> dict:
+    """Run a backward kernel and its plain version on identical inputs
+    from a real forward at the flagship shapes; agreement per output
+    (`max_rel_delta` against that output's scale, `corr` over all of
+    it)."""
+    x = backward_inputs(t, b, c, units, compute_dtype, seed, device)
+    run_kernel, run_plain, names = backward_kernel_and_plain(kernel, x)
+    with torch.no_grad():
+        got, want = run_kernel(), run_plain()
+    dev = x["wx"].device
+    return {
+        "kernel": kernel,
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+        "compute_dtype": str(compute_dtype).replace("torch.", ""),
+        "shape": {"t": t, "b": b, "c": c, "units": units},
+        "outputs": {n: _agreement(k, a) for n, k, a in zip(names, got, want)},
+    }
+
+
+def backward_parity_ok(stats: dict,
+                       max_rel_delta: float = BF16_MAX_REL_DELTA) -> bool:
+    return all(np.isfinite(o["corr"]) and o["corr"] >= MIN_CORR
+               and o["max_rel_delta"] <= max_rel_delta
+               for o in stats["outputs"].values())

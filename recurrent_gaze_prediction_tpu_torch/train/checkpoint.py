@@ -1,0 +1,115 @@
+"""Checkpoints of the TrainState: the port's counterpart of the JAX
+package's `train/checkpoint.py`, with its layout.
+
+  * `{train_dir}/model/<step>/state.pt` per saved step, the newest
+    `max_to_keep` kept, and `{train_dir}/config.json` beside them
+    (reference layout: checkpoints in `{train_dir}/model/`,
+    `models/base.py:240-253`);
+  * a checkpoint holds {params, opt_state, step} explicitly, so resume is
+    exact, including the LR schedule position. Params and moments are
+    stored under the JAX package's flat names ("cell/W_z"), on the CPU,
+    with `torch.save`.
+
+Reading the JAX package's orbax checkpoints is out of scope: the port does
+not import orbax. Weights cross between the packages through bundles
+(`serving/bundle.py`) and `bridge.py`.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+from typing import Optional
+
+import torch
+
+from ..bridge import jax_name
+from ..config import ExperimentConfig
+from ..utils import log
+from .state import TrainState
+
+_FILE = "state.pt"
+
+
+def _by_jax_name(tensors: dict) -> dict:
+    return {jax_name(n): t.detach().cpu() for n, t in tensors.items()}
+
+
+class Checkpointer:
+    """Save/restore a TrainState under `{train_dir}/model/<step>` with
+    retention, plus config.json beside it."""
+
+    def __init__(self, train_dir: str, max_to_keep: int = 3):
+        self.train_dir = os.path.abspath(train_dir)
+        self.model_dir = os.path.join(self.train_dir, "model")
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.model_dir, exist_ok=True)
+
+    def steps(self) -> list[int]:
+        return sorted(int(d) for d in os.listdir(self.model_dir)
+                      if d.isdigit() and os.path.exists(
+                          os.path.join(self.model_dir, d, _FILE)))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def save(self, state: TrainState) -> None:
+        """Write the state at its step (once per step), then drop all but
+        the newest `max_to_keep` checkpoints."""
+        path = os.path.join(self.model_dir, str(state.step))
+        if os.path.exists(os.path.join(path, _FILE)):
+            return
+        opt = {k: (_by_jax_name(v) if isinstance(v, dict) else v)
+               for k, v in state.opt_state.items()}
+        tmp = f"{path}.tmp{os.getpid()}"
+        os.makedirs(tmp, exist_ok=True)
+        torch.save({"step": state.step, "params": _by_jax_name(state.params),
+                    "opt_state": opt}, os.path.join(tmp, _FILE))
+        os.replace(tmp, path)
+        for old in self.steps()[:-self.max_to_keep]:
+            shutil.rmtree(os.path.join(self.model_dir, str(old)))
+        log.info(" [Checkpoint] saved step %d -> %s", state.step,
+                 self.model_dir)
+
+    def restore(self, step: int, state: TrainState) -> TrainState:
+        """Load checkpoint `step` into `state` (in place: the model's
+        parameters, the moments, the step) and return it."""
+        path = os.path.join(self.model_dir, str(step), _FILE)
+        saved = torch.load(path, map_location="cpu", weights_only=True)
+
+        def copy_into(dst: dict, src: dict, what: str) -> None:
+            want = {jax_name(n) for n in dst}
+            if set(src) != want:
+                raise ValueError(f"checkpoint {path} {what} do not match: "
+                                 f"missing {sorted(want - set(src))}, "
+                                 f"unexpected {sorted(set(src) - want)}")
+            with torch.no_grad():
+                for n, t in dst.items():
+                    t.copy_(src[jax_name(n)])
+
+        copy_into(state.params, saved["params"], "params")
+        for key, value in saved["opt_state"].items():
+            if isinstance(value, dict):
+                copy_into(state.opt_state[key], value, f"opt_state[{key}]")
+            else:
+                state.opt_state[key] = value
+        state.step = int(saved["step"])
+        log.info(" [Checkpoint] restored step %d from %s", step,
+                 self.model_dir)
+        return state
+
+    def restore_latest(self, state: TrainState) -> Optional[TrainState]:
+        step = self.latest_step()
+        return None if step is None else self.restore(step, state)
+
+    def save_config(self, cfg: ExperimentConfig) -> None:
+        config_file = os.path.join(self.train_dir, "config.json")
+        if os.path.exists(config_file):
+            log.warn("config_file %s already exists (skipped)", config_file)
+            return
+        cfg.dump(config_file)
+
+    @staticmethod
+    def load_config(train_dir: str) -> ExperimentConfig:
+        return ExperimentConfig.load(os.path.join(train_dir, "config.json"))

@@ -1,0 +1,191 @@
+"""The port's ConvGRU backward (plain versions of kernels B2 and B4, and the
+autograd Functions around them) against the JAX package on the CPU.
+
+The plain versions are held against the JAX Pallas kernels in interpret
+mode (`_dh_bwd_pallas`, `_convgru_bwd_pallas`) at rtol 1e-4 / atol 1e-5, the
+JAX package's kernel tolerance. The Functions' loss and gradients are held
+against `jax.value_and_grad` of the JAX `ConvGRU.scan` at its gradient
+tolerance, rtol 1e-3 / atol 1e-5 (tests/test_pallas.py). All in f32, cell
+weights scaled x0.3 so the recurrence matters.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from recurrent_gaze_prediction_tpu.ops.cells import ConvGRU as JConvGRU
+from recurrent_gaze_prediction_tpu.ops.pallas import convgru_vjp as jv1
+from recurrent_gaze_prediction_tpu.ops.pallas import convgru_vjp2 as jv2
+from recurrent_gaze_prediction_tpu_torch.ops.cells import ConvGRU
+from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp as v1
+from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp2 as v2
+
+TOL = dict(rtol=1e-4, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-3, atol=1e-5)
+
+
+def _f32(rng, *shape, scale=1.0):
+    return (rng.randn(*shape) * scale).astype(np.float32)
+
+
+def _weights(rng, units):
+    return (_f32(rng, 3, 3, units, 2 * units, scale=0.3),
+            _f32(rng, 3, 3, units, units, scale=0.3))
+
+
+def _assert_all_close(torch_out, jax_out, tol=TOL):
+    assert len(torch_out) == len(jax_out)
+    for i, (t, j) in enumerate(zip(torch_out, jax_out)):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), err_msg=str(i),
+                                   **tol)
+
+
+def test_dh_bwd_plain_matches_jax_kernel_interpret():
+    rng = np.random.RandomState(0)
+    t, b, units = 3, 1, 4
+    shape = (t, b, 7, 7, units)
+    u, r = (1 / (1 + np.exp(-_f32(rng, *shape))) for _ in range(2))
+    c = np.tanh(_f32(rng, *shape))
+    hprev, g = _f32(rng, *shape, scale=0.5), _f32(rng, *shape)
+    arrays = [x.astype(np.float32) for x in (u, r, c, hprev, g)]
+    arrays += _weights(rng, units)
+    want = jv2._dh_bwd_pallas(*map(jnp.asarray, arrays), interpret=True)
+    got = v2.dh_bwd_plain(*map(torch.from_numpy, arrays))
+    _assert_all_close(got, want)
+
+
+def test_convgru_bwd_plain_matches_jax_kernel_interpret():
+    rng = np.random.RandomState(1)
+    t, b, units = 3, 1, 4
+    uzr, uc = _weights(rng, units)
+    wx = _f32(rng, t, b, 7, 7, 3 * units)
+    ys = _f32(rng, t, b, 7, 7, units, scale=0.5)
+    h0 = _f32(rng, b, 7, 7, units, scale=0.5)
+    g = _f32(rng, t, b, 7, 7, units)
+    arrays = (uzr, uc, wx, ys, h0, g)
+    want = jv1._convgru_bwd_pallas(*map(jnp.asarray, arrays), interpret=True)
+    got = v1.convgru_bwd_plain(*map(torch.from_numpy, arrays))
+    _assert_all_close(got, want)  # dwx, dh0, dU_zr, dU_c
+
+
+def test_conv_helpers_match_jax():
+    rng = np.random.RandomState(2)
+    g = _f32(rng, 2, 7, 7, 6)
+    x = _f32(rng, 2, 7, 7, 5)
+    kernel = _f32(rng, 3, 3, 5, 6)
+    np.testing.assert_allclose(
+        v1.conv3x3_transpose(torch.from_numpy(g),
+                             torch.from_numpy(kernel)).numpy(),
+        np.asarray(jv1._conv3x3_transpose(jnp.asarray(g),
+                                          jnp.asarray(kernel))), **TOL)
+    want = jv1._conv3x3_kernel_grad(jnp.asarray(x), jnp.asarray(g))
+    got = v1.kernel_grad(torch.from_numpy(x), torch.from_numpy(g))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # the batched form over [T, B, ...] sums over both leading axes
+    xs, gs = x.reshape(1, 2, 7, 7, 5), g.reshape(1, 2, 7, 7, 6)
+    np.testing.assert_allclose(
+        v1.kernel_grad(torch.from_numpy(xs), torch.from_numpy(gs)).numpy(),
+        np.asarray(jv2._kernel_grad(jnp.asarray(xs), jnp.asarray(gs))),
+        **TOL)
+
+
+def _scan_problem(seed):
+    rng = np.random.RandomState(seed)
+    t, b, cdim, units = 5, 2, 8, 4
+    shapes = {k: v.shape for k, v in ConvGRU.init(cdim, units).items()}
+    params = {k: _f32(rng, *s, scale=0.3) for k, s in shapes.items()}
+    xs = _f32(rng, t, b, 7, 7, cdim)
+    h0 = np.zeros((b, 7, 7, units), np.float32)
+    target = _f32(rng, t, b, 7, 7, units)
+    return params, xs, h0, target
+
+
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_trainable_scan_matches_jax_value_and_grad(version):
+    params, xs, h0, target = _scan_problem(seed=7)
+
+    def j_loss(p):
+        _, ys = JConvGRU.scan(p, jnp.asarray(xs), jnp.asarray(h0))
+        return jnp.sum((ys - jnp.asarray(target)) ** 2)
+
+    j_val, j_grads = jax.value_and_grad(j_loss)(
+        {k: jnp.asarray(v) for k, v in params.items()})
+
+    scan = {"v1": v1.convgru_scan_trainable,
+            "v2": v2.convgru_scan_trainable_v2}[version]
+    tparams = {k: torch.from_numpy(v).requires_grad_()
+               for k, v in params.items()}
+    before = (v1.launches, v2.launches)
+    final, ys = scan(tparams, torch.from_numpy(xs), torch.from_numpy(h0),
+                     compute_dtype=torch.float32)
+    loss = ((ys - torch.from_numpy(target)) ** 2).sum()
+    loss.backward()
+    assert (v1.launches, v2.launches) == before  # CPU: plain versions
+    assert torch.equal(final, ys[-1])
+    np.testing.assert_allclose(loss.item(), float(j_val), rtol=1e-5)
+    for k, p in tparams.items():
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(j_grads[k]),
+                                   err_msg=k, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_trainable_scan_bf16_tracks_plain_autograd(version):
+    """In bf16 the Functions round every conv operand to bf16 and sum in
+    f32, where plain autograd of `ConvGRU.scan` also rounds each conv
+    result to bf16: they agree to bf16 resolution (the parity gate)."""
+    params, xs, h0, target = _scan_problem(seed=8)
+    scan = {"v1": v1.convgru_scan_trainable,
+            "v2": v2.convgru_scan_trainable_v2}[version]
+    grads = []
+    for fn in (ConvGRU.scan, scan):
+        tparams = {k: torch.from_numpy(v).requires_grad_()
+                   for k, v in params.items()}
+        _, ys = fn(tparams, torch.from_numpy(xs), torch.from_numpy(h0),
+                   compute_dtype=torch.bfloat16)
+        ((ys - torch.from_numpy(target)) ** 2).sum().backward()
+        grads.append({k: p.grad.float().numpy() for k, p in tparams.items()})
+    for k in params:
+        a, b = grads[0][k].ravel(), grads[1][k].ravel()
+        assert np.corrcoef(a, b)[0, 1] >= 0.999, k
+        assert np.abs(a - b).max() <= 0.05 * np.abs(a).max(), k
+
+
+def test_backward_wrappers_on_cpu_are_the_plain_versions():
+    rng = np.random.RandomState(3)
+    t, b, units = 2, 2, 4
+    uzr, uc = (torch.from_numpy(w) for w in _weights(rng, units))
+    wx = torch.from_numpy(_f32(rng, t, b, 7, 7, 3 * units))
+    ys = torch.from_numpy(_f32(rng, t, b, 7, 7, units, scale=0.5))
+    h0 = torch.from_numpy(_f32(rng, b, 7, 7, units, scale=0.5))
+    g = torch.from_numpy(_f32(rng, t, b, 7, 7, units))
+    before = (v1.launches, v2.launches)
+    for got, want in zip(v1.convgru_bwd(uzr, uc, wx, ys, h0, g),
+                         v1.convgru_bwd_plain(uzr, uc, wx, ys, h0, g)):
+        assert torch.equal(got, want)
+    streams = [torch.sigmoid(ys), torch.sigmoid(-ys), torch.tanh(ys),
+               ys, g]
+    for got, want in zip(v2.dh_bwd(*streams, uzr, uc),
+                         v2.dh_bwd_plain(*streams, uzr, uc)):
+        assert torch.equal(got, want)
+    assert (v1.launches, v2.launches) == before
+
+
+@pytest.mark.parametrize("kernel,outputs", [
+    ("convgru_bwd", {"dzr", "da", "dh0"}),
+    ("convgru_bwd_mono", {"dwx", "dh0", "dU_zr", "dU_c"}),
+])
+def test_backward_parity_harness_runs_on_cpu(kernel, outputs):
+    """On the CPU both sides of `backward_parity` are the plain version;
+    this pins the harness itself (inputs from a real forward, stats, the
+    gate)."""
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels.parity import (
+        backward_parity, backward_parity_ok)
+
+    stats = backward_parity(kernel, t=2, b=2, c=8, units=16, device="cpu")
+    assert set(stats["outputs"]) == outputs
+    assert all(o["max_delta"] == 0.0 for o in stats["outputs"].values())
+    assert backward_parity_ok(stats)
+    with pytest.raises(ValueError, match="unknown"):
+        backward_parity("convlstm", t=1, b=1, c=8, units=16, device="cpu")

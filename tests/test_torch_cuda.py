@@ -1,5 +1,6 @@
-"""Tests that need a CUDA card: the hand-written ConvGRU kernel against its
-plain PyTorch version at shapes chip_smoke.py does not cover. They skip
+"""Tests that need a CUDA card: the hand-written ConvGRU kernels (forward
+B1, backward B2 and B4) against their plain PyTorch versions at shapes
+chip_smoke.py does not cover. They skip
 without a card. This file imports torch only (no jax), so on a machine
 with a card it runs without the JAX test harness:
 
@@ -13,6 +14,8 @@ import torch
 
 from recurrent_gaze_prediction_tpu_torch.ops.cells import ConvGRU
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru as kconv
+from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp as v1
+from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp2 as v2
 
 pytestmark = pytest.mark.cuda
 
@@ -80,3 +83,99 @@ def test_convgru_kernel_rejects_shapes_it_does_not_take(cuda_no_tf32):
     fused, wx, h0 = _inputs(2, 1, (7, 7), 8, torch.bfloat16, cuda_no_tf32)
     with pytest.raises(ValueError, match="multiple of 16"):
         kconv.convgru_recurrence(fused, wx, h0)
+
+
+SHAPES = [(1, 1, (7, 7), 16), (4, 3, (7, 7), 32), (3, 2, (5, 9), 48),
+          (3, 8, (7, 7), 128)]
+
+
+def _assert_close(kernel, plain, dtype):
+    k, a = kernel.float().cpu().numpy(), plain.float().cpu().numpy()
+    if dtype == torch.float32:
+        # summation order only; its error scales with the size of the
+        # summed terms (the weight gradients sum ~T*B*49*9 of them), so
+        # the absolute part is relative to the output's scale
+        np.testing.assert_allclose(k, a, rtol=1e-4,
+                                   atol=1e-5 * max(1.0, np.abs(a).max()))
+    else:
+        # both round every conv operand to bf16 and sum in f32; they differ
+        # by summation order and by single-ulp flips where an elementwise
+        # f32 value rounds differently: the parity gate's bound
+        assert np.abs(k - a).max() <= 0.05 * np.abs(a).max()
+        assert np.corrcoef(k.ravel(), a.ravel())[0, 1] >= 0.999
+
+
+def _gates(t, b, hw, units, device, seed):
+    rng = np.random.RandomState(seed)
+    shape = (t, b, *hw, units)
+    u, r = (1 / (1 + np.exp(-rng.randn(*shape))) for _ in range(2))
+    c = np.tanh(rng.randn(*shape))
+    hprev, g = rng.randn(*shape) * 0.5, rng.randn(*shape)
+    return [torch.from_numpy(x.astype(np.float32)).to(device)
+            for x in (u, r, c, hprev, g)]
+
+
+@pytest.mark.parametrize("t,b,hw,units", SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_convgru_bwd_kernel_matches_plain(cuda_no_tf32, t, b, hw, units,
+                                          dtype):
+    fused, _, _ = _inputs(t, b, hw, units, dtype, cuda_no_tf32)
+    streams = _gates(t, b, hw, units, cuda_no_tf32, seed=1)
+    cdt = None if dtype == torch.float32 else dtype
+    before = v2.launches
+    got = v2.dh_bwd(*streams, fused["Uh_zr"], fused["U_c"], cdt)
+    want = v2.dh_bwd_plain(*streams, fused["Uh_zr"], fused["U_c"], cdt)
+    torch.cuda.synchronize()
+    assert v2.launches == before + 1
+    for k, a in zip(got, want):
+        assert k.shape == a.shape and k.dtype == torch.float32
+        _assert_close(k, a, dtype)
+
+
+@pytest.mark.parametrize("t,b,hw,units", SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_convgru_bwd_mono_kernel_matches_plain(cuda_no_tf32, t, b, hw, units,
+                                               dtype):
+    fused, wx, h0 = _inputs(t, b, hw, units, dtype, cuda_no_tf32)
+    with torch.no_grad():
+        _, ys = kconv.convgru_recurrence(fused, wx, h0)
+    g = _gates(t, b, hw, units, cuda_no_tf32, seed=2)[-1]
+    before = v1.launches
+    got = v1.convgru_bwd(fused["Uh_zr"], fused["U_c"], wx, ys, h0, g)
+    want = v1.convgru_bwd_plain(fused["Uh_zr"], fused["U_c"], wx, ys, h0, g)
+    torch.cuda.synchronize()
+    assert v1.launches == before + 1
+    for k, a in zip(got, want):
+        assert k.shape == a.shape and k.dtype == torch.float32
+        _assert_close(k, a, dtype)
+
+
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_trainable_scan_grads_match_plain_autograd(cuda_no_tf32, version):
+    """Both autograd Functions on the card against autograd of the plain
+    `ConvGRU.scan`, in f32."""
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels.convgru_vjp import (
+        convgru_scan_trainable)
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels.convgru_vjp2 import (
+        convgru_scan_trainable_v2)
+
+    scan = {"v1": convgru_scan_trainable, "v2": convgru_scan_trainable_v2}[
+        version]
+    rng = np.random.RandomState(3)
+    t, b, c, units = 5, 2, 24, 32
+    params = {k: torch.from_numpy((rng.randn(*v.shape) * 0.1).astype(
+        np.float32)).to(cuda_no_tf32).requires_grad_()
+        for k, v in ConvGRU.init(c, units).items()}
+    xs = torch.from_numpy(rng.randn(t, b, 7, 7, c).astype(np.float32)).to(
+        cuda_no_tf32)
+    h0 = ConvGRU.zero_state(b, (7, 7), units, device=cuda_no_tf32)
+    target = torch.from_numpy(rng.randn(t, b, 7, 7, units).astype(
+        np.float32)).to(cuda_no_tf32)
+    grads = []
+    for fn in (ConvGRU.scan, scan):
+        _, ys = fn(params, xs, h0, compute_dtype=torch.float32)
+        loss = ((ys - target) ** 2).sum()
+        grads.append(torch.autograd.grad(loss, list(params.values())))
+    for name, a, k in zip(params, *grads):
+        np.testing.assert_allclose(k.cpu().numpy(), a.cpu().numpy(),
+                                   rtol=1e-3, atol=1e-4, err_msg=name)
