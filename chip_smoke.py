@@ -9,13 +9,21 @@ In order, failing (exit 1) on the first check that does not hold:
      together) and prints the build time;
   3. holds each kernel against its plain PyTorch version in bf16 under the
      JAX package's gate, and in f32 with TF32 off: the forward recurrence
-     B1 (`convgru_parity`, T=42, B=8, 512->128), then the backward kernels
+     B1 (`convgru_parity`, T=42, B=8, 512->128), the backward kernels
      B2 `convgru_bwd` and B4 `convgru_bwd_mono` (`backward_parity`, the
-     same shapes, on inputs from a real forward);
-  4. serves a full-width gaze_grcn (1024->512->128, T=42, 49x49 maps, bf16,
-     seeded random weights) over HTTP from a bundle: concurrent single-clip
-     POSTs, each reply checked against a plain-scan predict of the same
-     clip, and B1's launch count over that run checked;
+     same shapes, on inputs from a real forward), then the peephole
+     ConvLSTM forward B3 (`convlstm_parity`, the same shapes, nonzero
+     carries, the final c checked too);
+  4. serves full-width gaze_grcn, then gaze_lstm (1024->512->128, T=42,
+     49x49 maps, bf16, seeded random weights) over HTTP from a bundle:
+     concurrent single-clip POSTs, each reply checked against a plain-scan
+     predict of the same clip, and the kernels' launch counts over each run
+     checked (B1 for gaze_grcn, B3 for gaze_lstm);
+  4b. streams a 100-frame feature stream through both models in chunks of
+     42 with the state carried (`streaming.stream_video` for gaze_grcn,
+     `lstm_stream_step` for gaze_lstm): the maps match one plain pass over
+     all 100 frames, each chunk launches its kernel once, and the second
+     chunk differs from a zero-state restart;
   5. trains full-width gaze_grcn through the normal entry point
      (`cli.train_gaze`, B=28, T=42, bf16, synthetic corpus): the loss is
      finite at every step and falls, B1 and B2 launch once per step, a
@@ -24,9 +32,10 @@ In order, failing (exit 1) on the first check that does not hold:
   6. checks the train step's gradients at full width, through either
      backward, against plain autograd of `ConvGRU.scan` on one batch;
   7. times the kernels and their plain versions (B=8, B=16), the feature-fed
-     predict (B=16), the HTTP requests, and the train step (B=28) through
-     the kernels and through plain autograd with a breakdown, with CUDA
-     events or the host clock after warm-up;
+     predict of both models (B=16) with a breakdown, the HTTP requests, the
+     streaming chunk steps (B=1), and the train step (B=28) through the
+     kernels and through plain autograd with a breakdown, with CUDA events
+     or the host clock after warm-up;
   8. prints the kernels' JSON line, then, last, the device JSON line.
 """
 
@@ -50,16 +59,18 @@ from recurrent_gaze_prediction_tpu_torch import registry
 from recurrent_gaze_prediction_tpu_torch.cli import train_gaze
 from recurrent_gaze_prediction_tpu_torch.config import OptimizerConfig
 from recurrent_gaze_prediction_tpu_torch.data import synthetic
+from recurrent_gaze_prediction_tpu_torch.models import streaming
 from recurrent_gaze_prediction_tpu_torch.models.common import (
     apply_c3d_projection, apply_decoder)
-from recurrent_gaze_prediction_tpu_torch.ops.cells import ConvGRU
+from recurrent_gaze_prediction_tpu_torch.ops.cells import ConvGRU, ConvLSTM
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import build
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru as kconv
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp as v1
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp2 as v2
+from recurrent_gaze_prediction_tpu_torch.ops.kernels import convlstm as klstm
 from recurrent_gaze_prediction_tpu_torch.ops.kernels.parity import (
     MIN_CORR, backward_inputs, backward_kernel_and_plain, backward_parity,
-    backward_parity_ok, convgru_parity, parity_ok)
+    backward_parity_ok, convgru_parity, convlstm_parity, parity_ok)
 from recurrent_gaze_prediction_tpu_torch.ops.normalize import softmax_2d
 from recurrent_gaze_prediction_tpu_torch.serving import (
     load_bundle, save_bundle, server_from_bundle)
@@ -73,6 +84,8 @@ N_REQUESTS = 8
 TRAIN_BATCH = 28  # the reference's training batch (cli/train_gaze.py:135)
 TRAIN_STEPS = 20
 MONO_STEPS = 3    # train steps through the B4 backward
+STREAM_FRAMES = 100  # a feature stream longer than two chunks
+STREAM_CHUNK = 42    # the tail chunk (16 frames) is padded and trimmed
 UNITS = 128
 # f32 mode: the kernel's scalar f32 FMAs against cuDNN's f32 convs with
 # TF32 off differ only in summation order (~1e-7 per step), amplified by
@@ -196,6 +209,27 @@ def kernel_timing(fused: dict, b: int, rng: np.random.RandomState) -> dict:
     return {"ms": ms, "plain_ms": plain_ms, **bound(flops, nbytes)}
 
 
+def lstm_kernel_timing(fused: dict, b: int, rng: np.random.RandomState
+                       ) -> dict:
+    """Kernel B3 and its plain version on the same precomputed gates."""
+    dev = torch.device("cuda")
+    c = fused["Wx"].shape[2]
+    units = fused["W_ci"].shape[-1]
+    xs = torch.from_numpy(
+        rng.randn(T, b, 7, 7, c).astype(np.float32)).to(dev)
+    carry = ConvLSTM.zero_state(b, (7, 7), units, device=dev)
+    with torch.inference_mode():
+        gx = ConvLSTM.input_gates(fused, xs, torch.bfloat16)
+        ms = cuda_ms(lambda: klstm.convlstm_recurrence(fused, gx, *carry), 20)
+        plain_ms = cuda_ms(lambda: ConvLSTM.scan_precomputed(
+            fused, gx, carry, torch.bfloat16), 5)
+    flops = T * b * 49 * 9 * units * 4 * units * 2
+    nbytes = (gx.numel() * 2 + T * b * 49 * units * 4          # gx, ys
+              + fused["Wh"].numel() * 2 + 3 * 49 * units * 4   # Wh, peeps
+              + 4 * b * 49 * units * 4)                        # c0 h0 cT hT
+    return {"ms": ms, "plain_ms": plain_ms, **bound(flops, nbytes)}
+
+
 def bound(flops: float, nbytes: float) -> dict:
     """The least time the card could take: the larger of the operations
     over the bf16 peak and the bytes (each input read once, each output
@@ -230,30 +264,37 @@ def backward_timing(kernel: str, b: int, seed: int) -> dict:
     return {"ms": ms, "plain_ms": plain_ms, **bound(flops, nbytes)}
 
 
-def plain_predict(model, c3d: torch.Tensor) -> torch.Tensor:
-    """gaze_grcn's predict with the recurrence run by the plain
-    `ConvGRU.scan` (bf16 compute, no dropout): the reference the served
-    maps are held against."""
+def plain_logits(model, c3d: torch.Tensor) -> torch.Tensor:
+    """gaze_grcn's or gaze_lstm's logits with the recurrence run by the
+    plain `ConvGRU.scan` / `ConvLSTM.scan` (bf16 compute, no dropout): the
+    reference the served and streamed maps are held against."""
     cdt = torch.bfloat16
     b, t = c3d.shape[:2]
     stage = dict(keep_prob=1.0, generator=None, train=False,
                  compute_dtype=cdt)
+    lstm = model.cfg.name == "gaze_lstm"
+    cell = ConvLSTM if lstm else ConvGRU
     with torch.no_grad():
         xs = apply_c3d_projection(model.c3d_proj, c3d, **stage).transpose(
             0, 1)
-        h0 = ConvGRU.zero_state(b, (7, 7), UNITS, device=c3d.device)
-        _, ys = ConvGRU.scan(model.cell, xs, h0, compute_dtype=cdt)
+        state0 = cell.zero_state(b, (7, 7), UNITS, device=c3d.device)
+        _, ys = cell.scan(model.cell, xs, state0, compute_dtype=cdt)
         folded = ys.transpose(0, 1).reshape(b * t, 7, 7, UNITS)
-        return softmax_2d(apply_decoder(model.decoder, folded, **stage)
-                          .reshape(b, t, 49, 49))
+        return apply_decoder(model.decoder, folded, **stage).reshape(
+            b, t, 49, 49)
 
 
-def full_width_model():
-    """gaze_grcn at the registry's full width, bf16, seeded random weights
-    with the ConvGRU weights at N(0, STATE_STDDEV)."""
+def plain_predict(model, c3d: torch.Tensor) -> torch.Tensor:
+    return softmax_2d(plain_logits(model, c3d))
+
+
+def full_width_model(name: str = "gaze_grcn"):
+    """gaze_grcn or gaze_lstm at the registry's full width, bf16, seeded
+    random weights with the recurrent cell's weights at N(0,
+    STATE_STDDEV)."""
     gen = torch.Generator().manual_seed(SEED)
     model = registry.create_model(
-        "gaze_grcn", dim_feature=1024, dim_cnn_proj=512,
+        name, dim_feature=1024, dim_cnn_proj=512,
         rnn_state_size=UNITS, n_lstm_steps=T, gazemap_height=49,
         gazemap_width=49, compute_dtype="bfloat16", device="cuda",
         generator=gen)
@@ -264,13 +305,158 @@ def full_width_model():
 
 
 def reset_launches() -> None:
-    kconv.launches = v2.launches = v1.launches = 0
+    kconv.launches = v2.launches = v1.launches = klstm.launches = 0
 
 
 def read_launches() -> dict:
     torch.cuda.synchronize()
     return {"convgru_fwd": kconv.launches, "convgru_bwd": v2.launches,
-            "convgru_bwd_mono": v1.launches}
+            "convgru_bwd_mono": v1.launches, "convlstm_fwd": klstm.launches}
+
+
+# the forward kernel each served or streamed model runs
+FORWARD_KERNEL = {"gaze_grcn": "convgru_fwd", "gaze_lstm": "convlstm_fwd"}
+
+
+def serve_and_check(model, frames: np.ndarray, c3d: np.ndarray,
+                    card: str) -> dict:
+    """Serve `model` over HTTP from a bundle it writes; POST every clip at
+    once and check each reply against a plain-scan predict of the same
+    clip, and that the model's forward kernel, and no other, launched
+    once per batcher call. Then POST them again for the latency."""
+    name = model.cfg.name
+    kernel = FORWARD_KERNEL[name]
+    with tempfile.TemporaryDirectory() as tmp:
+        save_bundle(f"{tmp}/bundle", model)
+        server = server_from_bundle(f"{tmp}/bundle", device="cuda",
+                                    max_batch=32, max_wait_ms=50.0).start()
+        try:
+            host, port = server.address
+            url = f"http://{host}:{port}"
+            reset_launches()
+            served = post_all(f"{url}/predict", frames, c3d)
+            launches = read_launches()
+            with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            print(f"serving {name}: {len(c3d)} concurrent requests, healthz "
+                  f"{health}, kernel launches {launches}", flush=True)
+            check(launches[kernel] >= 1, f"serving {name} never launched "
+                                         f"{kernel}")
+            check(health["requests"] == len(c3d)
+                  and launches[kernel] == health["calls"]
+                  and sum(launches.values()) == launches[kernel],
+                  f"serving {name}: healthz {health} does not count the "
+                  f"{len(c3d)} requests / {kernel} launches {launches}")
+
+            reference = load_bundle(f"{tmp}/bundle", device="cuda")
+            plain = plain_predict(reference, torch.from_numpy(c3d).cuda())
+            plain = plain.cpu().numpy()
+            for i, (status, maps, _) in enumerate(served):
+                check(status == 200, f"{name} request {i}: HTTP {status}")
+                check(maps.shape == (T, 49, 49),
+                      f"{name} request {i}: gazemaps shape {maps.shape}")
+                check(bool(np.isfinite(maps).all()),
+                      f"{name} request {i}: non-finite maps")
+                sums = maps.reshape(T, -1).sum(-1)
+                check(bool(np.abs(sums - 1.0).max() <= 1e-3),
+                      f"{name} request {i}: map sums off 1 by "
+                      f"{np.abs(sums - 1.0).max()}")
+                c = corr(maps, plain[i])
+                check(c >= MAP_MIN_CORR,
+                      f"{name} request {i}: corr {c} vs the plain path")
+            min_corr = min(corr(m, plain[i])
+                           for i, (_, m, _) in enumerate(served))
+            print(f"serving {name}: all {len(c3d)} replies HTTP 200, "
+                  f"[{T},49,49] finite, sums 1 within 1e-3, min corr vs "
+                  f"plain path {min_corr:.6f} [{card}]", flush=True)
+
+            again = post_all(f"{url}/predict", frames, c3d)
+            http_ms = statistics.median(s for _, _, s in again) * 1e3
+        finally:
+            server.close()
+    return {"launches": launches, "http_ms": http_ms, "min_corr": min_corr}
+
+
+def stream_fns(model):
+    """The model's streaming step and a function giving its zero state at
+    B=1 on the model's device."""
+    lstm = model.cfg.name == "gaze_lstm"
+    init = (streaming.init_lstm_stream_state if lstm
+            else streaming.init_stream_state)
+    dev = next(model.parameters()).device
+    return ((streaming.lstm_stream_step if lstm
+             else streaming.grcn_stream_step),
+            lambda: init(1, model.cfg, device=dev))
+
+
+def stream_chunks(model, feats: np.ndarray, restart: bool = False) -> list:
+    """The feature stream [F,1024,7,7] in chunks of STREAM_CHUNK through
+    the model's streaming step, as a user drives it: gaze_grcn through
+    `stream_video`; gaze_lstm through `lstm_stream_step` with the tail
+    chunk zero-padded and trimmed. `restart` starts every chunk from the
+    zero state (the reference's behaviour)."""
+    if model.cfg.name == "gaze_grcn" and not restart:
+        return list(streaming.stream_video(model, feats,
+                                           chunk_len=STREAM_CHUNK))
+    step, init = stream_fns(model)
+    state = init()
+    out = []
+    for start in range(0, len(feats), STREAM_CHUNK):
+        chunk = feats[start:start + STREAM_CHUNK]
+        valid = len(chunk)
+        chunk = np.concatenate([chunk, np.zeros(
+            (STREAM_CHUNK - valid,) + chunk.shape[1:], np.float32)])
+        new_state, maps = step(model, state,
+                               torch.from_numpy(chunk[None]).cuda())
+        state = init() if restart else new_state
+        out.append(maps[0, :valid].cpu().numpy())
+    return out
+
+
+def stream_and_check(name: str, feats: np.ndarray, card: str) -> dict:
+    """Stream `feats` through full-width `name` with the state carried;
+    hold the maps against one plain pass over all the frames, count the
+    kernel's launches, and show that context flows across chunks."""
+    model = full_width_model(name)
+    kernel = FORWARD_KERNEL[name]
+    n_chunks = -(-len(feats) // STREAM_CHUNK)
+    reset_launches()
+    chunks = stream_chunks(model, feats)
+    launches = read_launches()
+    streamed = np.concatenate(chunks)
+    full = plain_logits(model, torch.from_numpy(feats[None]).cuda())
+    full = full[0].cpu().numpy()
+    restarted = np.concatenate(stream_chunks(model, feats, restart=True))
+    c = corr(streamed, full)
+    second = slice(STREAM_CHUNK, 2 * STREAM_CHUNK)
+    context = float(np.abs(streamed[second] - restarted[second]).max()
+                    / np.abs(streamed[second]).max())
+    print(f"streaming {name}: {len(feats)} frames in chunks of "
+          f"{STREAM_CHUNK} -> {[len(x) for x in chunks]}, corr vs one plain "
+          f"pass {c:.6f}, launches {launches}, second chunk vs zero-state "
+          f"restart max rel delta {context:.4g} [{card}]", flush=True)
+    check(streamed.shape == (len(feats), 49, 49)
+          and bool(np.isfinite(streamed).all()),
+          f"streaming {name}: maps {streamed.shape}, finite "
+          f"{bool(np.isfinite(streamed).all())}")
+    check(c >= MAP_MIN_CORR, f"streaming {name}: corr {c} vs one pass")
+    check(launches[kernel] == n_chunks
+          and sum(launches.values()) == n_chunks,
+          f"streaming {name}: launches {launches}, want {n_chunks} of "
+          f"{kernel}")
+    check(context > 1e-3, f"streaming {name}: the second chunk equals a "
+                          f"zero-state restart (max rel delta {context})")
+    return {"model": model, "launches": launches, "corr": c}
+
+
+def stream_timing(model) -> float:
+    """ms per STREAM_CHUNK-frame chunk of the model's streaming step at
+    B=1, the state carried from a real chunk."""
+    step, init = stream_fns(model)
+    chunk = torch.from_numpy(np.random.RandomState(SEED + 7).randn(
+        1, STREAM_CHUNK, 1024, 7, 7).astype(np.float32)).cuda()
+    state, _ = step(model, init(), chunk)
+    return cuda_ms(lambda: step(model, state, chunk), 10)
 
 
 def train_through_cli(card: str) -> dict:
@@ -304,7 +490,8 @@ def train_through_cli(card: str) -> dict:
           f"loss did not fall: first {losses[0]}, mean of the last 5 "
           f"{statistics.mean(losses[-5:])}")
     check(launches == {"convgru_fwd": TRAIN_STEPS,
-                       "convgru_bwd": TRAIN_STEPS, "convgru_bwd_mono": 0},
+                       "convgru_bwd": TRAIN_STEPS, "convgru_bwd_mono": 0,
+                       "convlstm_fwd": 0},
           f"launches over {TRAIN_STEPS} train steps: {launches}")
     check(saved == [TRAIN_STEPS], f"checkpoints written: {saved}")
     return {"launches": launches, "losses": losses}
@@ -330,7 +517,7 @@ def train_through_mono(model, batch: dict) -> dict:
           flush=True)
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(launches == {"convgru_fwd": MONO_STEPS, "convgru_bwd": 0,
-                       "convgru_bwd_mono": MONO_STEPS},
+                       "convgru_bwd_mono": MONO_STEPS, "convlstm_fwd": 0},
           f"launches over {MONO_STEPS} train steps: {launches}")
     return {"launches": launches, "losses": losses}
 
@@ -448,23 +635,30 @@ def train_step_timing(model, raw: dict) -> dict:
 
 
 def predict_breakdown(model, c3d: torch.Tensor) -> dict:
-    """CUDA-event times of the stages of gaze_grcn's predict, each run
-    alone on the outputs of the stage before (bf16 compute)."""
+    """CUDA-event times of the stages of gaze_grcn's or gaze_lstm's
+    predict, each run alone on the outputs of the stage before (bf16
+    compute)."""
     cdt = torch.bfloat16
     b, t = c3d.shape[:2]
     units = model.cfg.rnn_state_size
     stage = dict(keep_prob=1.0, generator=None, train=False,
                  compute_dtype=cdt)
+    lstm = model.cfg.name == "gaze_lstm"
+    cell = ConvLSTM if lstm else ConvGRU
     with torch.inference_mode():
-        fused = ConvGRU.fuse(model.cell)
-        h0 = ConvGRU.zero_state(b, (7, 7), units, device=c3d.device)
+        fused = cell.fuse(model.cell)
+        state0 = cell.zero_state(b, (7, 7), units, device=c3d.device)
         fns = {"projection": lambda: apply_c3d_projection(
             model.c3d_proj, c3d, **stage)}
         xs = fns["projection"]().transpose(0, 1)
-        fns["input_gates"] = lambda: ConvGRU.input_gates(fused, xs, cdt)
-        wx = fns["input_gates"]()
-        fns["recurrence_kernel"] = lambda: kconv.convgru_recurrence(
-            fused, wx, h0)
+        fns["input_gates"] = lambda: cell.input_gates(fused, xs, cdt)
+        gates = fns["input_gates"]()
+        if lstm:
+            fns["recurrence_kernel"] = lambda: klstm.convlstm_recurrence(
+                fused, gates, *state0)
+        else:
+            fns["recurrence_kernel"] = lambda: kconv.convgru_recurrence(
+                fused, gates, state0)
         folded = fns["recurrence_kernel"]()[1].transpose(0, 1).reshape(
             b * t, 7, 7, units)
         fns["decoder_softmax"] = lambda: softmax_2d(apply_decoder(
@@ -515,59 +709,35 @@ def main() -> int:
               f"{kernel} f32 parity failed (corr >= {MIN_CORR}, "
               f"max_rel_delta <= {F32_MAX_REL_DELTA}): {stats32}")
         bwd_parity[kernel] = stats
+    lstm_bf16 = convlstm_parity(t=T, b=8, device="cuda")
+    print(f"parity convlstm_fwd bf16: {json.dumps(lstm_bf16)}", flush=True)
+    check(parity_ok(lstm_bf16), f"convlstm_fwd bf16 parity gate failed "
+                                f"(ys and final c): {lstm_bf16}")
+    with tf32_off():
+        lstm_f32 = convlstm_parity(t=T, b=8, compute_dtype=torch.float32,
+                                   device="cuda")
+    print(f"parity convlstm_fwd f32 (TF32 off): {json.dumps(lstm_f32)}",
+          flush=True)
+    check(parity_ok(lstm_f32, max_rel_delta=F32_MAX_REL_DELTA),
+          f"convlstm_fwd f32 parity failed (corr >= {MIN_CORR}, "
+          f"max_rel_delta <= {F32_MAX_REL_DELTA} for ys and final c, final "
+          f"h == ys[-1]): {lstm_f32}")
 
-    # 4. serving at full width through the kernel
+    # 4. serving at full width through the kernels: gaze_grcn (B1), then
+    # gaze_lstm (B3)
     model = full_width_model()
     rng = np.random.RandomState(SEED)
     c3d = rng.randn(N_REQUESTS, T, 1024, 7, 7).astype(np.float32)
     frames = rng.rand(N_REQUESTS, T, 98, 98, 3).astype(np.float32)
-    with tempfile.TemporaryDirectory() as tmp:
-        save_bundle(f"{tmp}/bundle", model)
-        server = server_from_bundle(f"{tmp}/bundle", device="cuda",
-                                    max_batch=32, max_wait_ms=50.0).start()
-        try:
-            host, port = server.address
-            url = f"http://{host}:{port}"
-            reset_launches()
-            served = post_all(f"{url}/predict", frames, c3d)
-            serve_launches = read_launches()
-            main_launches = serve_launches["convgru_fwd"]
-            with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
-                health = json.loads(r.read())
-            print(f"serving: {N_REQUESTS} concurrent requests, healthz "
-                  f"{health}, kernel launches {serve_launches}", flush=True)
-            check(main_launches >= 1, "the served path never launched the "
-                                      "ConvGRU kernel")
-            check(health["requests"] == N_REQUESTS
-                  and main_launches == health["calls"],
-                  f"healthz {health} does not count the {N_REQUESTS} "
-                  f"requests / {main_launches} kernel launches")
+    grcn_served = serve_and_check(model, frames, c3d, card)
+    lstm_model = full_width_model("gaze_lstm")
+    lstm_served = serve_and_check(lstm_model, frames, c3d, card)
 
-            reference = load_bundle(f"{tmp}/bundle", device="cuda")
-            plain = plain_predict(reference, torch.from_numpy(c3d).cuda())
-            plain = plain.cpu().numpy()
-            for i, (status, maps, _) in enumerate(served):
-                check(status == 200, f"request {i}: HTTP {status}")
-                check(maps.shape == (T, 49, 49),
-                      f"request {i}: gazemaps shape {maps.shape}")
-                check(bool(np.isfinite(maps).all()),
-                      f"request {i}: non-finite maps")
-                sums = maps.reshape(T, -1).sum(-1)
-                check(bool(np.abs(sums - 1.0).max() <= 1e-3),
-                      f"request {i}: map sums off 1 by "
-                      f"{np.abs(sums - 1.0).max()}")
-                c = corr(maps, plain[i])
-                check(c >= MAP_MIN_CORR,
-                      f"request {i}: corr {c} vs the plain path")
-            print(f"serving: all {N_REQUESTS} replies HTTP 200, "
-                  f"[{T},49,49] finite, sums 1 within 1e-3, min corr vs "
-                  f"plain path {min(corr(m, plain[i]) for i, (_, m, _) in enumerate(served)):.6f}",
-                  flush=True)
-
-            again = post_all(f"{url}/predict", frames, c3d)
-            http_ms = statistics.median(s for _, _, s in again) * 1e3
-        finally:
-            server.close()
+    # 4b. streaming both models with the state carried
+    feats = np.random.RandomState(SEED + 5).randn(
+        STREAM_FRAMES, 1024, 7, 7).astype(np.float32)
+    streamed = {name: stream_and_check(name, feats, card)
+                for name in ("gaze_grcn", "gaze_lstm")}
 
     # 5. training at full width: the normal entry point (B1 + B2), then
     # the v1 entry point (B1 + B4)
@@ -597,16 +767,32 @@ def main() -> int:
                   f"{k['bound_ms']:.4f} ms ({k['bound_by']}: "
                   f"{k['gflop']:.2f} GFLOP, {k['mbytes']:.1f} MB) [{card}]",
                   flush=True)
+    lstm_fused = ConvLSTM.fuse({k: v.detach()
+                                for k, v in lstm_model.cell.items()})
+    l8 = lstm_kernel_timing(lstm_fused, 8, timing_rng)
+    l16 = lstm_kernel_timing(lstm_fused, 16, timing_rng)
+    for b, k in ((8, l8), (16, l16)):
+        print(f"timing: convlstm_fwd T={T} B={b} U=128 bf16: "
+              f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound "
+              f"{k['bound_ms']:.4f} ms ({k['bound_by']}: {k['gflop']:.2f} "
+              f"GFLOP, {k['mbytes']:.1f} MB) [{card}]", flush=True)
     c3d16 = torch.from_numpy(
         timing_rng.randn(16, T, 1024, 7, 7).astype(np.float32)).cuda()
-    predict_ms = cuda_ms(lambda: model.predict(None, c3d16), 10)
-    print(f"timing: feature-fed predict B=16 T={T}: {predict_ms:.3f} ms/call "
-          f"[{card}]")
-    stages = predict_breakdown(model, c3d16)
-    print("timing: predict B=16 stages (ms): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in stages.items()) + f" [{card}]")
-    print(f"timing: HTTP request latency, median of {N_REQUESTS} concurrent "
-          f"single-clip POSTs: {http_ms:.1f} ms [{card}]")
+    for m, served in ((model, grcn_served), (lstm_model, lstm_served)):
+        name = m.cfg.name
+        predict_ms = cuda_ms(lambda: m.predict(None, c3d16), 10)
+        print(f"timing: {name} feature-fed predict B=16 T={T}: "
+              f"{predict_ms:.3f} ms/call [{card}]")
+        stages = predict_breakdown(m, c3d16)
+        print(f"timing: {name} predict B=16 stages (ms): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in stages.items()) + f" [{card}]")
+        print(f"timing: {name} HTTP request latency, median of "
+              f"{N_REQUESTS} concurrent single-clip POSTs: "
+              f"{served['http_ms']:.1f} ms [{card}]")
+    for name, st in streamed.items():
+        print(f"timing: {name} streaming step, one {STREAM_CHUNK}-frame "
+              f"chunk at B=1: {stream_timing(st['model']):.3f} ms [{card}]",
+              flush=True)
     step = train_step_timing(full_width_model(), raw_batch)
     print(f"timing: train step B={TRAIN_BATCH} T={T} bf16 (fwd + bwd + "
           f"clip + adam, flip, dropout): kernels {step['kernels_ms']:.3f} "
@@ -631,8 +817,8 @@ def main() -> int:
         return max(o["max_delta"] for o in stats["outputs"].values())
 
     print(json.dumps({"kernels": [
-        entry("convgru_fwd", "convgru_fwd.cu", "convgru.py:45", main_launches,
-              bf16["max_delta"], k8),
+        entry("convgru_fwd", "convgru_fwd.cu", "convgru.py:45",
+              grcn_served["launches"]["convgru_fwd"], bf16["max_delta"], k8),
         entry("convgru_bwd", "convgru_bwd.cu", "convgru_vjp2.py:56",
               trained["launches"]["convgru_bwd"],
               max_err(bwd_parity["convgru_bwd"]),
@@ -641,6 +827,10 @@ def main() -> int:
               mono["launches"]["convgru_bwd_mono"],
               max_err(bwd_parity["convgru_bwd_mono"]),
               bwd_timing["convgru_bwd_mono", 8]),
+        entry("convlstm_fwd", "convlstm_fwd.cu", "convlstm.py:23",
+              lstm_served["launches"]["convlstm_fwd"],
+              max(lstm_bf16["max_delta"], lstm_bf16["final_c"]["max_delta"]),
+              l8),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

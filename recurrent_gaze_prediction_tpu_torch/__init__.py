@@ -7,11 +7,13 @@ JAX package), keeps the JAX package's module names and public layouts
 entry points on the card unless the caller passes device="cpu".
 
   config    — the port's copy of the config dataclasses
-  ops       — layers, normalizers, initializers, the ConvGRU cell, and the
-              hand-written CUDA kernels (ops.kernels, sources in csrc/):
-              the forward recurrence and its two backward kernels, with
-              the autograd Functions the trainer runs
-  models    — gaze_grcn and gaze_grcn77 as nn.Modules
+  ops       — layers, normalizers, initializers, the ConvGRU and ConvLSTM
+              cells, and the hand-written CUDA kernels (ops.kernels,
+              sources in csrc/): the ConvGRU forward recurrence and its two
+              backward kernels, with the autograd Functions the trainer
+              runs, and the ConvLSTM forward recurrence
+  models    — gaze_grcn, gaze_grcn77 and gaze_lstm as nn.Modules, and the
+              carried-state streaming steps
   registry  — name -> model
   bridge    — weights and optimizer moments from the JAX package's trees
   data      — clip datasets and the synthetic corpus (numpy copies)

@@ -22,7 +22,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--bundle", required=True,
                         help="bundle directory (manifest.json + params.npz)")
     parser.add_argument("--program", default="predict",
-                        choices=["predict", "fused", "fused_int8", "stream"])
+                        choices=["predict", "fused", "fused_int8"])
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", default=8500, type=int)
     parser.add_argument("--max_batch", default=32, type=int)

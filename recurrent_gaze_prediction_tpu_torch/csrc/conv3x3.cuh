@@ -1,5 +1,6 @@
 // Block-level 3x3 SAME convolutions on a small H x W grid, shared by the
-// ConvGRU kernels (convgru_fwd.cu, convgru_bwd.cu, convgru_bwd_mono.cu).
+// recurrence kernels (convgru_fwd.cu, convgru_bwd.cu, convgru_bwd_mono.cu,
+// convlstm_fwd.cu).
 //
 // Layout. An operand with K channels is kept zero-padded on an
 // (H+2) x (W+2) grid in a buffer of `R` rows of stride `pad_stride(K)`

@@ -1,1 +1,2 @@
-"""Gaze models of the port (gaze_grcn and its 7x7 head so far)."""
+"""Gaze models of the port (gaze_grcn, its 7x7 head and gaze_lstm so far),
+and the carried-state streaming steps."""

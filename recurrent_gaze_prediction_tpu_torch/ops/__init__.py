@@ -1,2 +1,2 @@
-"""Ops of the port: layers, normalizers, initializers, the ConvGRU cell and
-the hand-written CUDA kernels (`ops.kernels`)."""
+"""Ops of the port: layers, normalizers, initializers, the ConvGRU and
+ConvLSTM cells and the hand-written CUDA kernels (`ops.kernels`)."""

@@ -1,15 +1,23 @@
-"""ConvGRU (GRU-RCN) cell: the port's counterpart of `ConvGRU` in the JAX
-package's `ops/cells.py`.
+"""Recurrent cells: the port's counterparts of `ConvGRU` and `ConvLSTM` in
+the JAX package's `ops/cells.py`.
 
-Six per-gate 3x3 kernels without biases (Ballas et al., arXiv:1511.06432),
-stored per gate (W_z, U_z, W_r, U_r, W, U) for checkpoint parity and fused
-into three convs: the input side z|r|candidate in one conv hoisted out of
-the time loop, the state side z|r in one conv, and the candidate's state
-conv after the reset gate.
+ConvGRU (GRU-RCN): six per-gate 3x3 kernels without biases (Ballas et al.,
+arXiv:1511.06432), stored per gate (W_z, U_z, W_r, U_r, W, U) for
+checkpoint parity and fused into three convs: the input side z|r|candidate
+in one conv hoisted out of the time loop, the state side z|r in one conv,
+and the candidate's state conv after the reset gate.
 
-`ConvGRU.scan` is the PLAIN version of the hand-written CUDA kernel
-(`ops/kernels/convgru.py`): the tests hold the kernel against it, and the
-kernel's wrapper runs it for tensors that lie on the CPU.
+ConvLSTM (peephole): eight 3x3 kernels without biases and three
+elementwise peephole weights W_ci/W_cf/W_co [H, W, U], fused into two
+convs (the input side i|f|c|o hoisted out of the time loop, the state side
+i|f|c|o). Two deviations from the reference are intended and kept, as in
+the JAX package: the candidate convolves h with W_hc (the reference uses
+W_hi there), and the output gate peeps at the OLD cell state.
+
+`ConvGRU.scan` and `ConvLSTM.scan` are the PLAIN versions of the
+hand-written CUDA kernels (`ops/kernels/convgru.py`,
+`ops/kernels/convlstm.py`): the tests hold the kernels against them, and
+the kernels' wrappers run them for tensors that lie on the CPU.
 """
 
 from __future__ import annotations
@@ -112,3 +120,118 @@ class ConvGRU:
         fused = ConvGRU.fuse(params)
         wx_all = ConvGRU.input_gates(fused, x_tbhwc, compute_dtype)
         return ConvGRU.scan_precomputed(fused, wx_all, h0, compute_dtype)
+
+
+class ConvLSTM:
+    """Gate equations (reference `gaze_lstm.py:103-133`):
+
+        i  = sigmoid(conv(x, W_xi) + conv(h, W_hi) + W_ci * c)
+        f  = sigmoid(conv(x, W_xf) + conv(h, W_hf) + W_cf * c)
+        c' = f * c + i * tanh(conv(x, W_xc) + conv(h, W_hc))
+        o  = sigmoid(conv(x, W_xo) + conv(h, W_ho) + W_co * c)   # OLD c
+        h' = tanh(c') * o
+    """
+
+    GATES = ("i", "f", "c", "o")
+
+    @staticmethod
+    def init(dim_feature: int, num_units: int,
+             spatial: tuple[int, int] = (7, 7), stddev: float = 1e-4, *,
+             generator: Optional[torch.Generator] = None) -> dict:
+        shape_x = (3, 3, dim_feature, num_units)
+        shape_h = (3, 3, num_units, num_units)
+        shape_peep = (spatial[0], spatial[1], num_units)
+        shapes = {}
+        for gate in ConvLSTM.GATES:
+            shapes[f"W_x{gate}"] = shape_x
+            shapes[f"W_h{gate}"] = shape_h
+            if gate != "c":
+                shapes[f"W_c{gate}"] = shape_peep
+        return {name: init.truncated_normal(shape, stddev, generator=generator)
+                for name, shape in shapes.items()}
+
+    @staticmethod
+    def fuse(params) -> dict:
+        """Concatenate the per-gate kernels in the gate order i, f, c, o,
+        once per sequence, outside the time loop."""
+        return {
+            "Wx": torch.cat([params[f"W_x{g}"] for g in ConvLSTM.GATES],
+                            dim=-1),
+            "Wh": torch.cat([params[f"W_h{g}"] for g in ConvLSTM.GATES],
+                            dim=-1),
+            "W_ci": params["W_ci"],
+            "W_cf": params["W_cf"],
+            "W_co": params["W_co"],
+        }
+
+    @staticmethod
+    def step_precomputed(fused: dict, carry: tuple[torch.Tensor, torch.Tensor],
+                         gx: torch.Tensor, compute_dtype=None
+                         ) -> tuple[tuple[torch.Tensor, torch.Tensor],
+                                    torch.Tensor]:
+        """One step given the precomputed input-side conv `gx` (4U
+        channels). Only the state conv remains sequential."""
+        c, h = carry
+        units = fused["W_ci"].shape[-1]
+        g = gx + conv2d(h, fused["Wh"], compute_dtype=compute_dtype)
+        gi, gf, gc, go = torch.split(g, units, dim=-1)
+        i = torch.sigmoid(gi + fused["W_ci"] * c)
+        f = torch.sigmoid(gf + fused["W_cf"] * c)
+        new_c = f * c + i * torch.tanh(gc)
+        o = torch.sigmoid(go + fused["W_co"] * c)  # old c, like the reference
+        new_h = torch.tanh(new_c) * o
+        return (new_c, new_h), new_h
+
+    @staticmethod
+    def step(fused: dict, carry: tuple[torch.Tensor, torch.Tensor],
+             x: torch.Tensor, compute_dtype=None
+             ) -> tuple[tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
+        gx = conv2d(x, fused["Wx"], compute_dtype=compute_dtype)
+        return ConvLSTM.step_precomputed(fused, carry, gx,
+                                         compute_dtype=compute_dtype)
+
+    @staticmethod
+    def zero_state(batch: int, spatial: tuple[int, int], num_units: int, *,
+                   device=None, dtype=torch.float32
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        shape = (batch, spatial[0], spatial[1], num_units)
+        return (torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+
+    @staticmethod
+    def input_gates(fused: dict, x_tbhwc: torch.Tensor,
+                    compute_dtype=None) -> torch.Tensor:
+        """The hoisted input-side conv for all T*B frames as ONE batched
+        conv: [T, B, H, W, C] -> [T, B, H, W, 4U] in the compute dtype."""
+        t, b = x_tbhwc.shape[:2]
+        gx = conv2d(x_tbhwc.reshape(t * b, *x_tbhwc.shape[2:]), fused["Wx"],
+                    compute_dtype=compute_dtype, out_dtype=compute_dtype)
+        return gx.reshape(t, b, *gx.shape[1:])
+
+    @staticmethod
+    def scan_precomputed(fused: dict, gx_all: torch.Tensor,
+                         carry0: tuple[torch.Tensor, torch.Tensor],
+                         compute_dtype=None
+                         ) -> tuple[tuple[torch.Tensor, torch.Tensor],
+                                    torch.Tensor]:
+        """The recurrence over precomputed input gates gx_all
+        [T, B, H, W, 4U] -> ((c_T, h_T), ys [T, B, H, W, U]): the plain
+        version of exactly what the CUDA kernel computes."""
+        carry = carry0
+        ys = []
+        for gx in gx_all:
+            carry, y = ConvLSTM.step_precomputed(fused, carry, gx,
+                                                 compute_dtype=compute_dtype)
+            ys.append(y)
+        return carry, torch.stack(ys)
+
+    @staticmethod
+    def scan(params, x_tbhwc: torch.Tensor,
+             carry0: tuple[torch.Tensor, torch.Tensor], compute_dtype=None
+             ) -> tuple[tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
+        """Run over time-major inputs [T, B, H, W, C] -> ((c_T, h_T),
+        outputs [T, B, H, W, U]). The input-side conv is hoisted out of
+        the loop; only the state conv stays sequential."""
+        fused = ConvLSTM.fuse(params)
+        gx_all = ConvLSTM.input_gates(fused, x_tbhwc, compute_dtype)
+        return ConvLSTM.scan_precomputed(fused, gx_all, carry0, compute_dtype)

@@ -1,4 +1,5 @@
 """Hand-written CUDA kernels of the port (sources in ../../csrc), their
 wrappers and autograd Functions, the build, and the on-card parity checks:
 `convgru` (forward, B1), `convgru_vjp2` (backward stage 2, B2, the default
-train path) and `convgru_vjp` (monolithic backward, B4)."""
+train path), `convgru_vjp` (monolithic backward, B4) and `convlstm` (the
+peephole ConvLSTM forward, B3)."""

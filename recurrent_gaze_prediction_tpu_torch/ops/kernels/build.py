@@ -60,13 +60,15 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.convgru_fwd.argtypes = [vp] * 6 + [i] * 6 + [vp]
     lib.convgru_bwd.argtypes = [vp] * 10 + [i] * 6 + [vp]
     lib.convgru_bwd_mono.argtypes = [vp] * 12 + [i] * 6 + [vp]
+    lib.convlstm_fwd.argtypes = [vp] * 10 + [i] * 6 + [vp]
     for name in ("convgru_fwd_smem_bytes", "convgru_bwd_smem_bytes",
-                 "convgru_bwd_mono_smem_bytes"):
+                 "convgru_bwd_mono_smem_bytes", "convlstm_fwd_smem_bytes"):
         getattr(lib, name).argtypes = [i, i, i, i]
         getattr(lib, name).restype = size
     lib.convgru_bwd_mono_workspace_bytes.argtypes = [i] * 5
     lib.convgru_bwd_mono_workspace_bytes.restype = size
-    for name in ("convgru_fwd", "convgru_bwd", "convgru_bwd_mono"):
+    for name in ("convgru_fwd", "convgru_bwd", "convgru_bwd_mono",
+                 "convlstm_fwd"):
         getattr(lib, name).restype = i
     lib.convgru_fwd_smem_limit.argtypes = []
     lib.convgru_fwd_smem_limit.restype = size

@@ -1,12 +1,12 @@
-"""Parity checks on the card: the CUDA ConvGRU kernels against their plain
-versions, the counterpart of the JAX package's `ops/pallas/parity.py`.
+"""Parity checks on the card: the CUDA recurrence kernels against their
+plain versions, the counterpart of the JAX package's `ops/pallas/parity.py`.
 
-`convgru_parity()` runs the SAME params and inputs through the forward
-kernel's wrapper and the plain scan; `backward_parity()` runs the backward
-kernels (B2 `convgru_bwd`, B4 `convgru_bwd_mono`) and their plain versions
-on inputs from a real forward. Each reports agreement. On a CPU device
-both sides are the plain versions, so only a CUDA run checks a kernel
-(chip_smoke.py).
+`convgru_parity()` and `convlstm_parity()` run the SAME params and inputs
+through a forward kernel's wrapper (B1, B3) and the plain scan;
+`backward_parity()` runs the backward kernels (B2 `convgru_bwd`, B4
+`convgru_bwd_mono`) and their plain versions on inputs from a real
+forward. Each reports agreement. On a CPU device both sides are the plain
+versions, so only a CUDA run checks a kernel (chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -15,9 +15,10 @@ import numpy as np
 import torch
 
 from ...utils import resolve_device
-from ..cells import ConvGRU
+from ..cells import ConvGRU, ConvLSTM
 from . import convgru_vjp, convgru_vjp2
 from .convgru import convgru_recurrence, convgru_scan
+from .convlstm import convlstm_scan
 
 # The gate the JAX package puts on its TPU kernel (bf16 production mode):
 # loose enough for run-to-run and rounding-order noise, tight enough that a
@@ -27,6 +28,9 @@ MIN_CORR = 0.999
 # cell weights of the backward checks: the reference init (1e-4) leaves the
 # recurrence ~0, so the cotangents would barely cross the state convs
 STATE_STDDEV = 0.05
+# the ConvLSTM check's carries c0, h0: nonzero, as the streaming step feeds
+# them to the kernel
+CARRY_STDDEV = 0.5
 
 
 def convgru_parity(t: int = 42, b: int = 8, hw: tuple[int, int] = (7, 7),
@@ -56,27 +60,62 @@ def convgru_parity(t: int = 42, b: int = 8, hw: tuple[int, int] = (7, 7),
         _, ys_plain = ConvGRU.scan(params, xs, h0, compute_dtype=compute_dtype)
         h_kernel, ys_kernel = convgru_scan(params, xs, h0,
                                            compute_dtype=compute_dtype)
-    a = ys_plain.float().cpu().numpy().ravel()
-    p = ys_kernel.float().cpu().numpy().ravel()
-    scale = float(np.abs(a).max()) or 1.0
-    max_delta = float(np.abs(a - p).max())
-    corr = float(np.corrcoef(a, p)[0, 1]) if a.std() > 0 else float("nan")
     return {
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),
         "compute_dtype": str(compute_dtype).replace("torch.", ""),
         "shape": {"t": t, "b": b, "h": h, "w": w, "c": c, "units": units},
-        "max_delta": max_delta,
-        "max_rel_delta": max_delta / scale,
-        "corr": corr,
+        **_agreement(ys_kernel, ys_plain),
         "final_h_max_delta": float(
             (h_kernel - ys_kernel[-1]).abs().max().item()),
     }
 
 
+def convlstm_parity(t: int = 42, b: int = 8, hw: tuple[int, int] = (7, 7),
+                    c: int = 512, units: int = 128,
+                    compute_dtype=torch.bfloat16, seed: int = 0,
+                    device=None) -> dict:
+    """Run kernel B3 and `ConvLSTM.scan` on identical inputs at the
+    flagship gaze_lstm shapes; return agreement stats.
+
+    Parameters N(0, 0.1) as in the JAX package's gate; the carries c0, h0
+    are N(0, CARRY_STDDEV). Beside `convgru_parity`'s stats it reports
+    `final_c`: the kernel's c_T against the plain scan's (the JAX kernel
+    drops c_T, so the JAX gate has no counterpart)."""
+    dev = resolve_device(device)
+    h, w = hw
+    rng = np.random.RandomState(seed)
+    params = {k: torch.from_numpy(
+        rng.randn(*v.shape).astype(np.float32) * 0.1).to(dev)
+        for k, v in ConvLSTM.init(c, units, (h, w)).items()}
+    xs = torch.from_numpy(rng.randn(t, b, h, w, c).astype(np.float32)).to(dev)
+    carry0 = tuple(torch.from_numpy(
+        (rng.randn(b, h, w, units) * CARRY_STDDEV).astype(np.float32)).to(dev)
+        for _ in range(2))
+
+    with torch.inference_mode():
+        (c_plain, _), ys_plain = ConvLSTM.scan(params, xs, carry0,
+                                               compute_dtype=compute_dtype)
+        (c_kernel, h_kernel), ys_kernel = convlstm_scan(
+            params, xs, carry0, compute_dtype=compute_dtype)
+    return {
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+        "compute_dtype": str(compute_dtype).replace("torch.", ""),
+        "shape": {"t": t, "b": b, "h": h, "w": w, "c": c, "units": units},
+        **_agreement(ys_kernel, ys_plain),
+        "final_h_max_delta": float(
+            (h_kernel - ys_kernel[-1]).abs().max().item()),
+        "final_c": _agreement(c_kernel, c_plain),
+    }
+
+
 def parity_ok(stats: dict, max_rel_delta: float = BF16_MAX_REL_DELTA) -> bool:
-    return bool(np.isfinite(stats["corr"]) and stats["corr"] >= MIN_CORR
-                and stats["max_rel_delta"] <= max_rel_delta
+    """The gate: ys (and c_T, where reported) agree to corr >= MIN_CORR and
+    `max_rel_delta`, and the final h is exactly ys[-1]."""
+    parts = [stats] + ([stats["final_c"]] if "final_c" in stats else [])
+    return bool(all(np.isfinite(s["corr"]) and s["corr"] >= MIN_CORR
+                    and s["max_rel_delta"] <= max_rel_delta for s in parts)
                 and stats["final_h_max_delta"] == 0.0)
 
 

@@ -1,8 +1,8 @@
 """Model registry: string name -> model builder + per-model config defaults.
 
 The port's counterpart of the JAX package's `registry.py`, holding the
-families ported so far (`gaze_grcn`, `gaze_grcn77`) with the same defaults
-and precedence rules. Any other name raises KeyError.
+families ported so far (`gaze_grcn`, `gaze_grcn77`, `gaze_lstm`) with the
+same defaults and precedence rules. Any other name raises KeyError.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from typing import Callable, Optional
 import torch
 
 from .config import ModelConfig
-from .models import gaze_grcn
+from .models import gaze_grcn, gaze_lstm
 from .utils import resolve_device
 
 _REGISTRY: dict[str, tuple[Callable, dict]] = {
@@ -22,6 +22,9 @@ _REGISTRY: dict[str, tuple[Callable, dict]] = {
         dim_cnn_proj=512, rnn_state_size=128, loss_type="xentropy")),
     "gaze_grcn77": (gaze_grcn.build, dict(
         gazemap_height=7, gazemap_width=7, n_lstm_steps=35, batch_size=7,
+        dim_cnn_proj=512, rnn_state_size=128, loss_type="xentropy")),
+    "gaze_lstm": (gaze_lstm.build, dict(
+        gazemap_height=49, gazemap_width=49, n_lstm_steps=42, batch_size=7,
         dim_cnn_proj=512, rnn_state_size=128, loss_type="xentropy")),
 }
 

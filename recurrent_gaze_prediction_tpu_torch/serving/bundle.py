@@ -6,9 +6,15 @@ config, the programs) and `params.npz` (weights under flat "a/b/c" keys),
 in the JAX package's layout. That package also stores ahead-of-time
 programs (`*.jaxexp`); the port skips them when it reads a bundle and never
 writes them: `load_bundle` rebuilds the live model from the manifest's
-config and loads the weights. A bundle written here lists its programs
+config and loads the weights, and keeps each program's manifest entry on
+the model (`bundle_programs`). A bundle written here lists its programs
 under `torch_programs`, so the JAX package's `load_bundle` still reads its
 config and weights.
+
+Programs: `predict` (served over HTTP, `serving/server.py`) and, for the
+ConvGRU family, `stream`, the carried-state chunk step, run through
+`stream_step` / `initial_stream_state` (the counterparts of the JAX
+`ServingBundle` methods of those names).
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -24,6 +31,8 @@ from ..bridge import (flatten_params, params_from_jax, params_to_jax,
                       unflatten_params)
 from ..config import ModelConfig
 from ..models.common import GazeModel
+from ..models.gaze_grcn import GazeGRCN
+from ..models.streaming import grcn_stream_step
 
 MANIFEST = "manifest.json"
 PARAMS = "params.npz"
@@ -32,15 +41,23 @@ WIRE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def save_bundle(path: str, model: GazeModel, *,
-                wire_dtype: str = "float32") -> None:
+                wire_dtype: str = "float32",
+                stream_chunk_len: Optional[int] = None) -> None:
     """Write `model`'s config and weights as a bundle directory.
 
-    `wire_dtype` ("float32" | "bfloat16") is the predict program's input
-    dtype: a bfloat16 bundle rounds incoming frames and features to bf16
-    and computes in f32 from there, as the JAX package's bundles do."""
+    `wire_dtype` ("float32" | "bfloat16") is the input dtype of the predict
+    and stream programs' features: a bfloat16 bundle rounds incoming frames
+    and features to bf16 and computes in f32 from there, as the JAX
+    package's bundles do. `stream_chunk_len` records the streaming chunk
+    step too; like the JAX package, only gaze_grcn (the ConvGRU family with
+    the 49x49 decoder) has one."""
     if wire_dtype not in WIRE_DTYPES:
         raise ValueError(f"wire_dtype must be float32|bfloat16, got "
                          f"{wire_dtype!r}")
+    if stream_chunk_len is not None and not isinstance(model, GazeGRCN):
+        raise ValueError(f"the stream program exists only for gaze_grcn, "
+                         f"got {model.cfg.name}; gaze_lstm streams through "
+                         f"models.streaming.lstm_stream_step")
     os.makedirs(path, exist_ok=True)
     cfg = model.cfg
     manifest = {
@@ -54,6 +71,14 @@ def save_bundle(path: str, model: GazeModel, *,
             "wire_dtype": wire_dtype,
         }},
     }
+    if stream_chunk_len is not None:
+        manifest["torch_programs"]["stream"] = {
+            "inputs": f"params, state [B,7,7,U] f32, chunk "
+                      f"[B,Tc,1024,7,7] {wire_dtype}",
+            "chunk_len": int(stream_chunk_len),
+            "state_size": cfg.rnn_state_size,
+            "wire_dtype": wire_dtype,
+        }
     np.savez(os.path.join(path, PARAMS),
              **flatten_params(params_to_jax(model)))
     with open(os.path.join(path, MANIFEST), "w") as f:
@@ -82,4 +107,33 @@ def load_bundle(path: str, device=None) -> GazeModel:
     with np.load(os.path.join(path, PARAMS)) as data:
         tree = unflatten_params({k: data[k] for k in data.files})
     model.load_state_dict(params_from_jax(tree))
+    model.bundle_programs = {
+        name: program_meta(manifest, name)
+        for name in (*manifest.get("programs", {}),
+                     *manifest.get("torch_programs", {}))}
     return model
+
+
+def stream_step(model: GazeModel, state, c3d_chunk
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bundle's carried-state chunk step -> (new_state, chunk logits
+    [B,Tc,49,49]). `model` comes from `load_bundle`. The chunk
+    [B,Tc,1024,7,7] is rounded to the program's wire dtype; `state` is f32
+    ALWAYS (feed back what the previous step returned, or
+    `initial_stream_state`), and is not rounded."""
+    meta = getattr(model, "bundle_programs", {}).get("stream")
+    if meta is None:
+        raise KeyError("bundle has no stream program")
+    wire = WIRE_DTYPES[meta.get("wire_dtype", "float32")]
+    dev = next(model.parameters()).device
+    chunk = torch.as_tensor(c3d_chunk).to(dev).to(wire).float()
+    state = torch.as_tensor(state).to(dev, torch.float32)
+    return grcn_stream_step(model, state, chunk)
+
+
+def initial_stream_state(model: GazeModel, batch: int) -> torch.Tensor:
+    """The stream program's zero state [B,7,7,U] f32 on the model's
+    device."""
+    return torch.zeros((batch, 7, 7, model.cfg.rnn_state_size),
+                       dtype=torch.float32,
+                       device=next(model.parameters()).device)

@@ -27,10 +27,10 @@ from ..utils import log
 from .batcher import DynamicBatcher
 from .bundle import WIRE_DTYPES, load_bundle, program_meta, read_manifest
 
-# Programs of the JAX package's bundles that the port does not serve yet,
-# and the ROADMAP.md item that brings each.
+# Programs the JAX package's server serves and the port does not yet, and
+# the ROADMAP.md item that brings each. Neither server serves `stream`: it
+# runs through the bundle's own API (`bundle.stream_step`).
 _NOT_PORTED = {
-    "stream": "ROADMAP.md queue A item 7 (the streaming step)",
     "fused": "ROADMAP.md queue A item 10 (the raw-video front)",
     "fused_int8": "ROADMAP.md queue A item 11 (the int8 C3D tower)",
 }
@@ -199,7 +199,8 @@ def server_from_bundle(bundle_dir: str, *, program: str = "predict",
         raise ValueError(f"program {program!r} is not ported yet: "
                          f"{_NOT_PORTED[program]}")
     if program != "predict":
-        raise ValueError(f"program must be predict, got {program!r}")
+        raise ValueError(
+            f"program must be predict|fused|fused_int8, got {program}")
     manifest = read_manifest(bundle_dir)
     meta = program_meta(manifest, "predict")
     model = load_bundle(bundle_dir, device=device)
@@ -209,7 +210,7 @@ def server_from_bundle(bundle_dir: str, *, program: str = "predict",
     t = meta.get("t", cfg.n_lstm_steps)
 
     def predict_fn(frames: np.ndarray, c3d: np.ndarray) -> np.ndarray:
-        # frames stay on the host: gaze_grcn does not read them
+        # frames stay on the host: the ported models do not read them
         feats = torch.from_numpy(c3d).to(dev).to(wire).float()
         return model.predict(torch.from_numpy(frames), feats).cpu().numpy()
 

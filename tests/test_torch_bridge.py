@@ -24,7 +24,7 @@ def _jax_params(name):
     return jax.tree_util.tree_map(np.asarray, params)
 
 
-@pytest.mark.parametrize("name", ["gaze_grcn", "gaze_grcn77"])
+@pytest.mark.parametrize("name", ["gaze_grcn", "gaze_grcn77", "gaze_lstm"])
 def test_param_names_and_shapes_match_jax(name):
     """The port's state dict is the JAX tree under the same names and
     shapes, and both directions invert each other."""

@@ -1,6 +1,6 @@
-"""Tests that need a CUDA card: the hand-written ConvGRU kernels (forward
-B1, backward B2 and B4) against their plain PyTorch versions at shapes
-chip_smoke.py does not cover. They skip
+"""Tests that need a CUDA card: the hand-written recurrence kernels (ConvGRU
+forward B1, backward B2 and B4; ConvLSTM forward B3) against their plain
+PyTorch versions at shapes chip_smoke.py does not cover. They skip
 without a card. This file imports torch only (no jax), so on a machine
 with a card it runs without the JAX test harness:
 
@@ -12,8 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from recurrent_gaze_prediction_tpu_torch.ops.cells import ConvGRU
+from recurrent_gaze_prediction_tpu_torch.ops.cells import ConvGRU, ConvLSTM
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru as kconv
+from recurrent_gaze_prediction_tpu_torch.ops.kernels import convlstm as klstm
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp as v1
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp2 as v2
 
@@ -179,3 +180,47 @@ def test_trainable_scan_grads_match_plain_autograd(cuda_no_tf32, version):
     for name, a, k in zip(params, *grads):
         np.testing.assert_allclose(k.cpu().numpy(), a.cpu().numpy(),
                                    rtol=1e-3, atol=1e-4, err_msg=name)
+
+
+def _lstm_inputs(t, b, hw, units, dtype, device, seed=0):
+    """B3's inputs with nonzero carries, as the streaming step feeds it."""
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    fused = {"Wh": rng.randn(3, 3, units, 4 * units) * 0.1,
+             **{k: rng.randn(h, w, units) * 0.5
+                for k in ("W_ci", "W_cf", "W_co")}}
+    fused = {k: torch.from_numpy(v.astype(np.float32)).to(device)
+             for k, v in fused.items()}
+    gx = torch.from_numpy(rng.randn(t, b, h, w, 4 * units).astype(
+        np.float32)).to(device=device, dtype=dtype)
+    carry = tuple(torch.from_numpy((rng.randn(b, h, w, units) * 0.5).astype(
+        np.float32)).to(device) for _ in range(2))
+    return fused, gx, carry
+
+
+@pytest.mark.parametrize("t,b,hw,units", SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_convlstm_kernel_matches_plain(cuda_no_tf32, t, b, hw, units, dtype):
+    fused, gx, carry = _lstm_inputs(t, b, hw, units, dtype, cuda_no_tf32)
+    cdt = None if dtype == torch.float32 else dtype
+    before = klstm.launches
+    with torch.inference_mode():
+        (c_k, h_k), ys_k = klstm.convlstm_recurrence(fused, gx, *carry)
+        (c_p, _), ys_p = ConvLSTM.scan_precomputed(fused, gx, carry, cdt)
+    torch.cuda.synchronize()
+    assert klstm.launches == before + 1
+    assert torch.equal(h_k, ys_k[-1])
+    for k, a in ((ys_k, ys_p), (c_k, c_p)):
+        assert k.shape == a.shape and k.dtype == torch.float32
+        _assert_close(k, a, dtype)
+
+
+def test_convlstm_kernel_rejects_shapes_it_does_not_take(cuda_no_tf32):
+    fused, gx, carry = _lstm_inputs(2, 1, (7, 7), 8, torch.bfloat16,
+                                    cuda_no_tf32)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        klstm.convlstm_recurrence(fused, gx, *carry)
+    fused, gx, carry = _lstm_inputs(2, 1, (7, 7), 16, torch.bfloat16,
+                                    cuda_no_tf32)
+    with pytest.raises(ValueError, match="c0 and h0"):
+        klstm.convlstm_recurrence(fused, gx, carry[0][:, :6], carry[1])

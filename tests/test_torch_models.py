@@ -1,8 +1,14 @@
-"""The port's gaze_grcn / gaze_grcn77 against the JAX models on the CPU in
-f32 at narrow widths, weights carried across by `bridge.py`, dropout off.
+"""The port's gaze_grcn / gaze_grcn77 / gaze_lstm against the JAX models on
+the CPU in f32 at narrow widths, weights carried across by `bridge.py`,
+dropout off.
 
 Logits and predicted maps are held at rtol 1e-4 / atol 1e-5, the JAX
 package's kernel tolerance (maps, which are ~1/2401, at atol 1e-8).
+gaze_lstm's loss is held at rtol 1e-4 and its parameter gradients at rtol
+1e-3 / atol 1e-5, the JAX package's gradient tolerance, under the l2 loss:
+under xentropy the head bias's gradient is zero up to rounding (softmax
+ignores a constant shift of the logits), so it would be noise against
+noise.
 """
 
 import jax
@@ -15,7 +21,8 @@ from recurrent_gaze_prediction_tpu import registry as jregistry
 from recurrent_gaze_prediction_tpu.models.common import (
     sequence_loss as j_sequence_loss)
 from recurrent_gaze_prediction_tpu_torch import registry
-from recurrent_gaze_prediction_tpu_torch.bridge import params_from_jax
+from recurrent_gaze_prediction_tpu_torch.bridge import (
+    flatten_params, jax_name, params_from_jax)
 from recurrent_gaze_prediction_tpu_torch.models import common
 from recurrent_gaze_prediction_tpu_torch.models.common import sequence_loss
 
@@ -23,11 +30,12 @@ WIDTHS = dict(dim_feature=16, dim_cnn_proj=8, rnn_state_size=8,
               compute_dtype="float32")
 
 
-def _pair(name, t, seed=0):
+def _pair(name, t, seed=0, **overrides):
     """The JAX model with random params (the recurrence at a scale where
     it matters: the reference init 1e-4 keeps h ~ 0) and the port's model
     with the same weights."""
-    jmodel = jregistry.create_model(name, n_lstm_steps=t, **WIDTHS)
+    widths = dict(WIDTHS, **overrides)
+    jmodel = jregistry.create_model(name, n_lstm_steps=t, **widths)
     params = jmodel.init(jax.random.PRNGKey(seed))
     rng = np.random.RandomState(seed)
     params["cell"] = {k: jnp.asarray(rng.randn(*v.shape).astype(np.float32)
@@ -39,7 +47,7 @@ def _pair(name, t, seed=0):
         params["decoder"]["bn_offset"] = jnp.asarray(
             0.2 * rng.randn(8).astype(np.float32))
     tmodel = registry.create_model(name, n_lstm_steps=t, device="cpu",
-                                   **WIDTHS)
+                                   **widths)
     tmodel.load_state_dict(params_from_jax(
         jax.tree_util.tree_map(np.asarray, params)))
     return jmodel, params, tmodel
@@ -49,6 +57,8 @@ def _pair(name, t, seed=0):
     ("gaze_grcn", 2, 3),     # B*T = 6 < 32: stagewise decoder
     ("gaze_grcn", 2, 16),    # B*T = 32: composed decoder
     ("gaze_grcn77", 2, 5),
+    ("gaze_lstm", 2, 3),
+    ("gaze_lstm", 2, 16),
 ])
 def test_logits_and_predict_match_jax(name, b, t):
     jmodel, params, tmodel = _pair(name, t)
@@ -62,14 +72,16 @@ def test_logits_and_predict_match_jax(name, b, t):
     np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits),
                                rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(t_maps.numpy(), np.asarray(j_maps),
-                               rtol=1e-4, atol=1e-8 if name == "gaze_grcn"
+                               rtol=1e-4, atol=1e-8 if name != "gaze_grcn77"
                                else 1e-5)
 
 
-def test_train_forward_without_dropout_equals_inference():
-    """train=True runs the plain scan (differentiable); with keep_prob 1
-    it computes what inference computes through the kernel's wrapper."""
-    _, _, tmodel = _pair("gaze_grcn", 4)
+@pytest.mark.parametrize("name", ["gaze_grcn", "gaze_lstm"])
+def test_train_forward_without_dropout_equals_inference(name):
+    """train=True runs the trainable recurrence (gaze_lstm: `ConvLSTM.scan`
+    under autograd); with keep_prob 1 it computes what inference computes
+    through the forward kernel's wrapper."""
+    _, _, tmodel = _pair(name, 4)
     tmodel.cfg.dropout_keep_prob = 1.0
     c3d = torch.from_numpy(
         np.random.RandomState(2).randn(2, 4, 16, 7, 7).astype(np.float32))
@@ -124,9 +136,37 @@ def test_model_loss_matches_jax():
     np.testing.assert_allclose(float(t.detach()), float(j), rtol=1e-4)
 
 
+def test_gaze_lstm_loss_and_grads_match_jax():
+    """gaze_lstm trains on `ConvLSTM.scan` under autograd, as the JAX
+    package does: loss and every parameter gradient against
+    `jax.value_and_grad` of the JAX loss."""
+    jmodel, params, tmodel = _pair("gaze_lstm", 3, loss_type="l2",
+                                   dropout_keep_prob=1.0)
+    rng = np.random.RandomState(5)
+    batch = {"frames": np.zeros((2, 3, 98, 98, 3), np.float32),
+             "c3d": rng.randn(2, 3, 16, 7, 7).astype(np.float32),
+             "gazemaps": np.abs(rng.randn(2, 3, 49, 49)).astype(np.float32),
+             "frame_mask": np.array([[1, 1, 0], [1, 1, 1]], np.float32)}
+    j_loss, j_grads = jax.value_and_grad(
+        lambda p: jmodel.loss(p, {k: jnp.asarray(v)
+                                  for k, v in batch.items()},
+                              train=True)[0])(params)
+    t_loss, _ = tmodel.loss({k: torch.from_numpy(v)
+                             for k, v in batch.items()}, train=True)
+    names, tensors = zip(*tmodel.named_parameters())
+    t_grads = torch.autograd.grad(t_loss, tensors)
+    np.testing.assert_allclose(float(t_loss.detach()), float(j_loss),
+                               rtol=1e-4)
+    j_flat = flatten_params(jax.tree_util.tree_map(np.asarray, j_grads))
+    assert sorted(map(jax_name, names)) == sorted(j_flat)
+    for name, g in zip(names, t_grads):
+        np.testing.assert_allclose(g.numpy(), j_flat[jax_name(name)],
+                                   rtol=1e-3, atol=1e-5, err_msg=name)
+
+
 def test_unported_family_raises():
     with pytest.raises(KeyError, match="not yet ported"):
-        registry.create_model("gaze_lstm", device="cpu")
+        registry.create_model("gaze_rnn", device="cpu")
 
 
 def test_registry_precedence_matches_jax():

@@ -52,8 +52,9 @@ def test_entry_points_raise_without_cuda(tmp_path):
         pytest.skip("this host has a CUDA card")
     from recurrent_gaze_prediction_tpu_torch import registry
     from recurrent_gaze_prediction_tpu_torch.cli import serve
+    from recurrent_gaze_prediction_tpu_torch.models import streaming
     from recurrent_gaze_prediction_tpu_torch.ops.kernels.parity import (
-        convgru_parity)
+        convgru_parity, convlstm_parity)
     from recurrent_gaze_prediction_tpu_torch.serving import (
         save_bundle, server_from_bundle)
 
@@ -62,7 +63,11 @@ def test_entry_points_raise_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         registry.create_model("gaze_grcn", device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
+        registry.create_model("gaze_lstm")
+    with pytest.raises(RuntimeError, match="cuda"):
         convgru_parity(t=1, b=1, c=8, units=16)
+    with pytest.raises(RuntimeError, match="cuda"):
+        convlstm_parity(t=1, b=1, c=8, units=16)
     model = registry.create_model("gaze_grcn", device="cpu", dim_feature=16,
                                   dim_cnn_proj=8, rnn_state_size=8)
     save_bundle(str(tmp_path), model)
@@ -70,3 +75,7 @@ def test_entry_points_raise_without_cuda(tmp_path):
         server_from_bundle(str(tmp_path))
     with pytest.raises(RuntimeError, match="cuda"):
         serve.main(["--bundle", str(tmp_path), "--port", "0"])
+    for init in (streaming.init_stream_state,
+                 streaming.init_lstm_stream_state):
+        with pytest.raises(RuntimeError, match="cuda"):
+            init(1, model.cfg)

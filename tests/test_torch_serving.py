@@ -89,9 +89,50 @@ def test_port_serves_jax_bundle(tmp_path, jax_grcn, wire):
         np.testing.assert_allclose(maps, want[1], rtol=1e-4, atol=1e-8)
 
 
+def test_port_serves_jax_gaze_lstm_bundle(tmp_path):
+    """A JAX-written gaze_lstm bundle: concurrent POSTs through the port's
+    server get the JAX model's maps back, through kernel B3's wrapper (its
+    plain version on the CPU)."""
+    model = jregistry.create_model("gaze_lstm", **WIDTHS)
+    params = model.init(jax.random.PRNGKey(1))
+    rng = np.random.RandomState(2)
+    params["cell"] = {k: jnp.asarray(rng.randn(*v.shape).astype(np.float32)
+                                     * 0.3)
+                      for k, v in params["cell"].items()}
+    j_save_bundle(str(tmp_path), model, params, platforms=("cpu",))
+    c3d = rng.randn(3, T, 16, 7, 7).astype(np.float32)
+    frames = rng.rand(3, T, 98, 98, 3).astype(np.float32)
+    want = np.asarray(model.predict(params, jnp.asarray(frames),
+                                    jnp.asarray(c3d)))
+
+    results = [None] * 3
+    with server_from_bundle(str(tmp_path), device="cpu", max_batch=4,
+                            max_wait_ms=200.0).start() as server:
+        url = "http://%s:%d/predict" % server.address
+
+        def one(i):
+            results[i] = _post(url, frames=frames[i], c3d=c3d[i])
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(3)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        assert not any(th.is_alive() for th in threads)
+        assert server.batcher.requests == 3
+    for i, (status, maps) in enumerate(results):
+        assert status == 200
+        np.testing.assert_allclose(maps, want[i], rtol=1e-4, atol=1e-8)
+
+
 @pytest.mark.parametrize("program", ["fused", "fused_int8", "stream"])
 def test_unported_programs_raise(tmp_path, program):
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    """`fused` and `fused_int8` name the ROADMAP item that brings them;
+    `stream` is no HTTP program in either package (it runs through the
+    bundle's `stream_step`), so it gets the JAX server's own error."""
+    match = ("program must be predict\\|fused\\|fused_int8"
+             if program == "stream" else "ROADMAP.md")
+    with pytest.raises(ValueError, match=match):
         server_from_bundle(str(tmp_path), program=program, device="cpu")
 
 
