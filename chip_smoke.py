@@ -6,14 +6,18 @@
 In order, failing (exit 1) on the first check that does not hold:
   1. requires CUDA and prints the card's name and power limit;
   2. builds the CUDA kernels from csrc/ (one nvcc per source, all started
-     together) and prints the build time;
+     together) and prints the build time; prints, for each cluster kernel
+     (B1, B2), its cluster size C, the CTAs it launches, the clusters that
+     fit on the card at once and its shared memory per CTA (checked
+     against the wrappers' reckoning);
   3. holds each kernel against its plain PyTorch version in bf16 under the
      JAX package's gate, and in f32 with TF32 off: the forward recurrence
-     B1 (`convgru_parity`, T=42, B=8, 512->128), the backward kernels
+     B1 (`convgru_parity`, T=42, 512->128), the backward kernels
      B2 `convgru_bwd` and B4 `convgru_bwd_mono` (`backward_parity`, the
-     same shapes, on inputs from a real forward), then the peephole
-     ConvLSTM forward B3 (`convlstm_parity`, the same shapes, nonzero
-     carries, the final c checked too);
+     same shapes, on inputs from a real forward), all at B=8, and B1 and B2
+     also at B=1 (one cluster: the streaming shape) and B=28 (two waves of
+     clusters: the train batch); then the peephole ConvLSTM forward B3
+     (`convlstm_parity`, B=8, nonzero carries, the final c checked too);
   4. serves full-width gaze_grcn, then gaze_lstm (1024->512->128, T=42,
      49x49 maps, bf16, seeded random weights) over HTTP from a bundle:
      concurrent single-clip POSTs, each reply checked against a plain-scan
@@ -31,7 +35,8 @@ In order, failing (exit 1) on the first check that does not hold:
      through `convgru_scan_trainable` (B4 backward), counting its launches;
   6. checks the train step's gradients at full width, through either
      backward, against plain autograd of `ConvGRU.scan` on one batch;
-  7. times the kernels and their plain versions (B=8, B=16), the feature-fed
+  7. times the kernels and their plain versions (B=8, B=16; B1 and B2 also
+     at B=1 and 28, in us per step beside the bound), the feature-fed
      predict of both models (B=16) with a breakdown, the HTTP requests, the
      streaming chunk steps (B=1), and the train step (B=28) through the
      kernels and through plain autograd with a breakdown, with CUDA events
@@ -99,6 +104,11 @@ MAP_MIN_CORR = 0.999
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 STATE_STDDEV = 0.05  # the reference init (1e-4) leaves the recurrence ~0
+# batches at which the cluster kernels B1 and B2 are gated and timed: the
+# flagship B=8 first, then one cluster (B=1, streaming) and two waves of
+# clusters (B=28, the train batch); timed also at B=16 (serving)
+CLUSTER_BATCHES = (8, 1, 28)
+CLUSTER_TIMED = (1, 8, 16, 28)
 # Train-step gradients, kernels against plain autograd (bf16): the
 # kernels keep conv results in f32 where the plain scan rounds them to
 # bf16, so they agree to bf16 resolution, as the served maps do.
@@ -238,6 +248,37 @@ def bound(flops: float, nbytes: float) -> dict:
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+
+
+def cluster_lines(card: str) -> None:
+    """For each cluster kernel: its cluster size, CTAs, the clusters that
+    fit on the card at once (cudaOccupancyMaxActiveClusters) and shared
+    memory per CTA, each checked against what the wrapper reckons."""
+    lib = build.load()
+    clusters = kconv.cluster_size(UNITS)
+    for name, reckon in (("convgru_fwd", kconv.smem_bytes),
+                         ("convgru_bwd", v2.smem_bytes)):
+        info = {}
+        for dtype, elem in (("bf16", 2), ("f32", 4)):
+            smem = getattr(lib, f"{name}_smem_bytes")(7, 7, UNITS, elem)
+            fit = getattr(lib, f"{name}_max_clusters")(7, 7, UNITS, elem)
+            check(smem == reckon(7, 7, UNITS, elem),
+                  f"{name} {dtype}: the kernel needs {smem} B per CTA, the "
+                  f"wrapper reckons {reckon(7, 7, UNITS, elem)}")
+            check(fit >= 1, f"{name} {dtype}: no cluster fits ({fit})")
+            info[dtype] = {"smem_per_cta": smem, "max_active_clusters": fit}
+        print(f"cluster {name} U={UNITS} 7x7: C={clusters}, CTAs at B="
+              f"{'/'.join(map(str, CLUSTER_TIMED))}: "
+              f"{'/'.join(str(b * clusters) for b in CLUSTER_TIMED)}, "
+              f"{json.dumps(info)} [{card}]", flush=True)
+
+
+def per_step(k: dict) -> str:
+    """A timing's ms with its us per step, beside the bound's."""
+    return (f"{k['ms']:.4f} ms ({k['ms'] * 1e3 / T:.2f} us/step), plain "
+            f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+            f"({k['bound_ms'] * 1e3 / T:.3f} us/step, {k['bound_by']}: "
+            f"{k['gflop']:.2f} GFLOP, {k['mbytes']:.1f} MB)")
 
 
 def backward_timing(kernel: str, b: int, seed: int) -> dict:
@@ -680,35 +721,47 @@ def main() -> int:
     for line in build.last_build["log"].splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
+    cluster_lines(card)
 
-    # 3. each kernel against its plain version, bf16 then f32 (TF32 off)
-    bf16 = convgru_parity(t=T, b=8, device="cuda")
-    print(f"parity convgru_fwd bf16: {json.dumps(bf16)}", flush=True)
-    check(parity_ok(bf16), f"bf16 parity gate failed: {bf16}")
-    with tf32_off():
-        f32 = convgru_parity(t=T, b=8, compute_dtype=torch.float32,
-                             device="cuda")
-    print(f"parity convgru_fwd f32 (TF32 off): {json.dumps(f32)}", flush=True)
-    check(parity_ok(f32, max_rel_delta=F32_MAX_REL_DELTA),
-          f"f32 parity failed (corr >= {MIN_CORR}, max_rel_delta <= "
-          f"{F32_MAX_REL_DELTA}, final h == ys[-1]): {f32}")
-    bwd_parity = {}
-    for kernel in ("convgru_bwd", "convgru_bwd_mono"):
-        stats = backward_parity(kernel, t=T, b=8, device="cuda")
-        print(f"parity {kernel} bf16: {json.dumps(stats['outputs'])}",
+    # 3. each kernel against its plain version, bf16 then f32 (TF32 off);
+    # the cluster kernels B1 and B2 at each of CLUSTER_BATCHES
+    fwd_parity = {}
+    for b in CLUSTER_BATCHES:
+        bf16 = convgru_parity(t=T, b=b, device="cuda")
+        print(f"parity convgru_fwd bf16 B={b}: {json.dumps(bf16)}",
               flush=True)
-        check(backward_parity_ok(stats), f"{kernel} bf16 parity gate "
-                                         f"failed: {stats}")
+        check(parity_ok(bf16), f"bf16 parity gate failed at B={b}: {bf16}")
         with tf32_off():
-            stats32 = backward_parity(kernel, t=T, b=8,
-                                      compute_dtype=torch.float32,
-                                      device="cuda")
-        print(f"parity {kernel} f32 (TF32 off): "
-              f"{json.dumps(stats32['outputs'])}", flush=True)
-        check(backward_parity_ok(stats32, max_rel_delta=F32_MAX_REL_DELTA),
-              f"{kernel} f32 parity failed (corr >= {MIN_CORR}, "
-              f"max_rel_delta <= {F32_MAX_REL_DELTA}): {stats32}")
-        bwd_parity[kernel] = stats
+            f32 = convgru_parity(t=T, b=b, compute_dtype=torch.float32,
+                                 device="cuda")
+        print(f"parity convgru_fwd f32 (TF32 off) B={b}: {json.dumps(f32)}",
+              flush=True)
+        check(parity_ok(f32, max_rel_delta=F32_MAX_REL_DELTA),
+              f"f32 parity failed at B={b} (corr >= {MIN_CORR}, "
+              f"max_rel_delta <= {F32_MAX_REL_DELTA}, final h == ys[-1]): "
+              f"{f32}")
+        fwd_parity[b] = bf16
+    bwd_parity = {}
+    for kernel, batches in (("convgru_bwd", CLUSTER_BATCHES),
+                            ("convgru_bwd_mono", (8,))):
+        for b in batches:
+            stats = backward_parity(kernel, t=T, b=b, device="cuda")
+            print(f"parity {kernel} bf16 B={b}: "
+                  f"{json.dumps(stats['outputs'])}", flush=True)
+            check(backward_parity_ok(stats), f"{kernel} bf16 parity gate "
+                                             f"failed at B={b}: {stats}")
+            with tf32_off():
+                stats32 = backward_parity(kernel, t=T, b=b,
+                                          compute_dtype=torch.float32,
+                                          device="cuda")
+            print(f"parity {kernel} f32 (TF32 off) B={b}: "
+                  f"{json.dumps(stats32['outputs'])}", flush=True)
+            check(backward_parity_ok(stats32,
+                                     max_rel_delta=F32_MAX_REL_DELTA),
+                  f"{kernel} f32 parity failed at B={b} (corr >= "
+                  f"{MIN_CORR}, max_rel_delta <= {F32_MAX_REL_DELTA}): "
+                  f"{stats32}")
+            bwd_parity[kernel, b] = stats
     lstm_bf16 = convlstm_parity(t=T, b=8, device="cuda")
     print(f"parity convlstm_fwd bf16: {json.dumps(lstm_bf16)}", flush=True)
     check(parity_ok(lstm_bf16), f"convlstm_fwd bf16 parity gate failed "
@@ -751,22 +804,18 @@ def main() -> int:
     # 7. timings
     fused = ConvGRU.fuse({k: v.detach() for k, v in model.cell.items()})
     timing_rng = np.random.RandomState(SEED + 1)
-    k8 = kernel_timing(fused, 8, timing_rng)
-    k16 = kernel_timing(fused, 16, timing_rng)
-    for b, k in ((8, k8), (16, k16)):
-        print(f"timing: convgru_fwd T={T} B={b} U=128 bf16: "
-              f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound "
-              f"{k['bound_ms']:.4f} ms ({k['bound_by']}: {k['gflop']:.2f} "
-              f"GFLOP, {k['mbytes']:.1f} MB) [{card}]", flush=True)
+    fwd_timing = {}
+    for b in CLUSTER_TIMED:
+        k = fwd_timing[b] = kernel_timing(fused, b, timing_rng)
+        print(f"timing: convgru_fwd T={T} B={b} U=128 bf16: {per_step(k)} "
+              f"[{card}]", flush=True)
     bwd_timing = {}
-    for kernel in ("convgru_bwd", "convgru_bwd_mono"):
-        for b in (8, 16):
+    for kernel, batches in (("convgru_bwd", CLUSTER_TIMED),
+                            ("convgru_bwd_mono", (8, 16))):
+        for b in batches:
             k = bwd_timing[kernel, b] = backward_timing(kernel, b, SEED + b)
-            print(f"timing: {kernel} T={T} B={b} U=128 bf16: "
-                  f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound "
-                  f"{k['bound_ms']:.4f} ms ({k['bound_by']}: "
-                  f"{k['gflop']:.2f} GFLOP, {k['mbytes']:.1f} MB) [{card}]",
-                  flush=True)
+            print(f"timing: {kernel} T={T} B={b} U=128 bf16: {per_step(k)} "
+                  f"[{card}]", flush=True)
     lstm_fused = ConvLSTM.fuse({k: v.detach()
                                 for k, v in lstm_model.cell.items()})
     l8 = lstm_kernel_timing(lstm_fused, 8, timing_rng)
@@ -818,14 +867,15 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         entry("convgru_fwd", "convgru_fwd.cu", "convgru.py:45",
-              grcn_served["launches"]["convgru_fwd"], bf16["max_delta"], k8),
+              grcn_served["launches"]["convgru_fwd"],
+              fwd_parity[8]["max_delta"], fwd_timing[8]),
         entry("convgru_bwd", "convgru_bwd.cu", "convgru_vjp2.py:56",
               trained["launches"]["convgru_bwd"],
-              max_err(bwd_parity["convgru_bwd"]),
+              max_err(bwd_parity["convgru_bwd", 8]),
               bwd_timing["convgru_bwd", 8]),
         entry("convgru_bwd_mono", "convgru_bwd_mono.cu", "convgru_vjp.py:85",
               mono["launches"]["convgru_bwd_mono"],
-              max_err(bwd_parity["convgru_bwd_mono"]),
+              max_err(bwd_parity["convgru_bwd_mono", 8]),
               bwd_timing["convgru_bwd_mono", 8]),
         entry("convlstm_fwd", "convlstm_fwd.cu", "convlstm.py:23",
               lstm_served["launches"]["convlstm_fwd"],

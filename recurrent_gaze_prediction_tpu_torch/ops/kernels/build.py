@@ -65,6 +65,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                  "convgru_bwd_mono_smem_bytes", "convlstm_fwd_smem_bytes"):
         getattr(lib, name).argtypes = [i, i, i, i]
         getattr(lib, name).restype = size
+    for name in ("convgru_fwd_max_clusters", "convgru_bwd_max_clusters"):
+        getattr(lib, name).argtypes = [i, i, i, i]
+        getattr(lib, name).restype = i
     lib.convgru_bwd_mono_workspace_bytes.argtypes = [i] * 5
     lib.convgru_bwd_mono_workspace_bytes.restype = size
     for name in ("convgru_fwd", "convgru_bwd", "convgru_bwd_mono",

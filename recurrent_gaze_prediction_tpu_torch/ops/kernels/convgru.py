@@ -1,16 +1,21 @@
-"""ConvGRU recurrence: the hand-written CUDA kernel's wrapper.
+"""ConvGRU recurrence: the hand-written CUDA kernel's wrapper, and the
+packing of the cluster-split kernels' weight slices (B1 here, B2 in
+`convgru_vjp2.py`).
 
 Replaces the TPU kernel `_convgru_seq_kernel` of the JAX package's
 `ops/pallas/convgru.py` (`convgru_scan_pallas`, wrapper `convgru_scan`).
 The kernel (`csrc/convgru_fwd.cu`) runs the whole recurrence over T in one
-launch, one block per batch element, with h in shared memory and the
-state convs on the tensor cores in bf16.
+launch. Each batch element runs on a thread-block cluster of
+`cluster_size(U)` CTAs (8 at U=128); each CTA owns U/C output channels,
+keeps its column slices of the weights in shared memory for the whole
+sequence, and gathers the full state from its peers through distributed
+shared memory; the state convs run on the tensor cores in bf16.
 
 Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s) at T=42, U=128 in bf16:
 operations, T*B*49*9*U*3U*2 = 14.6 GFLOP at B=8 (15 us) and 29.1 GFLOP at
-B=16 (29 us), against ~43 MB moved at B=16 (13 us). The design keeps h and
-the gates out of device memory; its one-block-per-element grid leaves most
-SMs idle at B <= 32, which is what a cluster split would address.
+B=16 (29 us), against ~43 MB moved at B=16 (13 us). The recurrence is
+sequential in T, so a step's latency on one cluster is what the design
+works on.
 
 On a CUDA tensor the wrapper launches the kernel or raises (no fallback).
 On a CPU tensor it runs the plain version, `ConvGRU.scan_precomputed`,
@@ -32,6 +37,105 @@ launches = 0
 _count_lock = threading.Lock()
 
 _DTYPES = {torch.bfloat16: 2, torch.float32: 4}
+
+# The cluster kernels' constants (csrc/cluster_conv.cuh)
+MAX_CLUSTER = 8     # CTAs per cluster: the portable maximum
+K_GROUPS = 4        # the conv depth's split across warps (bf16)
+SMEM_LIMIT = 232448  # shared memory one CTA can have (227 KB)
+
+
+def cluster_size(units: int) -> int:
+    """CTAs per batch element: the largest divisor of U/16 that is at most
+    MAX_CLUSTER, so each CTA owns a multiple of 16 channels (U=16 -> 1,
+    32 -> 2, 48 -> 3, 128 -> 8)."""
+    tiles = units // 16
+    return max(c for c in range(1, MAX_CLUSTER + 1) if tiles % c == 0)
+
+
+def column_slices(kernel: torch.Tensor, clusters: int,
+                  groups: int = 1) -> torch.Tensor:
+    """[3,3,K,groups*U] -> [C,9,K,groups*Ns] with Ns = U / C: CTA k's
+    output columns, the columns [k*Ns, (k+1)*Ns) of each of the `groups`
+    blocks of U (z then r for U_zr), taps flattened."""
+    k_in, n = kernel.shape[2], kernel.shape[3]
+    ns = n // (groups * clusters)
+    return (kernel.reshape(9, k_in, groups, clusters, ns)
+            .permute(3, 0, 1, 2, 4).reshape(clusters, 9, k_in, groups * ns))
+
+
+def fragment_order(slices: torch.Tensor) -> torch.Tensor:
+    """[C,9,K,N] slices -> the same values in mma.m16n8k16 fragment order
+    (`csrc/cluster_conv.cuh`), [C, 9K/16, N/16, 32 lanes, 8]: for k-step s
+    (rows 16s..16s+15 of the [9K, N] slice) and column pair q, lane
+    l = 4g + c holds B[16s+2c+{0,1}][n], B[16s+2c+8+{0,1}][n] for
+    n = 16q+g, then the same for n = 16q+8+g."""
+    c, _, k_in, n = slices.shape
+    # row 16s + 8*half + 2*c + kp, column 16q + 8*tile + g
+    parts = slices.reshape(c, 9 * k_in // 16, 2, 4, 2, n // 16, 2, 8)
+    # -> [C, s, q, g, c, tile, half, kp]
+    return parts.permute(0, 1, 5, 7, 3, 6, 2, 4).reshape(
+        c, 9 * k_in // 16, n // 16, 32, 8)
+
+
+def pack_slices(kernel: torch.Tensor, clusters: int, dtype: torch.dtype,
+                groups: int = 1) -> torch.Tensor:
+    """A weight's per-CTA column slices as the kernels read them: in
+    fragment order in bf16, plain [C,9,K,N] in f32."""
+    slices = column_slices(kernel.to(dtype), clusters, groups)
+    if dtype == torch.bfloat16:
+        return fragment_order(slices)
+    return slices.contiguous()
+
+
+def align128(nbytes: int) -> int:
+    return -(-nbytes // 128) * 128
+
+
+def padded_grid(h: int, w: int) -> tuple[int, int]:
+    """(Mpad, R) of csrc/cluster_conv.cuh's padded grid: output rows on the
+    H x (W+2) grid rounded up to 16, and rows of a padded operand."""
+    mpad = -(-h * (w + 2) // 16) * 16
+    return mpad, mpad + 2 * (w + 2) + 2
+
+
+def pad_bytes(h: int, w: int, channels: int, elem: int) -> int:
+    """Bytes of a padded operand (row stride channels + 8)."""
+    return align128(padded_grid(h, w)[1] * (channels + 8) * elem)
+
+
+def acc_bytes(h: int, w: int, columns: int, elem: int) -> int:
+    """Bytes of the conv's partial sums: K_GROUPS planes in bf16, one in
+    f32, of Mpad rows of stride columns + 8 floats."""
+    planes = K_GROUPS if elem == 2 else 1
+    return align128(padded_grid(h, w)[0] * (columns + 8) * 4 * planes)
+
+
+def smem_bytes(h: int, w: int, units: int, elem: int) -> int:
+    """Shared memory of one CTA of kernel B1, as `csrc/convgru_fwd.cu`
+    lays it out: weight slices (bf16 only), hpad, rhpad, acc, own h and u,
+    two wx slices."""
+    ns = units // cluster_size(units)
+    hw = h * w
+    weights = (align128(9 * units * 2 * ns * elem)
+               + align128(9 * units * ns * elem)) if elem == 2 else 0
+    return (weights + 2 * pad_bytes(h, w, units, elem)
+            + acc_bytes(h, w, 2 * ns, elem) + 2 * align128(hw * ns * 4)
+            + align128(2 * 3 * hw * ns * elem))
+
+
+def check_fits(kernel: str, need: int, h: int, w: int, units: int) -> None:
+    """Raise ValueError if a CTA of `kernel` needs more shared memory than
+    the card gives one."""
+    if need > SMEM_LIMIT:
+        raise ValueError(f"{kernel} needs {need} B of shared memory per CTA "
+                         f"at H={h} W={w} U={units} (cluster of "
+                         f"{cluster_size(units)}; limit {SMEM_LIMIT})")
+
+
+def aligned(x: torch.Tensor) -> torch.Tensor:
+    """x, or a copy of it whose data starts on 16 bytes (the kernels'
+    cp.async and vector loads need that)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _launch(u_zr: torch.Tensor, u_c: torch.Tensor, wx: torch.Tensor,
@@ -56,17 +160,18 @@ def _launch(u_zr: torch.Tensor, u_c: torch.Tensor, wx: torch.Tensor,
             f"{tuple(u_zr.shape)}, U_c {tuple(u_c.shape)}")
     device = build.same_device("convgru_fwd", u_zr, u_c, wx, h0)
     elem = _DTYPES[wx.dtype]
-    build.check_shared_memory("convgru_fwd", hh, ww, units, elem)
-    wx = wx.contiguous()
-    u_zr = u_zr.to(wx.dtype).contiguous()
-    u_c = u_c.to(wx.dtype).contiguous()
-    h0 = h0.float().contiguous()
+    check_fits("convgru_fwd", smem_bytes(hh, ww, units, elem), hh, ww, units)
+    clusters = cluster_size(units)
+    wx = aligned(wx.contiguous())
+    wzr = pack_slices(u_zr, clusters, wx.dtype, groups=2)
+    wc = pack_slices(u_c, clusters, wx.dtype)
+    h0 = aligned(h0.float().contiguous())
     ys = torch.empty((t, b, hh, ww, units), dtype=torch.float32,
                      device=device)
     h_final = torch.empty((b, hh, ww, units), dtype=torch.float32,
                           device=device)
-    build.launch("convgru_fwd", device, wx.data_ptr(), u_zr.data_ptr(),
-                 u_c.data_ptr(), h0.data_ptr(), ys.data_ptr(),
+    build.launch("convgru_fwd", device, wx.data_ptr(), wzr.data_ptr(),
+                 wc.data_ptr(), h0.data_ptr(), ys.data_ptr(),
                  h_final.data_ptr(), t, b, hh, ww, units, elem)
     with _count_lock:
         launches += 1

@@ -9,9 +9,10 @@ sequential piece is a kernel:
 
   stage 1 (library convs, batched over T*B): recompute u, r, c from the
       stored hidden states;
-  stage 2 (kernel `csrc/convgru_bwd.cu`, reverse time, one block per batch
-      element): propagate dh_{t-1} = dh_t.u + drh.r + conv_T(dzr, U_zr),
-      emitting dzr = [du_pre|dr_pre] and da per step;
+  stage 2 (kernel `csrc/convgru_bwd.cu`, reverse time, one thread-block
+      cluster per batch element with the output channels split over its
+      CTAs, as kernel B1): propagate dh_{t-1} = dh_t.u + drh.r +
+      conv_T(dzr, U_zr), emitting dzr = [du_pre|dr_pre] and da per step;
   stage 3 (one matmul each): dU_zr = sum_t patches(h_{t-1})^T dzr_t,
       dU_c = sum_t patches(r.h)^T da_t, and dwx = [dzr|da].
 
@@ -37,7 +38,8 @@ import torch
 
 from ..cells import ConvGRU
 from . import build
-from .convgru import convgru_recurrence
+from .convgru import (acc_bytes, align128, aligned, check_fits,
+                      cluster_size, convgru_recurrence, pack_slices, pad_bytes)
 from .convgru_vjp import (conv3x3, conv3x3_transpose, hprev_of, kernel_grad,
                           mode_of, transposed_weight)
 
@@ -70,6 +72,19 @@ def dh_bwd_plain(u, r, c, hprev, g, uzr, uc, compute_dtype=None
     return torch.stack(dzrs[::-1]), torch.stack(das[::-1]), dh
 
 
+def smem_bytes(h: int, w: int, units: int, elem: int) -> int:
+    """Shared memory of one CTA of kernel B2, as `csrc/convgru_bwd.cu` lays
+    it out: weight slices (bf16 only), dapad, zpad, acc, own dh, the five
+    input slices."""
+    ns = units // cluster_size(units)
+    hw = h * w
+    weights = (align128(9 * units * ns * elem)
+               + align128(9 * 2 * units * ns * elem)) if elem == 2 else 0
+    return (weights + pad_bytes(h, w, units, elem)
+            + pad_bytes(h, w, 2 * units, elem) + acc_bytes(h, w, ns, elem)
+            + align128(hw * ns * 4) + align128(5 * hw * ns * 4))
+
+
 def _launch(u, r, c, hprev, g, uzr, uc, compute_dtype
             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     global launches
@@ -91,10 +106,11 @@ def _launch(u, r, c, hprev, g, uzr, uc, compute_dtype
             f"{tuple(uzr.shape)}, U_c {tuple(uc.shape)}")
     device = build.same_device("convgru_bwd", u, r, c, hprev, g, uzr, uc)
     elem = _DTYPES[wdt]
-    build.check_shared_memory("convgru_bwd", hh, ww, units, elem)
-    streams = [x.float().contiguous() for x in (u, r, c, hprev, g)]
-    uzr_t = transposed_weight(uzr).to(wdt).contiguous()
-    uc_t = transposed_weight(uc).to(wdt).contiguous()
+    check_fits("convgru_bwd", smem_bytes(hh, ww, units, elem), hh, ww, units)
+    clusters = cluster_size(units)
+    streams = [aligned(x.float().contiguous()) for x in (u, r, c, hprev, g)]
+    uzr_t = pack_slices(transposed_weight(uzr), clusters, wdt)
+    uc_t = pack_slices(transposed_weight(uc), clusters, wdt)
     f32 = dict(dtype=torch.float32, device=device)
     dzr = torch.empty((t, b, hh, ww, 2 * units), **f32)
     da = torch.empty((t, b, hh, ww, units), **f32)

@@ -1,6 +1,8 @@
 """Tests that need a CUDA card: the hand-written recurrence kernels (ConvGRU
 forward B1, backward B2 and B4; ConvLSTM forward B3) against their plain
-PyTorch versions at shapes chip_smoke.py does not cover. They skip
+PyTorch versions at shapes chip_smoke.py does not cover, and the cluster
+kernels' (B1, B2) shared-memory reckoning and refusal of widths that do
+not fit. They skip
 without a card. This file imports torch only (no jax), so on a machine
 with a card it runs without the JAX test harness:
 
@@ -51,12 +53,18 @@ def _inputs(t, b, hw, units, dtype, device, seed=0):
     return fused, wx, h0
 
 
+# U=128 runs on clusters of 8 CTAs: B=1 and 8 in one wave, 28 (the train
+# batch) and 32 in two
+CLUSTER_SHAPES = [(4, 1, (7, 7), 128), (4, 8, (7, 7), 128),
+                  (4, 28, (7, 7), 128)]
+
+
 @pytest.mark.parametrize("t,b,hw,units", [
     (1, 1, (7, 7), 16),
     (5, 3, (7, 7), 32),
     (4, 2, (5, 9), 48),
     (3, 32, (7, 7), 128),
-])
+] + CLUSTER_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_convgru_kernel_matches_plain(cuda_no_tf32, t, b, hw, units, dtype):
     fused, wx, h0 = _inputs(t, b, hw, units, dtype, cuda_no_tf32)
@@ -84,6 +92,40 @@ def test_convgru_kernel_rejects_shapes_it_does_not_take(cuda_no_tf32):
     fused, wx, h0 = _inputs(2, 1, (7, 7), 8, torch.bfloat16, cuda_no_tf32)
     with pytest.raises(ValueError, match="multiple of 16"):
         kconv.convgru_recurrence(fused, wx, h0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cluster_kernels_reject_a_width_whose_slice_does_not_fit(
+        cuda_no_tf32, dtype):
+    """U=256 on clusters of 8: a CTA's slices need more shared memory than
+    the card has; both wrappers raise before launching."""
+    fused, wx, h0 = _inputs(1, 1, (7, 7), 256, dtype, cuda_no_tf32)
+    before = (kconv.launches, v2.launches)
+    with pytest.raises(ValueError, match="shared memory"):
+        kconv.convgru_recurrence(fused, wx, h0)
+    streams = _gates(1, 1, (7, 7), 256, cuda_no_tf32, seed=1)
+    cdt = None if dtype == torch.float32 else dtype
+    with pytest.raises(ValueError, match="shared memory"):
+        v2.dh_bwd(*streams, fused["Uh_zr"], fused["U_c"], cdt)
+    assert (kconv.launches, v2.launches) == before
+
+
+@pytest.mark.parametrize("units", [16, 32, 48, 128])
+@pytest.mark.parametrize("hw", [(7, 7), (5, 9)])
+def test_cluster_shared_memory_reckoning_matches_the_sources(
+        cuda_no_tf32, units, hw):
+    """The wrappers' reckoning (which they check before a launch) is the
+    kernels' own, and at least one cluster of each fits the card."""
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import build
+
+    lib = build.load()
+    for elem in (2, 4):
+        assert kconv.smem_bytes(*hw, units, elem) == \
+            lib.convgru_fwd_smem_bytes(*hw, units, elem)
+        assert v2.smem_bytes(*hw, units, elem) == \
+            lib.convgru_bwd_smem_bytes(*hw, units, elem)
+        assert lib.convgru_fwd_max_clusters(*hw, units, elem) >= 1
+        assert lib.convgru_bwd_max_clusters(*hw, units, elem) >= 1
 
 
 SHAPES = [(1, 1, (7, 7), 16), (4, 3, (7, 7), 32), (3, 2, (5, 9), 48),
@@ -116,7 +158,9 @@ def _gates(t, b, hw, units, device, seed):
             for x in (u, r, c, hprev, g)]
 
 
-@pytest.mark.parametrize("t,b,hw,units", SHAPES)
+# B2 at U=128 also at B=1 and 28 (SHAPES holds B=8)
+@pytest.mark.parametrize("t,b,hw,units",
+                         SHAPES + [CLUSTER_SHAPES[0], CLUSTER_SHAPES[2]])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_convgru_bwd_kernel_matches_plain(cuda_no_tf32, t, b, hw, units,
                                           dtype):
