@@ -7,8 +7,8 @@ In order, failing (exit 1) on the first check that does not hold:
   1. requires CUDA and prints the card's name and power limit;
   2. builds the CUDA kernels from csrc/ (one nvcc per source, all started
      together) and prints the build time; prints, for each cluster kernel
-     (B1, B2), its cluster size C, the CTAs it launches, the clusters that
-     fit on the card at once and its shared memory per CTA (checked
+     (B1, B2, B3), its cluster size C, the CTAs it launches, the clusters
+     that fit on the card at once and its shared memory per CTA (checked
      against the wrappers' reckoning);
   3. holds each kernel against its plain PyTorch version in bf16 under the
      JAX package's gate, and in f32 with TF32 off: the forward recurrence
@@ -17,7 +17,8 @@ In order, failing (exit 1) on the first check that does not hold:
      same shapes, on inputs from a real forward), all at B=8, and B1 and B2
      also at B=1 (one cluster: the streaming shape) and B=28 (two waves of
      clusters: the train batch); then the peephole ConvLSTM forward B3
-     (`convlstm_parity`, B=8, nonzero carries, the final c checked too);
+     (`convlstm_parity`, nonzero carries, the final c checked too) at B=8,
+     1 and 16 (two waves of clusters: the serving batch);
   4. serves full-width gaze_grcn, then gaze_lstm (1024->512->128, T=42,
      49x49 maps, bf16, seeded random weights) over HTTP from a bundle:
      concurrent single-clip POSTs, each reply checked against a plain-scan
@@ -36,11 +37,11 @@ In order, failing (exit 1) on the first check that does not hold:
   6. checks the train step's gradients at full width, through either
      backward, against plain autograd of `ConvGRU.scan` on one batch;
   7. times the kernels and their plain versions (B=8, B=16; B1 and B2 also
-     at B=1 and 28, in us per step beside the bound), the feature-fed
-     predict of both models (B=16) with a breakdown, the HTTP requests, the
-     streaming chunk steps (B=1), and the train step (B=28) through the
-     kernels and through plain autograd with a breakdown, with CUDA events
-     or the host clock after warm-up;
+     at B=1 and 28, B3 also at B=1, in us per step beside the bound), the
+     feature-fed predict of both models (B=16) with a breakdown, the HTTP
+     requests, the streaming chunk steps (B=1), and the train step (B=28)
+     through the kernels and through plain autograd with a breakdown, with
+     CUDA events or the host clock after warm-up;
   8. prints the kernels' JSON line, then, last, the device JSON line.
 """
 
@@ -109,6 +110,10 @@ STATE_STDDEV = 0.05  # the reference init (1e-4) leaves the recurrence ~0
 # clusters (B=28, the train batch); timed also at B=16 (serving)
 CLUSTER_BATCHES = (8, 1, 28)
 CLUSTER_TIMED = (1, 8, 16, 28)
+# the same for the cluster kernel B3, which serving (B=16) and streaming
+# (B=1) run
+LSTM_BATCHES = (8, 1, 16)
+LSTM_TIMED = (1, 8, 16)
 # Train-step gradients, kernels against plain autograd (bf16): the
 # kernels keep conv results in f32 where the plain scan rounds them to
 # bf16, so they agree to bf16 resolution, as the served maps do.
@@ -257,7 +262,8 @@ def cluster_lines(card: str) -> None:
     lib = build.load()
     clusters = kconv.cluster_size(UNITS)
     for name, reckon in (("convgru_fwd", kconv.smem_bytes),
-                         ("convgru_bwd", v2.smem_bytes)):
+                         ("convgru_bwd", v2.smem_bytes),
+                         ("convlstm_fwd", klstm.smem_bytes)):
         info = {}
         for dtype, elem in (("bf16", 2), ("f32", 4)):
             smem = getattr(lib, f"{name}_smem_bytes")(7, 7, UNITS, elem)
@@ -762,19 +768,23 @@ def main() -> int:
                   f"{MIN_CORR}, max_rel_delta <= {F32_MAX_REL_DELTA}): "
                   f"{stats32}")
             bwd_parity[kernel, b] = stats
-    lstm_bf16 = convlstm_parity(t=T, b=8, device="cuda")
-    print(f"parity convlstm_fwd bf16: {json.dumps(lstm_bf16)}", flush=True)
-    check(parity_ok(lstm_bf16), f"convlstm_fwd bf16 parity gate failed "
-                                f"(ys and final c): {lstm_bf16}")
-    with tf32_off():
-        lstm_f32 = convlstm_parity(t=T, b=8, compute_dtype=torch.float32,
-                                   device="cuda")
-    print(f"parity convlstm_fwd f32 (TF32 off): {json.dumps(lstm_f32)}",
-          flush=True)
-    check(parity_ok(lstm_f32, max_rel_delta=F32_MAX_REL_DELTA),
-          f"convlstm_fwd f32 parity failed (corr >= {MIN_CORR}, "
-          f"max_rel_delta <= {F32_MAX_REL_DELTA} for ys and final c, final "
-          f"h == ys[-1]): {lstm_f32}")
+    lstm_parity = {}
+    for b in LSTM_BATCHES:
+        bf16 = convlstm_parity(t=T, b=b, device="cuda")
+        print(f"parity convlstm_fwd bf16 B={b}: {json.dumps(bf16)}",
+              flush=True)
+        check(parity_ok(bf16), f"convlstm_fwd bf16 parity gate failed at "
+                               f"B={b} (ys and final c): {bf16}")
+        with tf32_off():
+            f32 = convlstm_parity(t=T, b=b, compute_dtype=torch.float32,
+                                  device="cuda")
+        print(f"parity convlstm_fwd f32 (TF32 off) B={b}: {json.dumps(f32)}",
+              flush=True)
+        check(parity_ok(f32, max_rel_delta=F32_MAX_REL_DELTA),
+              f"convlstm_fwd f32 parity failed at B={b} (corr >= "
+              f"{MIN_CORR}, max_rel_delta <= {F32_MAX_REL_DELTA} for ys and "
+              f"final c, final h == ys[-1]): {f32}")
+        lstm_parity[b] = bf16
 
     # 4. serving at full width through the kernels: gaze_grcn (B1), then
     # gaze_lstm (B3)
@@ -818,13 +828,11 @@ def main() -> int:
                   f"[{card}]", flush=True)
     lstm_fused = ConvLSTM.fuse({k: v.detach()
                                 for k, v in lstm_model.cell.items()})
-    l8 = lstm_kernel_timing(lstm_fused, 8, timing_rng)
-    l16 = lstm_kernel_timing(lstm_fused, 16, timing_rng)
-    for b, k in ((8, l8), (16, l16)):
-        print(f"timing: convlstm_fwd T={T} B={b} U=128 bf16: "
-              f"{k['ms']:.4f} ms, plain {k['plain_ms']:.4f} ms, bound "
-              f"{k['bound_ms']:.4f} ms ({k['bound_by']}: {k['gflop']:.2f} "
-              f"GFLOP, {k['mbytes']:.1f} MB) [{card}]", flush=True)
+    lstm_timing = {}
+    for b in LSTM_TIMED:
+        k = lstm_timing[b] = lstm_kernel_timing(lstm_fused, b, timing_rng)
+        print(f"timing: convlstm_fwd T={T} B={b} U=128 bf16: {per_step(k)} "
+              f"[{card}]", flush=True)
     c3d16 = torch.from_numpy(
         timing_rng.randn(16, T, 1024, 7, 7).astype(np.float32)).cuda()
     for m, served in ((model, grcn_served), (lstm_model, lstm_served)):
@@ -879,8 +887,9 @@ def main() -> int:
               bwd_timing["convgru_bwd_mono", 8]),
         entry("convlstm_fwd", "convlstm_fwd.cu", "convlstm.py:23",
               lstm_served["launches"]["convlstm_fwd"],
-              max(lstm_bf16["max_delta"], lstm_bf16["final_c"]["max_delta"]),
-              l8),
+              max(lstm_parity[8]["max_delta"],
+                  lstm_parity[8]["final_c"]["max_delta"]),
+              lstm_timing[8]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

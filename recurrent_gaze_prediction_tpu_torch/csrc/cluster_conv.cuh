@@ -1,5 +1,6 @@
 // Cluster-split 3x3 SAME convolutions for the ConvGRU kernels B1
-// (convgru_fwd.cu) and B2 (convgru_bwd.cu) on Hopper (sm_90a).
+// (convgru_fwd.cu) and B2 (convgru_bwd.cu) and the ConvLSTM kernel B3
+// (convlstm_fwd.cu) on Hopper (sm_90a).
 //
 // One batch element runs on a thread-block cluster of C CTAs
 // (`cluster_size`); CTA k owns the output channels [k*Ns, (k+1)*Ns),
@@ -31,11 +32,12 @@
 // k-step's B fragments as one conflict-free 512-byte LDS.128 per pair.
 //
 // Products. bf16: mma.sync.m16n8k16 with f32 accumulators, A by ldmatrix
-// from the padded operand. A CTA's conv is [Mpad] x [9K] x [N] with N = Ns
-// or 2 Ns: a handful of output tiles. So the 9K depth is split into
-// kKGroups groups across warps; each writes its partial sums into its own
-// plane of `acc`, and the elementwise phase adds the planes in a fixed
-// order. The f32 conv runs scalar FMAs into one plane.
+// from the padded operand. A CTA's conv is [Mpad] x [9K] x [N] with N = Ns,
+// 2 Ns or 4 Ns: a handful of output tiles. So the 9K depth is split into KG
+// groups across warps (a template parameter: kKGroups for B1 and B2; B3's
+// shared memory has room for one plane); each writes its partial sums into
+// its own plane of `acc`, and the elementwise phase adds the planes in a
+// fixed order. The f32 conv runs scalar FMAs into one plane.
 
 #pragma once
 
@@ -100,10 +102,10 @@ __host__ __device__ inline size_t acc_plane(const Grid& g, int N) {
   return (size_t)g.Mpad * (N + 8);
 }
 
-// planes of acc: the split of the conv depth
-template <typename T>
+// planes of acc: the split of the conv depth into KG groups (bf16)
+template <typename T, int KG = kKGroups>
 __host__ __device__ constexpr int k_groups() {
-  return sizeof(T) == 2 ? kKGroups : 1;
+  return sizeof(T) == 2 ? KG : 1;
 }
 
 // row of interior position p (row-major over H x W) in a padded buffer
@@ -119,11 +121,11 @@ __device__ __forceinline__ int out_row(const Grid& g, int p) {
 __device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
 // sum over the planes of acc at offset i, in plane order
-template <typename T>
+template <typename T, int KG = kKGroups>
 __device__ __forceinline__ float acc_sum(const float* acc, size_t plane, size_t i) {
   float s = acc[i];
 #pragma unroll
-  for (int kg = 1; kg < k_groups<T>(); ++kg) s += acc[kg * plane + i];
+  for (int kg = 1; kg < k_groups<T, KG>(); ++kg) s += acc[kg * plane + i];
   return s;
 }
 
@@ -247,9 +249,10 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 // K and N are multiples of 16.
 //
 // A work item is one 16-row tile by up to two column pairs (32 columns) by
-// one of kKGroups k-groups: the 16-channel steps kk of every tap with
-// kk % kKGroups == kg. Each item writes its partial sums into its group's
-// plane; no block barrier is needed inside.
+// one of KG k-groups: the 16-channel steps kk of every tap with
+// kk % KG == kg. Each item writes its partial sums into its group's plane;
+// no block barrier is needed inside.
+template <int KG = kKGroups>
 __device__ inline void conv_slice(const __nv_bfloat16* __restrict__ in_pad, int K,
                                   const __nv_bfloat16* __restrict__ w, int N, const Grid& g,
                                   float* __restrict__ acc) {
@@ -260,8 +263,8 @@ __device__ inline void conv_slice(const __nv_bfloat16* __restrict__ in_pad, int 
   const int pairs = N / 16, n_groups = (pairs + 1) / 2;
   const int ld = N + 8;
   const uint4* wf = reinterpret_cast<const uint4*>(w);
-  for (int item = warp; item < m_tiles * n_groups * kKGroups; item += kWarps) {
-    const int kg = item % kKGroups, mn = item / kKGroups;
+  for (int item = warp; item < m_tiles * n_groups * KG; item += kWarps) {
+    const int kg = item % KG, mn = item / KG;
     const int mt = mn % m_tiles, q0 = mn / m_tiles * 2;
     const bool q2 = q0 + 1 < pairs;
     float c[4][4] = {};
@@ -272,7 +275,7 @@ __device__ inline void conv_slice(const __nv_bfloat16* __restrict__ in_pad, int 
       const __nv_bfloat16* a_tap = a_lane + ((tap / 3) * g.Wp + tap % 3) * S;
       const uint4* b_tap = wf + ((size_t)tap * kt * pairs + q0) * 32 + lane;
 #pragma unroll 2
-      for (int kk = kg; kk < kt; kk += kKGroups) {
+      for (int kk = kg; kk < kt; kk += KG) {
         uint32_t a[4];
         ldmatrix_x4(a, a_tap + kk * 16);
         const uint4 b0 = b_tap[(size_t)kk * pairs * 32];
@@ -300,7 +303,8 @@ __device__ inline void conv_slice(const __nv_bfloat16* __restrict__ in_pad, int 
 
 // f32: scalar FMAs into plane 0, one thread per (valid position, column);
 // w is the plain [9K][N] slice in global memory. Only the H x W valid rows
-// of acc are written; the others are never read.
+// of acc are written; the others are never read. KG has no effect.
+template <int KG = kKGroups>
 __device__ inline void conv_slice(const float* __restrict__ in_pad, int K,
                                   const float* __restrict__ w, int N, const Grid& g,
                                   float* __restrict__ acc) {

@@ -1,6 +1,6 @@
-// Block-level 3x3 SAME convolutions on a small H x W grid, shared by the
-// one-block-per-element recurrence kernels B3 (convlstm_fwd.cu) and B4
-// (convgru_bwd_mono.cu). B1 and B2 run on clusters (cluster_conv.cuh).
+// Block-level 3x3 SAME convolutions on a small H x W grid, for the
+// one-block-per-element recurrence kernel B4 (convgru_bwd_mono.cu). B1, B2
+// and B3 run on clusters (cluster_conv.cuh).
 //
 // Layout. An operand with K channels is kept zero-padded on an
 // (H+2) x (W+2) grid in a buffer of `R` rows of stride `pad_stride(K)`

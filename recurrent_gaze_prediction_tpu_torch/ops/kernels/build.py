@@ -65,7 +65,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                  "convgru_bwd_mono_smem_bytes", "convlstm_fwd_smem_bytes"):
         getattr(lib, name).argtypes = [i, i, i, i]
         getattr(lib, name).restype = size
-    for name in ("convgru_fwd_max_clusters", "convgru_bwd_max_clusters"):
+    for name in ("convgru_fwd_max_clusters", "convgru_bwd_max_clusters",
+                 "convlstm_fwd_max_clusters"):
         getattr(lib, name).argtypes = [i, i, i, i]
         getattr(lib, name).restype = i
     lib.convgru_bwd_mono_workspace_bytes.argtypes = [i] * 5
@@ -75,8 +76,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         getattr(lib, name).restype = i
     lib.convgru_fwd_smem_limit.argtypes = []
     lib.convgru_fwd_smem_limit.restype = size
-    lib.convgru_fwd_error_string.argtypes = [i]
-    lib.convgru_fwd_error_string.restype = ctypes.c_char_p
+    for name in ("convgru_fwd_error_string", "convlstm_fwd_error_string"):
+        getattr(lib, name).argtypes = [i]
+        getattr(lib, name).restype = ctypes.c_char_p
     return lib
 
 
@@ -161,8 +163,10 @@ def launch(kernel: str, device: torch.device, *args) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib, kernel)(*args, stream)
     if err != 0:
+        describe = getattr(lib, f"{kernel}_error_string",
+                           lib.convgru_fwd_error_string)
         raise RuntimeError(f"{kernel} launch failed: "
-                           f"{lib.convgru_fwd_error_string(err).decode()}")
+                           f"{describe(err).decode()}")
 
 
 def same_device(kernel: str, *tensors: torch.Tensor) -> torch.device:

@@ -40,7 +40,7 @@ _DTYPES = {torch.bfloat16: 2, torch.float32: 4}
 
 # The cluster kernels' constants (csrc/cluster_conv.cuh)
 MAX_CLUSTER = 8     # CTAs per cluster: the portable maximum
-K_GROUPS = 4        # the conv depth's split across warps (bf16)
+K_GROUPS = 4        # the conv depth's split across warps (bf16; B3: 1)
 SMEM_LIMIT = 232448  # shared memory one CTA can have (227 KB)
 
 
@@ -103,10 +103,11 @@ def pad_bytes(h: int, w: int, channels: int, elem: int) -> int:
     return align128(padded_grid(h, w)[1] * (channels + 8) * elem)
 
 
-def acc_bytes(h: int, w: int, columns: int, elem: int) -> int:
-    """Bytes of the conv's partial sums: K_GROUPS planes in bf16, one in
+def acc_bytes(h: int, w: int, columns: int, elem: int,
+              k_groups: int = K_GROUPS) -> int:
+    """Bytes of the conv's partial sums: `k_groups` planes in bf16, one in
     f32, of Mpad rows of stride columns + 8 floats."""
-    planes = K_GROUPS if elem == 2 else 1
+    planes = k_groups if elem == 2 else 1
     return align128(padded_grid(h, w)[0] * (columns + 8) * 4 * planes)
 
 

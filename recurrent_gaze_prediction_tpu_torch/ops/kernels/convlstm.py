@@ -3,16 +3,22 @@
 Replaces the TPU kernel `_convlstm_seq_kernel` of the JAX package's
 `ops/pallas/convlstm.py` (`convlstm_scan_pallas`, wrapper `convlstm_scan`).
 The kernel (`csrc/convlstm_fwd.cu`) runs the whole recurrence over T in one
-launch, one block per batch element, with c in shared memory and the state
-conv on the tensor cores in bf16. Unlike the JAX wrapper, which drops the
-final cell state, it returns the final (c, h), so the streaming step
-carries the state across chunks through the kernel.
+launch. Each batch element runs on a thread-block cluster of
+`cluster_size(U)` CTAs (8 at U=128), as kernel B1 does: each CTA owns U/C
+channels and the 4U/C output columns of their i, f, c and o gates, keeps
+that column slice of Wh in shared memory for the whole sequence and its
+channels of c in f32, and gathers the full h from its peers through
+distributed shared memory into one of two buffers, so one cluster barrier
+per step suffices; the state conv runs on the tensor cores in bf16. Unlike
+the JAX wrapper, which drops the final cell state, it returns the final
+(c, h), so the streaming step carries the state across chunks through the
+kernel.
 
 Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s) at T=42, U=128 in bf16:
 operations, T*B*49*9*U*4U*2 = 19.4 GFLOP at B=8 (19.6 us) and 38.8 GFLOP at
 B=16 (39.3 us), against gx + ys + Wh ~ 26.5 / 51.8 MB moved (7.9 / 15.5 us).
-The design keeps c, h and the gates out of device memory; its
-one-block-per-element grid leaves most SMs idle at B <= 32.
+The recurrence is sequential in T, so a step's latency on one cluster is
+what the design works on.
 
 On a CUDA tensor the wrapper launches the kernel or raises (no fallback).
 On a CPU tensor it runs the plain version, `ConvLSTM.scan_precomputed`,
@@ -27,6 +33,8 @@ import torch
 
 from ..cells import ConvLSTM
 from . import build
+from .convgru import (acc_bytes, align128, aligned, check_fits, cluster_size,
+                      pack_slices, pad_bytes)
 
 # Launches of the CUDA kernel in this process; chip_smoke.py resets it to
 # 0 before driving a path and reads it after.
@@ -35,6 +43,20 @@ _count_lock = threading.Lock()
 
 _DTYPES = {torch.bfloat16: 2, torch.float32: 4}
 _PEEPHOLES = ("W_ci", "W_cf", "W_co")
+GATES = 4     # i, f, c, o: a CTA's output columns are 4 Ns
+K_GROUPS = 1  # planes of the conv's partial sums (a second does not fit)
+
+
+def smem_bytes(h: int, w: int, units: int, elem: int) -> int:
+    """Shared memory of one CTA of kernel B3, as `csrc/convlstm_fwd.cu`
+    lays it out: the weight slice (bf16 only), two hpads (ping-pong), acc,
+    own c, two gx slices."""
+    ns = units // cluster_size(units)
+    hw = h * w
+    weights = align128(9 * units * GATES * ns * elem) if elem == 2 else 0
+    return (weights + 2 * pad_bytes(h, w, units, elem)
+            + acc_bytes(h, w, GATES * ns, elem, K_GROUPS)
+            + align128(hw * ns * 4) + align128(2 * GATES * hw * ns * elem))
 
 
 def _check(fused: dict, gx: torch.Tensor, c0: torch.Tensor,
@@ -76,12 +98,13 @@ def _launch(fused: dict, gx: torch.Tensor, c0: torch.Tensor,
     device = build.same_device("convlstm_fwd", fused["Wh"], *peeps, gx, c0,
                                h0)
     elem = _DTYPES[gx.dtype]
-    build.check_shared_memory("convlstm_fwd", hh, ww, units, elem)
-    gx = gx.contiguous()
-    wh = fused["Wh"].to(gx.dtype).contiguous()
-    peeps = [p.float().contiguous() for p in peeps]
-    c0 = c0.float().contiguous()
-    h0 = h0.float().contiguous()
+    check_fits("convlstm_fwd", smem_bytes(hh, ww, units, elem), hh, ww, units)
+    gx = aligned(gx.contiguous())
+    wh = pack_slices(fused["Wh"], cluster_size(units), gx.dtype,
+                     groups=GATES)
+    peeps = [aligned(p.float().contiguous()) for p in peeps]
+    c0 = aligned(c0.float().contiguous())
+    h0 = aligned(h0.float().contiguous())
     ys = torch.empty((t, b, hh, ww, units), dtype=torch.float32,
                      device=device)
     c_final = torch.empty((b, hh, ww, units), dtype=torch.float32,

@@ -1,7 +1,7 @@
 """Tests that need a CUDA card: the hand-written recurrence kernels (ConvGRU
 forward B1, backward B2 and B4; ConvLSTM forward B3) against their plain
 PyTorch versions at shapes chip_smoke.py does not cover, and the cluster
-kernels' (B1, B2) shared-memory reckoning and refusal of widths that do
+kernels' (B1, B2, B3) shared-memory reckoning and refusal of widths that do
 not fit. They skip
 without a card. This file imports torch only (no jax), so on a machine
 with a card it runs without the JAX test harness:
@@ -124,8 +124,11 @@ def test_cluster_shared_memory_reckoning_matches_the_sources(
             lib.convgru_fwd_smem_bytes(*hw, units, elem)
         assert v2.smem_bytes(*hw, units, elem) == \
             lib.convgru_bwd_smem_bytes(*hw, units, elem)
+        assert klstm.smem_bytes(*hw, units, elem) == \
+            lib.convlstm_fwd_smem_bytes(*hw, units, elem)
         assert lib.convgru_fwd_max_clusters(*hw, units, elem) >= 1
         assert lib.convgru_bwd_max_clusters(*hw, units, elem) >= 1
+        assert lib.convlstm_fwd_max_clusters(*hw, units, elem) >= 1
 
 
 SHAPES = [(1, 1, (7, 7), 16), (4, 3, (7, 7), 32), (3, 2, (5, 9), 48),
@@ -242,7 +245,11 @@ def _lstm_inputs(t, b, hw, units, dtype, device, seed=0):
     return fused, gx, carry
 
 
-@pytest.mark.parametrize("t,b,hw,units", SHAPES)
+# B3 at U=128 on clusters of 8 CTAs: B=1 and 8 in one wave, 16 in two
+LSTM_CLUSTER_SHAPES = [(4, 1, (7, 7), 128), (4, 16, (7, 7), 128)]
+
+
+@pytest.mark.parametrize("t,b,hw,units", SHAPES + LSTM_CLUSTER_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_convlstm_kernel_matches_plain(cuda_no_tf32, t, b, hw, units, dtype):
     fused, gx, carry = _lstm_inputs(t, b, hw, units, dtype, cuda_no_tf32)
@@ -268,3 +275,16 @@ def test_convlstm_kernel_rejects_shapes_it_does_not_take(cuda_no_tf32):
                                     cuda_no_tf32)
     with pytest.raises(ValueError, match="c0 and h0"):
         klstm.convlstm_recurrence(fused, gx, carry[0][:, :6], carry[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_convlstm_kernel_rejects_a_width_whose_slice_does_not_fit(
+        cuda_no_tf32, dtype):
+    """U=256 on clusters of 8: a CTA needs more shared memory than the card
+    has (in bf16 for the resident weight slice, in f32 for the two padded
+    operands); the wrapper raises before launching."""
+    fused, gx, carry = _lstm_inputs(1, 1, (7, 7), 256, dtype, cuda_no_tf32)
+    before = klstm.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        klstm.convlstm_recurrence(fused, gx, *carry)
+    assert klstm.launches == before
