@@ -9,7 +9,9 @@ In order, failing (exit 1) on the first check that does not hold:
      together) and prints the build time; prints, for each cluster kernel
      (B1, B2, B3), its cluster size C, the CTAs it launches, the clusters
      that fit on the card at once and its shared memory per CTA (checked
-     against the wrappers' reckoning);
+     against the wrappers' reckoning); drives predict at U=128 (kernel
+     route) and U=24 and 256 (the cell's own scan: fault C1) and prints the
+     routes;
   3. holds each kernel against its plain PyTorch version in bf16 under the
      JAX package's gate, and in f32 with TF32 off: the forward recurrence
      B1 (`convgru_parity`, T=42, 512->128), the backward kernels
@@ -34,14 +36,29 @@ In order, failing (exit 1) on the first check that does not hold:
      finite at every step and falls, B1 and B2 launch once per step, a
      checkpoint and metrics.jsonl are written; then takes train steps
      through `convgru_scan_trainable` (B4 backward), counting its launches;
+  4c. the raw-video front: the C3D tower in bf16 against f32 (TF32 off) on
+     16 clips; then the bundle's `fused` program of gaze_grcn and gaze_lstm
+     served over HTTP at the JAX package's fused benchmark shape (F=160
+     uint8 frames of 128x171, T=10): 8 concurrent POSTs, each reply against
+     the plain path (bf16 tower, plain-scan predict), one launch of B1 / B3
+     per batcher call;
+  5b. trains gaze_lstm through `cli.train_gaze` (B=28, T=42, 20 steps, on
+     the plain `ConvLSTM.scan`: no launches) and checks its gradients
+     against plain autograd of `ConvLSTM.scan`; trains gaze_grcn from raw
+     pixels through `cli.train_fused` (B=8, F=160, 20 steps with the tower
+     frozen: the loss falls, B1 and B2 once per step; then 3 steps with
+     `--finetune_c3d`: conv1a moves);
   6. checks the train step's gradients at full width, through either
      backward, against plain autograd of `ConvGRU.scan` on one batch;
   7. times the kernels and their plain versions (B=8, B=16; B1 and B2 also
      at B=1 and 28, B3 also at B=1, in us per step beside the bound), the
      feature-fed predict of both models (B=16) with a breakdown, the HTTP
      requests, the streaming chunk steps (B=1), and the train step (B=28)
-     through the kernels and through plain autograd with a breakdown, with
-     CUDA events or the host clock after warm-up;
+     through the kernels and through plain autograd with a breakdown; the
+     gaze_lstm train step; the C3D tower NCDHW against channels-last-3d;
+     the fused predict at B=8 and 16 with its stages, the fused train step
+     (frozen, fine-tuned) and the fused HTTP latency; with CUDA events or
+     the host clock after warm-up;
   8. prints the kernels' JSON line, then, last, the device JSON line.
 """
 
@@ -62,12 +79,13 @@ import numpy as np
 import torch
 
 from recurrent_gaze_prediction_tpu_torch import registry
-from recurrent_gaze_prediction_tpu_torch.cli import train_gaze
+from recurrent_gaze_prediction_tpu_torch.cli import train_fused, train_gaze
 from recurrent_gaze_prediction_tpu_torch.config import OptimizerConfig
 from recurrent_gaze_prediction_tpu_torch.data import synthetic
-from recurrent_gaze_prediction_tpu_torch.models import streaming
+from recurrent_gaze_prediction_tpu_torch.models import c3d as c3d_model
+from recurrent_gaze_prediction_tpu_torch.models import pipeline, streaming
 from recurrent_gaze_prediction_tpu_torch.models.common import (
-    apply_c3d_projection, apply_decoder)
+    apply_c3d_projection, apply_decoder, sequence_loss)
 from recurrent_gaze_prediction_tpu_torch.ops.cells import ConvGRU, ConvLSTM
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import build
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru as kconv
@@ -77,11 +95,13 @@ from recurrent_gaze_prediction_tpu_torch.ops.kernels import convlstm as klstm
 from recurrent_gaze_prediction_tpu_torch.ops.kernels.parity import (
     MIN_CORR, backward_inputs, backward_kernel_and_plain, backward_parity,
     backward_parity_ok, convgru_parity, convlstm_parity, parity_ok)
-from recurrent_gaze_prediction_tpu_torch.ops.normalize import softmax_2d
+from recurrent_gaze_prediction_tpu_torch.ops.normalize import (
+    normalize_probability_map, softmax_2d)
 from recurrent_gaze_prediction_tpu_torch.serving import (
     load_bundle, save_bundle, server_from_bundle)
 from recurrent_gaze_prediction_tpu_torch.train import (
     Checkpointer, create_train_state, make_train_step)
+from recurrent_gaze_prediction_tpu_torch.train import fused as fused_data
 from recurrent_gaze_prediction_tpu_torch.train.loop import device_batch
 
 SEED = 0
@@ -119,6 +139,14 @@ LSTM_TIMED = (1, 8, 16)
 # bf16, so they agree to bf16 resolution, as the served maps do.
 GRAD_MIN_CORR = 0.999
 LOSS_MAX_REL = 1e-3
+# the raw-video front at the JAX package's fused benchmark shape
+# (BENCHMARKS.md: B=8 at F=160): 128x171 uint8 frames, T = 10
+FUSED_FRAMES = 160
+VIDEO_HW = (128, 171)
+FUSED_BATCHES = (8, 16)   # fused predict timed at these
+FUSED_TRAIN_BATCH = 8
+FUSED_TRAIN_STEPS = 20
+FINETUNE_STEPS = 3
 
 
 def fail(msg: str) -> None:
@@ -713,6 +741,401 @@ def predict_breakdown(model, c3d: torch.Tensor) -> dict:
         return {name: cuda_ms(fn, 10) for name, fn in fns.items()}
 
 
+def route_check(card: str) -> dict:
+    """Fault C1's rule on the card: predict of gaze_grcn and gaze_lstm at
+    a width the kernels take (U=128) and two they do not (U=24, 256), each
+    route decided from the shapes before any launch and checked by the
+    launch counts."""
+    rng = np.random.RandomState(SEED + 11)
+    c3d = torch.from_numpy(rng.randn(2, T, 1024, 7, 7).astype(
+        np.float32)).cuda()
+    out = {}
+    for name in ("gaze_grcn", "gaze_lstm"):
+        for units in (128, 24, 256):
+            model = registry.create_model(
+                name, rnn_state_size=units, n_lstm_steps=T,
+                compute_dtype="bfloat16", device="cuda",
+                generator=torch.Generator().manual_seed(SEED))
+            reset_launches()
+            maps = model.predict(None, c3d)
+            launches = read_launches()
+            want = 1 if units == 128 else 0
+            out[name, units] = model.last_route
+            check(model.last_route == ("kernel" if want else "scan")
+                  and launches[FORWARD_KERNEL[name]] == want
+                  and sum(launches.values()) == want
+                  and bool(torch.isfinite(maps).all())
+                  and tuple(maps.shape) == (2, T, 49, 49),
+                  f"C1 route {name} U={units}: {model.last_route}, "
+                  f"launches {launches}")
+    print(f"C1 routes (predict, bf16; train: gaze_grcn "
+          f"{full_width_model().recurrence_route(train=True)}, gaze_lstm "
+          f"scan): " + ", ".join(f"{n} U={u} {r}"
+                                 for (n, u), r in out.items())
+          + f" [{card}]", flush=True)
+    return out
+
+
+def tower_flops(n_clips: int) -> float:
+    """The C3D tower's convolution FLOPs to conv5b for `n_clips` 16-frame
+    112x112 clips (2 per multiply-add)."""
+    d, h, w, cin, total = 16, 112, 112, 3, 0
+    for name, cout in c3d_model.CONV_LAYERS:
+        total += 2 * 27 * cin * cout * d * h * w
+        cin = cout
+        if name in c3d_model.POOLS and name != "conv5b":
+            sd, sh, sw = c3d_model.POOLS[name][1]
+            d, h, w = -(-d // sd), -(-h // sh), -(-w // sw)
+    return float(total) * n_clips
+
+
+def tower_gate(tower: dict, card: str) -> dict:
+    """The tower in bf16 against the same tower in f32 (TF32 off) on 16
+    clips: conv5b corr >= MAP_MIN_CORR."""
+    pixels = torch.from_numpy(np.random.RandomState(SEED + 12).randint(
+        0, 256, (16, 16, 128, 171, 3)).astype(np.uint8)).cuda()
+    with torch.inference_mode():
+        clips = c3d_model.preprocess_frames(pixels)
+        bf16 = c3d_model.apply(tower, clips, compute_dtype=torch.bfloat16)
+        f32 = c3d_model.apply(tower, clips, compute_dtype=None)
+    a, b = bf16.cpu().numpy(), f32.cpu().numpy()
+    c = corr(a, b)
+    rel = float(np.abs(a - b).max() / np.abs(b).max())
+    print(f"tower gate (16 clips, conv5b [16,512,2,7,7], bf16 vs f32 with "
+          f"TF32 off): corr {c:.6f}, max rel delta {rel:.4g} [{card}]",
+          flush=True)
+    check(a.shape == (16, 512, 2, 7, 7) and bool(np.isfinite(a).all()),
+          f"tower conv5b {a.shape}, finite {bool(np.isfinite(a).all())}")
+    check(c >= MAP_MIN_CORR, f"tower bf16 vs f32 corr {c}")
+    return {"corr": c, "max_rel_delta": rel}
+
+
+def post_video(url: str, video: np.ndarray) -> tuple:
+    buf = io.BytesIO()
+    np.savez(buf, video=video)
+    req = urllib.request.Request(url, data=buf.getvalue(), method="POST")
+    start = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        status, body = resp.status, resp.read()
+    seconds = time.perf_counter() - start
+    return status, np.load(io.BytesIO(body))["gazemaps"], seconds
+
+
+def post_videos(url: str, videos: np.ndarray) -> list:
+    """POST video i from thread i, all at once; (status, maps, s) each."""
+    results: list = [None] * len(videos)
+    errors: list = []
+
+    def one(i: int) -> None:
+        try:
+            results[i] = post_video(url, videos[i])
+        except Exception as e:  # reported below; the run fails
+            errors.append(f"request {i}: {e!r}")
+
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(videos))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=900)
+    check(not errors and all(r is not None for r in results),
+          f"video requests failed: {errors}")
+    return results
+
+
+def plain_fused_predict(model, tower: dict, video: torch.Tensor
+                        ) -> torch.Tensor:
+    """The fused predict by its plain path: the bf16 library tower on the
+    video's windows, then a plain-scan predict of the folded features."""
+    b, f = video.shape[:2]
+    t = pipeline.pipeline_timesteps(f)
+    n_windows = f // 16
+    with torch.inference_mode():
+        clips = c3d_model.preprocess_frames(video[:, :n_windows * 16].reshape(
+            b * n_windows, 16, *video.shape[2:]))
+        feats = c3d_model.conv5b_to_rgp(c3d_model.apply(
+            tower, clips, compute_dtype=torch.bfloat16)).reshape(
+                b, n_windows, 1024, 7, 7)[:, :t]
+    return plain_predict(model, feats)
+
+
+def fused_serve_and_check(model, tower: dict, videos: np.ndarray,
+                          card: str) -> dict:
+    """Serve `model`'s fused program from a bundle it writes with uint8
+    video; POST every clip at once, check each reply against the plain
+    path, and that the model's forward kernel, and no other, launched once
+    per batcher call. Then POST them again for the latency."""
+    name = model.cfg.name
+    kernel = FORWARD_KERNEL[name]
+    t = pipeline.pipeline_timesteps(FUSED_FRAMES)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_bundle(f"{tmp}/bundle", model, c3d_params=tower,
+                    num_frames=FUSED_FRAMES, video_hw=VIDEO_HW,
+                    video_dtype="uint8")
+        reference = load_bundle(f"{tmp}/bundle", device="cuda")
+        route = reference.recurrence_route(train=False)
+        server = server_from_bundle(f"{tmp}/bundle", program="fused",
+                                    device="cuda", max_batch=32,
+                                    max_wait_ms=200.0).start()
+        try:
+            host, port = server.address
+            url = f"http://{host}:{port}/predict"
+            reset_launches()
+            served = post_videos(url, videos)
+            launches = read_launches()
+            health = {"calls": server.batcher.calls,
+                      "requests": server.batcher.requests}
+            print(f"fused serving {name}: {len(videos)} concurrent uint8 "
+                  f"video requests [{FUSED_FRAMES},{VIDEO_HW[0]},"
+                  f"{VIDEO_HW[1]},3], {health}, route {route}, kernel "
+                  f"launches {launches}", flush=True)
+            check(route == "kernel" and launches[kernel] >= 1
+                  and health["requests"] == len(videos)
+                  and launches[kernel] == health["calls"]
+                  and sum(launches.values()) == launches[kernel],
+                  f"fused serving {name}: route {route}, {health}, "
+                  f"launches {launches}")
+            plain = plain_fused_predict(
+                reference, reference.bundle_c3d_params,
+                torch.from_numpy(videos).cuda()).cpu().numpy()
+            for i, (status, maps, _) in enumerate(served):
+                check(status == 200, f"fused {name} request {i}: HTTP "
+                                     f"{status}")
+                check(maps.shape == (t, 49, 49)
+                      and bool(np.isfinite(maps).all()),
+                      f"fused {name} request {i}: maps {maps.shape}")
+                sums = maps.reshape(t, -1).sum(-1)
+                check(bool(np.abs(sums - 1.0).max() <= 1e-3),
+                      f"fused {name} request {i}: sums off 1 by "
+                      f"{np.abs(sums - 1.0).max()}")
+                c = corr(maps, plain[i])
+                check(c >= MAP_MIN_CORR,
+                      f"fused {name} request {i}: corr {c} vs plain path")
+            min_corr = min(corr(m, plain[i])
+                           for i, (_, m, _) in enumerate(served))
+            print(f"fused serving {name}: all {len(videos)} replies HTTP "
+                  f"200, [{t},49,49] finite, sums 1 within 1e-3, min corr "
+                  f"vs plain path (bf16 tower + plain scan) "
+                  f"{min_corr:.6f} [{card}]", flush=True)
+            again = post_videos(url, videos)
+            http_ms = statistics.median(s for _, _, s in again) * 1e3
+        finally:
+            server.close()
+    return {"launches": launches, "http_ms": http_ms, "min_corr": min_corr,
+            "route": route}
+
+
+def train_fused_through_cli(card: str) -> dict:
+    """Training from raw pixels through `cli.train_fused` on the card: 20
+    frozen-tower steps at the JAX benchmark's shape, then 3 steps with the
+    tower fine-tuned."""
+    t = pipeline.pipeline_timesteps(FUSED_FRAMES)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, steps, extra in (("frozen", FUSED_TRAIN_STEPS, []),
+                                    ("finetune", FINETUNE_STEPS,
+                                     ["--finetune_c3d"])):
+            run = f"{tmp}/{label}"
+            argv = ["--dataset", "synthetic", "--num_frames",
+                    str(FUSED_FRAMES), "--frame_hw", *map(str, VIDEO_HW),
+                    "--batch_size", str(FUSED_TRAIN_BATCH),
+                    "--synthetic_clips", str(FUSED_TRAIN_BATCH),
+                    "--compute_dtype", "bfloat16", "--max_steps", str(steps),
+                    "--steps_per_logprint", "1", "--seed", str(SEED),
+                    "--train_dir", run, *extra]
+            reset_launches()
+            start = time.perf_counter()
+            rc = train_fused.main(argv)
+            launches = read_launches()
+            seconds = time.perf_counter() - start
+            check(rc == 0, f"cli.train_fused {label} returned {rc}")
+            with open(f"{run}/metrics.jsonl") as f:
+                records = [json.loads(line) for line in f]
+            saved = Checkpointer(run).steps()
+            losses = [r["loss/train"] for r in records]
+            print(f"train_fused {label} (cli.train_fused, B="
+                  f"{FUSED_TRAIN_BATCH}, F={FUSED_FRAMES} -> T={t}, "
+                  f"{VIDEO_HW[0]}x{VIDEO_HW[1]} uint8, bf16, {steps} steps, "
+                  f"{seconds:.1f} s wall with corpus and model set-up): "
+                  f"losses {[round(x, 4) for x in losses]}, launches "
+                  f"{launches}, checkpoints {saved} [{card}]", flush=True)
+            check([r["step"] for r in records] == list(range(1, steps + 1)),
+                  f"{label} metrics.jsonl steps "
+                  f"{[r['step'] for r in records]}")
+            check(all(np.isfinite(losses)), f"{label}: non-finite loss "
+                                            f"{losses}")
+            check(launches == {"convgru_fwd": steps, "convgru_bwd": steps,
+                               "convgru_bwd_mono": 0, "convlstm_fwd": 0},
+                  f"{label}: launches over {steps} steps: {launches}")
+            check(saved == [steps], f"{label}: checkpoints {saved}")
+            if label == "frozen":
+                check(statistics.mean(losses[-5:]) < losses[0],
+                      f"fused loss did not fall: first {losses[0]}, mean "
+                      f"of the last 5 {statistics.mean(losses[-5:])}")
+            else:
+                stored = torch.load(f"{run}/model/{steps}/state.pt",
+                                    weights_only=True)["c3d_params"]
+                init = c3d_model.init_params(
+                    torch.Generator().manual_seed(SEED + 1),
+                    device="cpu")["conv1a_w"]
+                moved = float((stored["conv1a_w"] - init).abs().max())
+                print(f"train_fused finetune: conv1a max |change| "
+                      f"{moved:.4g}", flush=True)
+                check(moved > 0, "finetune: conv1a's weights did not move")
+            out[label] = {"losses": losses, "launches": launches}
+    return out
+
+
+def train_lstm_through_cli(card: str) -> dict:
+    """gaze_lstm through `cli.train_gaze` at full width (B=28, T=42): it
+    trains on `ConvLSTM.scan` under autograd (no backward kernel), so no
+    kernel launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        run = f"{tmp}/run"
+        argv = ["--model", "gaze_lstm", "--dataset", "synthetic",
+                "--batch_size", str(TRAIN_BATCH), "--synthetic_clips",
+                str(TRAIN_BATCH), "--n_lstm_steps", str(T),
+                "--compute_dtype", "bfloat16", "--max_steps",
+                str(TRAIN_STEPS), "--steps_per_logprint", "1", "--seed",
+                str(SEED), "--train_dir", run]
+        reset_launches()
+        start = time.perf_counter()
+        rc = train_gaze.main(argv)
+        launches = read_launches()
+        seconds = time.perf_counter() - start
+        check(rc == 0, f"cli.train_gaze --model gaze_lstm returned {rc}")
+        with open(f"{run}/metrics.jsonl") as f:
+            losses = [json.loads(line)["loss/train"] for line in f]
+    print(f"train gaze_lstm (cli.train_gaze, B={TRAIN_BATCH}, T={T}, bf16, "
+          f"{TRAIN_STEPS} steps, {seconds:.1f} s wall): losses "
+          f"{[round(x, 4) for x in losses]}, launches {launches} [{card}]",
+          flush=True)
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+          f"gaze_lstm losses {losses}")
+    check(statistics.mean(losses[-5:]) < losses[0],
+          f"gaze_lstm loss did not fall: first {losses[0]}, mean of the "
+          f"last 5 {statistics.mean(losses[-5:])}")
+    check(sum(launches.values()) == 0, f"gaze_lstm train launches "
+                                       f"{launches}")
+    return {"losses": losses}
+
+
+def lstm_gradient_check(model, batch: dict) -> dict:
+    """gaze_lstm's train loss and gradients on one batch (no dropout)
+    against plain autograd of `ConvLSTM.scan` assembled by hand
+    (projection, scan, decoder, loss)."""
+    params = [p for _, p in model.named_parameters()]
+    keep = model.cfg.dropout_keep_prob
+    model.cfg.dropout_keep_prob = 1.0
+    try:
+        loss, _ = model.loss(batch, train=True)
+        grads = torch.autograd.grad(loss, params)
+        route = model.last_route
+    finally:
+        model.cfg.dropout_keep_prob = keep
+    cdt = torch.bfloat16
+    stage = dict(keep_prob=1.0, generator=None, train=True,
+                 compute_dtype=cdt)
+    c3d_in = batch["c3d"]
+    b, t = c3d_in.shape[:2]
+    xs = apply_c3d_projection(model.c3d_proj, c3d_in, **stage).transpose(
+        0, 1)
+    _, ys = ConvLSTM.scan(model.cell, xs,
+                          ConvLSTM.zero_state(b, (7, 7), UNITS,
+                                              device=c3d_in.device),
+                          compute_dtype=cdt)
+    logits = apply_decoder(model.decoder, ys.transpose(0, 1).reshape(
+        b * t, 7, 7, UNITS), **stage).reshape(b, t, 49, 49)
+    plain_loss = sequence_loss(logits, normalize_probability_map(
+        batch["gazemaps"]), model.cfg.loss_type)
+    plain = torch.autograd.grad(plain_loss, params)
+    rel = abs(loss.item() - plain_loss.item()) / abs(plain_loss.item())
+    worst = min(corr(g.float().cpu().numpy(), p.float().cpu().numpy())
+                for g, p in zip(grads, plain) if g.numel() > 1)
+    print(f"gradient check gaze_lstm (B={TRAIN_BATCH}, T={T}, bf16, route "
+          f"{route} vs plain autograd of ConvLSTM.scan): loss rel "
+          f"{rel:.3g}, min grad corr {worst:.7f}", flush=True)
+    check(route == "scan", f"gaze_lstm trained on route {route}")
+    check(rel <= LOSS_MAX_REL and worst >= GRAD_MIN_CORR,
+          f"gaze_lstm gradients: loss rel {rel}, min corr {worst}")
+    return {"loss_rel": rel, "min_corr": worst}
+
+
+def tower_layout_timing(tower: dict, n_clips: int) -> dict:
+    """The bf16 tower on `n_clips` clips with its activations NCDHW and
+    channels-last-3d, in turns (NCDHW, CL, CL, NCDHW); then, measured only
+    (the port leaves cuDNN's heuristics on), channels-last-3d with
+    `cudnn.benchmark` choosing each conv's algorithm by trial."""
+    pixels = torch.from_numpy(np.random.RandomState(SEED + 13).randint(
+        0, 256, (n_clips, 16, 128, 171, 3)).astype(np.uint8)).cuda()
+    runs = {"ncdhw": [], "channels_last_3d": [],
+            "channels_last_3d, cudnn.benchmark": []}
+    with torch.inference_mode():
+        clips = c3d_model.preprocess_frames(pixels)
+        layouts = {"ncdhw": clips.contiguous(),
+                   "channels_last_3d": clips.contiguous(
+                       memory_format=torch.channels_last_3d)}
+        for label in ("ncdhw", "channels_last_3d", "channels_last_3d",
+                      "ncdhw"):
+            runs[label].append(cuda_ms(lambda: c3d_model.apply(
+                tower, layouts[label], compute_dtype=torch.bfloat16), 5))
+        saved = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = True
+        try:
+            runs["channels_last_3d, cudnn.benchmark"].append(cuda_ms(
+                lambda: c3d_model.apply(tower, layouts["channels_last_3d"],
+                                        compute_dtype=torch.bfloat16), 5))
+        finally:
+            torch.backends.cudnn.benchmark = saved
+    return runs
+
+
+def fused_predict_timing(model, tower: dict, b: int) -> dict:
+    """ms per fused predict call at B=b, F=FUSED_FRAMES, uint8 128x171 on
+    the card, and its stages, each run alone on the outputs of the stage
+    before."""
+    video = torch.from_numpy(np.random.RandomState(SEED + 14).randint(
+        0, 256, (b, FUSED_FRAMES, *VIDEO_HW, 3)).astype(np.uint8)).cuda()
+    fn = pipeline.make_fused_predict(model, num_frames=FUSED_FRAMES)
+    n_windows = FUSED_FRAMES // 16
+    t = pipeline.pipeline_timesteps(FUSED_FRAMES)
+    out = {"ms": cuda_ms(lambda: fn(tower, video), 5)}
+    with torch.inference_mode():
+        windows = video.reshape(b * n_windows, 16, *VIDEO_HW, 3)
+        out["preprocess (crop, widen, mean)"] = cuda_ms(
+            lambda: c3d_model.preprocess_frames(windows), 5)
+        clips = c3d_model.preprocess_frames(windows)
+        out["tower (conv1a..conv5b, bf16)"] = cuda_ms(
+            lambda: c3d_model.apply(tower, clips, compute_dtype=torch.bfloat16), 5)
+        conv5b = c3d_model.apply(tower, clips, compute_dtype=torch.bfloat16)
+        out["fold"] = cuda_ms(lambda: c3d_model.conv5b_to_rgp(conv5b).reshape(
+            b, n_windows, 1024, 7, 7)[:, :t].contiguous(), 5)
+        feats = c3d_model.conv5b_to_rgp(conv5b).reshape(
+            b, n_windows, 1024, 7, 7)[:, :t].contiguous()
+        out["gaze predict"] = cuda_ms(lambda: model.predict(None, feats), 5)
+        out["  of which"] = predict_breakdown(model, feats)
+    return out
+
+
+def fused_train_step_timing(model, finetune: bool) -> float:
+    """ms per fused train step at B=FUSED_TRAIN_BATCH, F=FUSED_FRAMES
+    (flip and dropout on, Adam, bf16)."""
+    corpus = fused_data.make_synthetic_fused_corpus(
+        FUSED_TRAIN_BATCH, num_frames=FUSED_FRAMES, frame_hw=VIDEO_HW,
+        seed=SEED + 15)
+    batch = device_batch(corpus.next_batch(FUSED_TRAIN_BATCH),
+                         torch.device("cuda"))
+    tower = c3d_model.init_params(torch.Generator().manual_seed(SEED + 1))
+    state, tx = create_train_state(model, OptimizerConfig())
+    state = fused_data.FusedTrainState(
+        params=state.params, c3d_params=tower,
+        opt_state=pipeline.init_fused_opt_state(
+            tx, state.params, tower, finetune_c3d=finetune))
+    step = pipeline.make_fused_train_step(model, tx, finetune_c3d=finetune)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    return cuda_ms(lambda: step(state, batch, gen), 3, warmup=1)
+
+
 def main() -> int:
     # 1. the card
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
@@ -728,6 +1151,7 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
     cluster_lines(card)
+    route_check(card)  # fault C1: widths the kernels do not take
 
     # 3. each kernel against its plain version, bf16 then f32 (TF32 off);
     # the cluster kernels B1 and B2 at each of CLUSTER_BATCHES
@@ -802,14 +1226,26 @@ def main() -> int:
     streamed = {name: stream_and_check(name, feats, card)
                 for name in ("gaze_grcn", "gaze_lstm")}
 
+    # 4c. the raw-video front: the tower's bf16 gate, then the fused
+    # program of both models served over HTTP at F=160 (uint8 video)
+    tower = c3d_model.init_params(torch.Generator().manual_seed(SEED + 1))
+    tower_gate(tower, card)
+    videos = np.random.RandomState(SEED + 16).randint(
+        0, 256, (N_REQUESTS, FUSED_FRAMES, *VIDEO_HW, 3)).astype(np.uint8)
+    fused_served = {m.cfg.name: fused_serve_and_check(m, tower, videos, card)
+                    for m in (model, lstm_model)}
+
     # 5. training at full width: the normal entry point (B1 + B2), then
-    # the v1 entry point (B1 + B4)
+    # the v1 entry point (B1 + B4); gaze_lstm (plain scan); from raw video
     trained = train_through_cli(card)
     raw_batch = synthetic.make_clip_windows(
         TRAIN_BATCH, T, seed=SEED + 3).next_batch(TRAIN_BATCH)
     batch = device_batch(raw_batch, torch.device("cuda"), torch.bfloat16)
     gradient_check(full_width_model(), batch)  # 6.
     mono = train_through_mono(full_width_model(), batch)
+    train_lstm_through_cli(card)
+    lstm_gradient_check(full_width_model("gaze_lstm"), batch)
+    train_fused_through_cli(card)
 
     # 7. timings
     fused = ConvGRU.fuse({k: v.detach() for k, v in model.cell.items()})
@@ -859,6 +1295,50 @@ def main() -> int:
     print("timing: train step B=28 breakdown, kernel path (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in step["stages"].items()) + f" [{card}]",
           flush=True)
+    lstm = full_width_model("gaze_lstm")
+    lstm_state, lstm_tx = create_train_state(lstm, OptimizerConfig())
+    lstm_step = make_train_step(lstm, lstm_tx)
+    lstm_gen = torch.Generator(device="cuda").manual_seed(SEED)
+    print(f"timing: gaze_lstm train step B={TRAIN_BATCH} T={T} bf16 (plain "
+          f"autograd of ConvLSTM.scan, flip, dropout, clip + adam): "
+          f"{cuda_ms(lambda: lstm_step(lstm_state, batch, lstm_gen), 5):.3f}"
+          f" ms [{card}]", flush=True)
+
+    # the raw-video front: the tower's layouts, fused predict and its
+    # stages, the fused train step, the fused HTTP latency
+    n_clips = 16 * (FUSED_FRAMES // 16)
+    layouts = tower_layout_timing(tower, n_clips)
+    tower_bound = tower_flops(n_clips) / PEAK_BF16_FLOPS * 1e3
+    print(f"timing: C3D tower bf16, {n_clips} clips (B=16, F="
+          f"{FUSED_FRAMES}), in turns (ms): {json.dumps(layouts)}; bound "
+          f"{tower_bound:.3f} ms (operations: "
+          f"{tower_flops(n_clips) / 1e12:.2f} TFLOP); the tower runs "
+          f"{c3d_model.MEMORY_FORMAT} [{card}]", flush=True)
+    for m in (model, lstm_model):
+        name = m.cfg.name
+        for b in FUSED_BATCHES:
+            fp = fused_predict_timing(m, tower, b)
+            frames_per_s = b * FUSED_FRAMES / fp["ms"] * 1e3
+            inner = fp.pop("  of which")
+            print(f"timing: {name} fused predict B={b} F={FUSED_FRAMES} "
+                  f"uint8 {VIDEO_HW[0]}x{VIDEO_HW[1]}: {fp.pop('ms'):.3f} "
+                  f"ms/call ({frames_per_s:.0f} raw frames/s); stages (ms): "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in fp.items())
+                  + "; gaze predict stages (ms): "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in inner.items())
+                  + f" [{card}]", flush=True)
+        print(f"timing: {name} fused HTTP request latency, median of "
+              f"{N_REQUESTS} concurrent uint8 video POSTs (F="
+              f"{FUSED_FRAMES}): {fused_served[name]['http_ms']:.1f} ms "
+              f"[{card}]", flush=True)
+    for finetune in (False, True):
+        ms = fused_train_step_timing(full_width_model(), finetune)
+        regime = "tower fine-tuned, remat" if finetune else "tower frozen"
+        print(f"timing: gaze_grcn fused train step B={FUSED_TRAIN_BATCH} "
+              f"F={FUSED_FRAMES} bf16 ({regime}, flip, dropout, adam): "
+              f"{ms:.3f} ms "
+              f"({FUSED_TRAIN_BATCH * FUSED_FRAMES / ms * 1e3:.0f} raw "
+              f"frames/s) [{card}]", flush=True)
 
     # 8. result lines
     def entry(name, source, replaces, launches, err, t):

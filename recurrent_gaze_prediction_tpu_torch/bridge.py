@@ -7,7 +7,8 @@ the port's state dict (`"cell.W_z"`). `params_to_jax(model)` is its
 inverse, with the same names and shapes, so a bundle written by either
 package loads in the other's reader. `opt_state_from_jax(state)` carries an
 optax state's moments and update count over, so both packages can train on
-from the same point.
+from the same point. `c3d_params_from_jax` / `c3d_params_to_jax` do the
+same for the C3D tower's weights, whose layouts differ between the two.
 """
 
 from __future__ import annotations
@@ -98,3 +99,30 @@ def params_to_jax(model: nn.Module) -> dict:
     flat = {name.replace(".", _SEP): t.detach().float().cpu().numpy()
             for name, t in model.state_dict().items()}
     return unflatten_params(flat)
+
+
+# C3D weights: the JAX package holds convs as DHWIO [kd, kh, kw, in, out]
+# and fc as [in, out]; the port as [out, in, kd, kh, kw] and [out, in].
+_C3D_TO_PORT = {5: (4, 3, 0, 1, 2), 2: (1, 0), 1: (0,)}
+_C3D_TO_JAX = {5: (2, 3, 4, 1, 0), 2: (1, 0), 1: (0,)}
+
+
+def c3d_params_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's C3D weights (`models/c3d.init_params`'s flat
+    "conv1a_w" keys, numpy or jax arrays) -> the port's dict of CPU
+    tensors."""
+    out = {}
+    for key, value in tree.items():
+        a = np.asarray(value)
+        out[key] = _to_tensor(np.transpose(a, _C3D_TO_PORT[a.ndim]))
+    return out
+
+
+def c3d_params_to_jax(params: Mapping[str, torch.Tensor]
+                      ) -> dict[str, np.ndarray]:
+    """Inverse of `c3d_params_from_jax`: numpy f32 in the JAX layouts."""
+    out = {}
+    for key, t in params.items():
+        a = t.detach().float().cpu().numpy()
+        out[key] = np.ascontiguousarray(np.transpose(a, _C3D_TO_JAX[a.ndim]))
+    return out

@@ -1,11 +1,13 @@
 """Serve gaze-map inference over HTTP from a bundle, on the card.
 
     python -m recurrent_gaze_prediction_tpu_torch.cli.serve \
-        --bundle /tmp/rgp_bundle --port 8500 [--device cuda]
+        --bundle /tmp/rgp_bundle --port 8500 [--program fused] [--device cuda]
 
 The bundle may come from either package's `save_bundle` (or the JAX
-package's `cli.export_serving`). Concurrent single-clip POSTs are coalesced
-by the dynamic micro-batcher (`serving/server.py`).
+package's `cli.export_serving`). `--program predict` (the default) takes
+C3D features, `--program fused` raw video (the bundle must have been saved
+with the C3D weights). Concurrent single-clip POSTs are coalesced by the
+dynamic micro-batcher (`serving/server.py`).
 """
 
 from __future__ import annotations

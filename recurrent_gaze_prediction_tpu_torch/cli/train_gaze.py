@@ -11,7 +11,7 @@ ConvGRU through the CUDA kernels (forward B1, backward B2) on the card.
 Not ported yet: the real-data loaders (`--dataset crc|hollywood2|crcxh2`
 stop with an error), ShallowNet grafting, the prefetch thread, profiling,
 the mesh flags, and the final test-split evaluation (it needs the
-evaluator, ROADMAP.md queue A item 12).
+evaluator, ROADMAP.md queue A item 4).
 """
 
 from __future__ import annotations
@@ -77,7 +77,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     args = parser.parse_args(argv)
     if args.dataset != "synthetic":
         parser.error(f"--dataset {args.dataset}: the real-data loaders are "
-                     f"not ported yet (ROADMAP.md queue A item 15); use "
+                     f"not ported yet (ROADMAP.md queue A item 7); use "
                      f"--dataset synthetic")
     device = resolve_device(args.device)
 
@@ -120,7 +120,7 @@ def main(argv: Optional[list[str]] = None) -> int:
             writer.close()
     if data.test is not None and len(data.test) >= model.cfg.batch_size:
         log.warn("final test-split evaluation skipped: the evaluator is not "
-                 "ported yet (ROADMAP.md queue A item 12)")
+                 "ported yet (ROADMAP.md queue A item 4)")
     return 0
 
 

@@ -84,9 +84,10 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"   # conv/matmul compute dtype
     param_dtype: str = "float32"
     # Read from configs and manifests written by the JAX package, and has
-    # no effect here: inference and training on a CUDA tensor always run
-    # the hand-written ConvGRU kernels (ops/kernels/), and a CPU tensor
-    # always runs their plain PyTorch versions.
+    # no effect here: on a CUDA tensor the models run the hand-written
+    # recurrence kernels (ops/kernels/) at every width they take and the
+    # cell's own scan at the others (`recurrence_route`); a CPU tensor runs
+    # the kernels' plain PyTorch versions.
     use_pallas: bool = False
     # rematerialize each recurrence step in the backward pass (kept for
     # manifest compatibility and has no effect: the port's trainable

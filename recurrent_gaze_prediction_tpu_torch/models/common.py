@@ -216,6 +216,10 @@ class GazeModel(nn.Module):
     raw per-frame logits [B, T, GH, GW]; `predict` post-processes them to
     probability maps when the loss is xentropy/kld."""
 
+    # whether `forward` reads `frames`; the raw-video pipeline computes the
+    # frame stream only for a model that does
+    reads_frames = True
+
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg

@@ -12,7 +12,13 @@ head and no upsampling. Inference runs the recurrence through the forward
 kernel's wrapper (`ops/kernels/convgru.py`); training runs it through the
 autograd Function `convgru_scan_trainable_v2` (forward kernel B1, backward
 kernel B2, `ops/kernels/convgru_vjp2.py`). On a CPU tensor both use their
-kernels' plain versions.
+kernels' plain versions. A width the kernels do not take (U not a multiple
+of 16, or a CTA's slice too large for shared memory, e.g. U=256) runs
+`ConvGRU.scan` instead, on any device (`recurrence_route`); the forward
+records the route it took in `last_route`.
+
+gaze_grcn does not read `frames`, so the raw-video pipeline skips their
+resize for it (`reads_frames`).
 
 Unlike the JAX package, whose train step keeps the differentiable
 `lax.scan` (its custom VJP was a fusion barrier for XLA on the TPU), the
@@ -30,7 +36,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops import initializers as init
 from ..ops.cells import ConvGRU
-from ..ops.kernels.convgru import convgru_scan
+from ..ops.kernels import convgru, convgru_vjp2
 from ..ops.kernels.convgru_vjp2 import convgru_scan_trainable_v2
 from ..ops.layers import dropout, linear
 from .common import (GazeModel, apply_c3d_projection, apply_decoder,
@@ -44,6 +50,8 @@ class _GRCNTrunk(GazeModel):
     # (plain autograd, the reference the kernels are held against) or
     # `convgru_scan_trainable` (backward kernel B4) instead.
     train_scan = staticmethod(convgru_scan_trainable_v2)
+    reads_frames = False  # both heads use only the C3D stream
+    last_route: Optional[str] = None
 
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator] = None):
@@ -52,6 +60,18 @@ class _GRCNTrunk(GazeModel):
             cfg.dim_feature, cfg.dim_cnn_proj, generator=generator))
         self.cell = nn.ParameterDict(ConvGRU.init(
             cfg.dim_cnn_proj, cfg.rnn_state_size, generator=generator))
+
+    def recurrence_route(self, train: bool) -> str:
+        """"kernel" when the kernels take this width (B1 to predict, B1 and
+        B2 to train), else "scan": the cell's own `ConvGRU.scan`, which runs
+        any width, as the JAX package's default path does. Decided from the
+        shapes alone, before any launch."""
+        cdt = compute_dtype_of(self.cfg)
+        units = self.cfg.rnn_state_size
+        takes = convgru.kernel_takes(7, 7, units, cdt)
+        if train:
+            takes = takes and convgru_vjp2.kernel_takes(7, 7, units, cdt)
+        return "kernel" if takes else "scan"
 
     def _states(self, c3d: torch.Tensor, *, keep: float, train: bool,
                 generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -64,7 +84,11 @@ class _GRCNTrunk(GazeModel):
                                         compute_dtype=cdt)  # [B,T,7,7,P]
         xs = embedded.transpose(0, 1)                      # [T,B,7,7,P]
         h0 = ConvGRU.zero_state(b, (7, 7), units, device=c3d.device)
-        scan = self.train_scan if train else convgru_scan
+        self.last_route = self.recurrence_route(train)
+        if self.last_route == "scan":
+            scan = ConvGRU.scan
+        else:
+            scan = self.train_scan if train else convgru.convgru_scan
         _, ys = scan(self.cell, xs, h0, compute_dtype=cdt)
         return ys.transpose(0, 1).reshape(b * t, 7, 7, units)
 

@@ -11,7 +11,9 @@ Inference runs the recurrence through kernel B3's wrapper
 (`ops/kernels/convlstm.py`). Training runs `ConvLSTM.scan` under autograd,
 which is the JAX package's own train path: it has no backward kernel for
 the ConvLSTM, so the port adds none. On a CPU tensor inference uses the
-kernel's plain version.
+kernel's plain version. A width B3 does not take runs `ConvLSTM.scan` for
+inference too (`recurrence_route`); the forward records the route it took
+in `last_route`.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops.cells import ConvLSTM
-from ..ops.kernels.convlstm import convlstm_scan
+from ..ops.kernels import convlstm
 from .common import (GazeModel, apply_c3d_projection, apply_decoder,
                      compute_dtype_of, init_c3d_projection, init_decoder)
 
@@ -31,6 +33,9 @@ from .common import (GazeModel, apply_c3d_projection, apply_decoder,
 class GazeLSTM(GazeModel):
     """49x49 maps from the ConvLSTM's hidden states through the deconv
     decoder."""
+
+    reads_frames = False  # it uses only the C3D stream
+    last_route: Optional[str] = None
 
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator] = None):
@@ -42,6 +47,15 @@ class GazeLSTM(GazeModel):
             generator=generator))
         self.decoder = nn.ParameterDict(init_decoder(
             cfg.rnn_state_size, with_batch_norm=True, generator=generator))
+
+    def recurrence_route(self, train: bool) -> str:
+        """"kernel" when B3 takes this width (inference only; there is no
+        backward kernel), else "scan": the cell's own `ConvLSTM.scan`, as
+        the JAX package runs any width. Decided from the shapes alone,
+        before any launch."""
+        takes = convlstm.kernel_takes(7, 7, self.cfg.rnn_state_size,
+                                      compute_dtype_of(self.cfg))
+        return "kernel" if takes and not train else "scan"
 
     def forward(self, frames, c3d: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -55,7 +69,9 @@ class GazeLSTM(GazeModel):
                                         compute_dtype=cdt)  # [B,T,7,7,P]
         xs = embedded.transpose(0, 1)                      # [T,B,7,7,P]
         carry0 = ConvLSTM.zero_state(b, (7, 7), units, device=c3d.device)
-        scan = ConvLSTM.scan if train else convlstm_scan
+        self.last_route = self.recurrence_route(train)
+        scan = (convlstm.convlstm_scan if self.last_route == "kernel"
+                else ConvLSTM.scan)
         _, ys = scan(self.cell, xs, carry0, compute_dtype=cdt)
         folded = ys.transpose(0, 1).reshape(b * t, 7, 7, units)
         maps = apply_decoder(self.decoder, folded, keep_prob=keep,

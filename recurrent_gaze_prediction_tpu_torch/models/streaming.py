@@ -16,7 +16,8 @@ Each step takes a model and returns (new state, raw per-frame logits
 [B, Tc, 49, 49]), as the JAX steps do. The state stays f32 in both
 directions: it goes back and forth every chunk, and rounding it would
 accumulate error along a long video. On CPU tensors the steps run the
-kernels' plain versions.
+kernels' plain versions. A width the kernel does not take runs the cell's
+own scan, by the model's `recurrence_route`.
 """
 
 from __future__ import annotations
@@ -75,9 +76,10 @@ def grcn_stream_step(model: GazeModel, state: torch.Tensor,
     """One chunk of gaze_grcn: ([B,7,7,U] state, [B,Tc,1024,7,7]) ->
     (new state, [B,Tc,49,49] logits), the recurrence through kernel B1."""
     _require(model, GazeGRCN, "grcn_stream_step")
-    final_h, ys = convgru_scan(model.cell, _embed(model, c3d_chunk),
-                               state.float(),
-                               compute_dtype=compute_dtype_of(model.cfg))
+    scan = (convgru_scan if model.recurrence_route(train=False) == "kernel"
+            else ConvGRU.scan)
+    final_h, ys = scan(model.cell, _embed(model, c3d_chunk), state.float(),
+                       compute_dtype=compute_dtype_of(model.cfg))
     return final_h, _decode(model, ys)
 
 
@@ -97,9 +99,11 @@ def lstm_stream_step(model: GazeModel,
     ((c, h), [B,Tc,49,49] logits), the recurrence through kernel B3."""
     _require(model, GazeLSTM, "lstm_stream_step")
     c, h = state
-    carry, ys = convlstm_scan(model.cell, _embed(model, c3d_chunk),
-                              (c.float(), h.float()),
-                              compute_dtype=compute_dtype_of(model.cfg))
+    scan = (convlstm_scan if model.recurrence_route(train=False) == "kernel"
+            else ConvLSTM.scan)
+    carry, ys = scan(model.cell, _embed(model, c3d_chunk),
+                     (c.float(), h.float()),
+                     compute_dtype=compute_dtype_of(model.cfg))
     return carry, _decode(model, ys)
 
 

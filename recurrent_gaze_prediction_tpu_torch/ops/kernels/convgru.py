@@ -124,6 +124,16 @@ def smem_bytes(h: int, w: int, units: int, elem: int) -> int:
             + align128(2 * 3 * hw * ns * elem))
 
 
+def kernel_takes(h: int, w: int, units: int, dtype: torch.dtype) -> bool:
+    """Whether kernel B1 takes a recurrence of U units on an H x W grid in
+    `dtype` (the dtype of wx): U a positive multiple of 16, and one CTA's
+    shared memory (`smem_bytes`) within what `check_fits` allows. A pure
+    function of the shapes: the models decide their route with it before
+    any launch, and `_launch` still raises on what it refuses."""
+    return (dtype in _DTYPES and units >= 16 and units % 16 == 0
+            and smem_bytes(h, w, units, _DTYPES[dtype]) <= SMEM_LIMIT)
+
+
 def check_fits(kernel: str, need: int, h: int, w: int, units: int) -> None:
     """Raise ValueError if a CTA of `kernel` needs more shared memory than
     the card gives one."""

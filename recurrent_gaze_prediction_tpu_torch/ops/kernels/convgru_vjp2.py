@@ -38,7 +38,7 @@ import torch
 
 from ..cells import ConvGRU
 from . import build
-from .convgru import (acc_bytes, align128, aligned, check_fits,
+from .convgru import (SMEM_LIMIT, acc_bytes, align128, aligned, check_fits,
                       cluster_size, convgru_recurrence, pack_slices, pad_bytes)
 from .convgru_vjp import (conv3x3, conv3x3_transpose, hprev_of, kernel_grad,
                           mode_of, transposed_weight)
@@ -83,6 +83,14 @@ def smem_bytes(h: int, w: int, units: int, elem: int) -> int:
     return (weights + pad_bytes(h, w, units, elem)
             + pad_bytes(h, w, 2 * units, elem) + acc_bytes(h, w, ns, elem)
             + align128(hw * ns * 4) + align128(5 * hw * ns * 4))
+
+
+def kernel_takes(h: int, w: int, units: int, dtype: torch.dtype) -> bool:
+    """Whether kernel B2 takes U units on an H x W grid with conv operands
+    in `dtype` (bf16, or f32 for compute dtype None), reckoned as
+    `convgru.kernel_takes` is for B1."""
+    return (dtype in _DTYPES and units >= 16 and units % 16 == 0
+            and smem_bytes(h, w, units, _DTYPES[dtype]) <= SMEM_LIMIT)
 
 
 def _launch(u, r, c, hprev, g, uzr, uc, compute_dtype

@@ -33,8 +33,8 @@ import torch
 
 from ..cells import ConvLSTM
 from . import build
-from .convgru import (acc_bytes, align128, aligned, check_fits, cluster_size,
-                      pack_slices, pad_bytes)
+from .convgru import (SMEM_LIMIT, acc_bytes, align128, aligned, check_fits,
+                      cluster_size, pack_slices, pad_bytes)
 
 # Launches of the CUDA kernel in this process; chip_smoke.py resets it to
 # 0 before driving a path and reads it after.
@@ -57,6 +57,13 @@ def smem_bytes(h: int, w: int, units: int, elem: int) -> int:
     return (weights + 2 * pad_bytes(h, w, units, elem)
             + acc_bytes(h, w, GATES * ns, elem, K_GROUPS)
             + align128(hw * ns * 4) + align128(2 * GATES * hw * ns * elem))
+
+
+def kernel_takes(h: int, w: int, units: int, dtype: torch.dtype) -> bool:
+    """Whether kernel B3 takes U units on an H x W grid in `dtype` (the
+    dtype of gx), reckoned as `convgru.kernel_takes` is for B1."""
+    return (dtype in _DTYPES and units >= 16 and units % 16 == 0
+            and smem_bytes(h, w, units, _DTYPES[dtype]) <= SMEM_LIMIT)
 
 
 def _check(fused: dict, gx: torch.Tensor, c0: torch.Tensor,

@@ -1,5 +1,5 @@
-"""Core NN ops on the slice's path: conv / deconv / linear / dropout /
-frozen batch norm.
+"""Core NN ops on the port's paths: conv / deconv / 3-D conv and pool /
+linear / dropout / frozen batch norm.
 
 Plain tensor functions with the JAX package's layouts at the interface:
 NHWC activations and HWIO kernels (`ops/layers.py` there), so the tests
@@ -91,6 +91,71 @@ def conv2d_transpose(x: torch.Tensor, kernel: torch.Tensor, *, stride: int,
         full = full.narrow(axis, start, length)
     out = full.permute(0, 2, 3, 1)
     return _cast(out, out_dtype if out_dtype is not None else torch.float32)
+
+
+def _same_pads_3d(x: torch.Tensor, window, stride) -> list[tuple[int, int]]:
+    return [_same_pads(size, k, s)
+            for size, k, s in zip(x.shape[2:], window, stride)]
+
+
+def conv3d(x: torch.Tensor, kernel: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, *, stride=(1, 1, 1),
+           padding: str = "SAME", compute_dtype=None,
+           out_dtype=None) -> torch.Tensor:
+    """3-D convolution (the C3D tower's conv blocks), NCDHW x OIDHW ->
+    NCDHW. Unlike the 2-D ops above, this one keeps PyTorch's layouts at
+    the interface: the tower runs in them from its input to conv5b, whose
+    [N,512,2,7,7] folds to [N,1024,7,7] by a reshape. The dtype rule is the
+    JAX package's `conv3d`: with a compute dtype the result comes out in
+    it (accumulated in f32 by the library), then is cast to `out_dtype`
+    (f32 when None). The bias, in the compute dtype, is added by the
+    library's conv before that rounding (the JAX package adds it after; in
+    f32 the two agree, in bf16 they differ by a rounding), which saves a
+    pass over the tower's largest tensors. The memory format (NCDHW or
+    channels-last-3d) follows the input's."""
+    stride = tuple(stride)
+    w = _cast(kernel, compute_dtype)
+    xc = _cast(x, compute_dtype)
+    if padding == "SAME":
+        pads = _same_pads_3d(xc, w.shape[2:], stride)
+        if any(lo != hi for lo, hi in pads):
+            xc = F.pad(xc, [p for lo_hi in reversed(pads) for p in lo_hi])
+            pad = 0
+        else:
+            pad = tuple(lo for lo, _ in pads)
+    elif padding == "VALID":
+        pad = 0
+    else:
+        raise ValueError(f"padding must be SAME|VALID, got {padding!r}")
+    b = None if bias is None else bias.to(xc.dtype)
+    out = F.conv3d(xc, w, b, stride=stride, padding=pad)
+    return _cast(out, out_dtype if out_dtype is not None else torch.float32)
+
+
+def max_pool3d(x: torch.Tensor, window, stride,
+               padding: str = "SAME") -> torch.Tensor:
+    """3-D max pool over NCDHW (C3D POOLING3D) with the JAX package's
+    `reduce_window` semantics: SAME pads with -inf, the extra pad on the
+    high side (pool5 takes [2,7,7] to [1,4,4])."""
+    window, stride = tuple(window), tuple(stride)
+    if padding == "SAME":
+        pads = _same_pads_3d(x, window, stride)
+        if any(lo or hi for lo, hi in pads):
+            x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi],
+                      value=float("-inf"))
+    elif padding != "VALID":
+        raise ValueError(f"padding must be SAME|VALID, got {padding!r}")
+    return F.max_pool3d(x, window, stride)
+
+
+def resize_bilinear(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
+    """[N, H, W, C] f32 -> [N, h, w, C], `jax.image.resize(method=
+    "bilinear")` semantics: half-pixel centers, and an antialiasing
+    (triangle) filter widened by the scale when it shrinks an axis, which
+    is PyTorch's `antialias=True`."""
+    out = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(hw),
+                        mode="bilinear", align_corners=False, antialias=True)
+    return out.permute(0, 2, 3, 1)
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor,

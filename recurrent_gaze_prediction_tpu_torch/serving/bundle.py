@@ -11,10 +11,13 @@ the model (`bundle_programs`). A bundle written here lists its programs
 under `torch_programs`, so the JAX package's `load_bundle` still reads its
 config and weights.
 
-Programs: `predict` (served over HTTP, `serving/server.py`) and, for the
-ConvGRU family, `stream`, the carried-state chunk step, run through
-`stream_step` / `initial_stream_state` (the counterparts of the JAX
-`ServingBundle` methods of those names).
+Programs: `predict` (features -> maps) and `fused` (raw video -> maps, the
+C3D tower in the same program, `fused_predict_fn`), both served over HTTP
+(`serving/server.py`); and, for the ConvGRU family, `stream`, the
+carried-state chunk step, run through `stream_step` /
+`initial_stream_state` (the counterparts of the JAX `ServingBundle`
+methods of those names). `fused_int8` is not ported yet (ROADMAP.md queue
+A item 3).
 """
 
 from __future__ import annotations
@@ -27,22 +30,31 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..bridge import (flatten_params, params_from_jax, params_to_jax,
-                      unflatten_params)
+from ..bridge import (c3d_params_from_jax, c3d_params_to_jax, flatten_params,
+                      params_from_jax, params_to_jax, unflatten_params)
 from ..config import ModelConfig
 from ..models.common import GazeModel
 from ..models.gaze_grcn import GazeGRCN
+from ..models.pipeline import make_fused_predict
 from ..models.streaming import grcn_stream_step
 
 MANIFEST = "manifest.json"
 PARAMS = "params.npz"
+C3D_PARAMS = "c3d_params.npz"
 # the dtype a bundle's predict program takes its frames and features in
 WIRE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the dtype the fused program takes its pixels in
+VIDEO_DTYPES = ("float32", "uint8")
 
 
 def save_bundle(path: str, model: GazeModel, *,
                 wire_dtype: str = "float32",
-                stream_chunk_len: Optional[int] = None) -> None:
+                stream_chunk_len: Optional[int] = None,
+                c3d_params: Optional[dict] = None,
+                num_frames: Optional[int] = None,
+                video_hw: tuple[int, int] = (128, 171),
+                video_dtype: str = "float32",
+                c3d_compute_dtype: str = "bfloat16") -> None:
     """Write `model`'s config and weights as a bundle directory.
 
     `wire_dtype` ("float32" | "bfloat16") is the input dtype of the predict
@@ -50,10 +62,24 @@ def save_bundle(path: str, model: GazeModel, *,
     and features to bf16 and computes in f32 from there, as the JAX
     package's bundles do. `stream_chunk_len` records the streaming chunk
     step too; like the JAX package, only gaze_grcn (the ConvGRU family with
-    the 49x49 decoder) has one."""
+    the 49x49 decoder) has one.
+
+    `c3d_params` with `num_frames` records the `fused` raw-video program:
+    the tower's weights go to `c3d_params.npz` in the JAX package's flat
+    layout, and the program takes [B, num_frames, *video_hw, 3] pixels in
+    `video_dtype` ("float32" | "uint8"; uint8 is exact for decoded video
+    and a quarter of the bytes). `c3d_compute_dtype` ("bfloat16" |
+    "float32") is the tower's; a JAX bundle's fused program, which records
+    none, runs it in f32."""
     if wire_dtype not in WIRE_DTYPES:
         raise ValueError(f"wire_dtype must be float32|bfloat16, got "
                          f"{wire_dtype!r}")
+    if video_dtype not in VIDEO_DTYPES:
+        raise ValueError(f"video_dtype must be float32|uint8, got "
+                         f"{video_dtype!r}")
+    if c3d_compute_dtype not in WIRE_DTYPES:
+        raise ValueError(f"c3d_compute_dtype must be bfloat16|float32, got "
+                         f"{c3d_compute_dtype!r}")
     if stream_chunk_len is not None and not isinstance(model, GazeGRCN):
         raise ValueError(f"the stream program exists only for gaze_grcn, "
                          f"got {model.cfg.name}; gaze_lstm streams through "
@@ -79,6 +105,17 @@ def save_bundle(path: str, model: GazeModel, *,
             "state_size": cfg.rnn_state_size,
             "wire_dtype": wire_dtype,
         }
+    if c3d_params is not None and num_frames is not None:
+        manifest["torch_programs"]["fused"] = {
+            "inputs": f"c3d_params, params, video [B,F,H,W,3] "
+                      f"{video_dtype} 0..255",
+            "num_frames": int(num_frames),
+            "video_hw": list(video_hw),
+            "video_dtype": video_dtype,
+            "compute_dtype": c3d_compute_dtype,
+        }
+        np.savez(os.path.join(path, C3D_PARAMS),
+                 **c3d_params_to_jax(c3d_params))
     np.savez(os.path.join(path, PARAMS),
              **flatten_params(params_to_jax(model)))
     with open(os.path.join(path, MANIFEST), "w") as f:
@@ -111,7 +148,38 @@ def load_bundle(path: str, device=None) -> GazeModel:
         name: program_meta(manifest, name)
         for name in (*manifest.get("programs", {}),
                      *manifest.get("torch_programs", {}))}
+    model.bundle_c3d_params = None
+    c3d_path = os.path.join(path, C3D_PARAMS)
+    if os.path.exists(c3d_path):
+        dev = next(model.parameters()).device
+        with np.load(c3d_path) as data:
+            model.bundle_c3d_params = {
+                k: v.to(dev) for k, v in c3d_params_from_jax(
+                    {k: data[k] for k in data.files}).items()}
     return model
+
+
+def fused_predict_fn(model: GazeModel):
+    """The bundle's `fused` program as `fn(video [B,F,H,W,3]) -> maps`:
+    pixels in the program's video dtype on any device go to the model's
+    device as they are (uint8 stays uint8 until the card widens it), then
+    one fused predict with the bundle's tower in its compute dtype (f32,
+    TF32 off, for a JAX bundle). `model` comes from `load_bundle`."""
+    meta = getattr(model, "bundle_programs", {}).get("fused")
+    if meta is None or model.bundle_c3d_params is None:
+        raise KeyError("bundle has no fused program (saved without "
+                       "c3d_params/num_frames)")
+    cdt = meta.get("compute_dtype", "float32")
+    fn = make_fused_predict(
+        model, num_frames=int(meta["num_frames"]),
+        compute_dtype=None if cdt == "float32" else WIRE_DTYPES[cdt])
+    dev = next(model.parameters()).device
+    c3d_params = model.bundle_c3d_params
+
+    def predict(video) -> torch.Tensor:
+        return fn(c3d_params, torch.as_tensor(video).to(dev))
+
+    return predict
 
 
 def stream_step(model: GazeModel, state, c3d_chunk

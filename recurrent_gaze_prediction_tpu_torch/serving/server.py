@@ -8,8 +8,10 @@ Future while the batcher fills a window.
 Protocol (the same as the JAX package's):
   GET  /healthz   -> {"status": "ok", "calls": N, "requests": M, "inputs": [...]}
   POST /predict   -> body: .npz with `frames` [T,H,W,3] and `c3d`
-                     [T,1024,7,7], ONE clip without a batch dimension;
-                     response: .npz with `gazemaps` [T,GH,GW].
+                     [T,1024,7,7] (the `predict` program), or `video`
+                     [F,H,W,3] pixels (the `fused` program), ONE clip
+                     without a batch dimension; response: .npz with
+                     `gazemaps` [T,GH,GW].
 """
 
 from __future__ import annotations
@@ -25,25 +27,37 @@ import torch
 
 from ..utils import log
 from .batcher import DynamicBatcher
-from .bundle import WIRE_DTYPES, load_bundle, program_meta, read_manifest
+from .bundle import (WIRE_DTYPES, fused_predict_fn, load_bundle,
+                     program_meta, read_manifest)
 
 # Programs the JAX package's server serves and the port does not yet, and
 # the ROADMAP.md item that brings each. Neither server serves `stream`: it
 # runs through the bundle's own API (`bundle.stream_step`).
 _NOT_PORTED = {
-    "fused": "ROADMAP.md queue A item 10 (the raw-video front)",
-    "fused_int8": "ROADMAP.md queue A item 11 (the int8 C3D tower)",
+    "fused_int8": "ROADMAP.md queue A item 3 (the int8 C3D tower)",
 }
 
 
-def _as_float32(key: str, a: np.ndarray) -> np.ndarray:
-    """A request array as float32, or ValueError (-> 400). Clients send
-    f32/f16 (numpy cannot carry bfloat16 in an npz); a bfloat16 bundle
-    rounds on the device."""
-    if a.dtype.kind not in "fiu":
-        raise ValueError(f"input {key}: dtype {a.dtype} is not a real "
-                         f"number type (send float32/float16 values)")
-    return a.astype(np.float32, copy=False)
+def _as_program_dtype(key: str, a: np.ndarray, want: np.dtype) -> np.ndarray:
+    """A request array in the dtype the program takes on the wire, or
+    ValueError (-> 400), as the JAX package's server casts. float32
+    programs take any real input (numpy cannot carry bfloat16 in an npz,
+    so a bfloat16 bundle rounds on the device). uint8 programs take
+    integer pixels in 0..255 and refuse floats: a lossy float -> uint8
+    round is the client's decision."""
+    if want == np.float32:
+        if a.dtype.kind not in "fiu":
+            raise ValueError(f"input {key}: dtype {a.dtype} is not a real "
+                             f"number type (send float32/float16 values)")
+        return a.astype(np.float32, copy=False)
+    if a.dtype.kind not in "iu":
+        raise ValueError(f"input {key}: program expects uint8 pixels "
+                         f"(0..255); got {a.dtype}")
+    lo, hi = (int(a.min()), int(a.max())) if a.size else (0, 0)
+    if lo < 0 or hi > 255:
+        raise ValueError(f"input {key}: values [{lo},{hi}] out of uint8 "
+                         f"range")
+    return a.astype(np.uint8, copy=False)
 
 
 class GazeServer:
@@ -54,7 +68,9 @@ class GazeServer:
     `input_ndims` maps key -> expected UNBATCHED ndim and `input_shapes`
     key -> expected UNBATCHED shape (None entries are wildcards); a request
     violating either gets its own 400 instead of failing the whole
-    micro-batch it would have joined.
+    micro-batch it would have joined. `input_dtypes` maps key -> "float32"
+    (the default) or "uint8", the dtype a request is cast to and batched
+    in.
     """
 
     def __init__(self, predict_fn: Callable,
@@ -63,12 +79,16 @@ class GazeServer:
                  max_batch: int = 32, max_wait_ms: float = 5.0,
                  input_ndims: Optional[dict] = None,
                  input_shapes: Optional[dict] = None,
+                 input_dtypes: Optional[dict] = None,
                  max_body_bytes: int = 256 * 1024 * 1024,
                  request_timeout: float = 120.0):
         self.input_keys = tuple(input_keys)
         self.input_ndims = dict(input_ndims or {})
         self.input_shapes = {k: tuple(v)
                              for k, v in (input_shapes or {}).items()}
+        dtypes = input_dtypes or {}
+        self.input_dtypes = {k: np.dtype(dtypes.get(k, "float32"))
+                             for k in self.input_keys}
         self.batcher = DynamicBatcher(predict_fn, max_batch=max_batch,
                                       max_wait_ms=max_wait_ms)
         server = self
@@ -134,7 +154,7 @@ class GazeServer:
                                 "error": f"input {k} must have unbatched "
                                          f"shape {list(want_shape)} (None ="
                                          f" any); got {list(a.shape)}"})
-                    arrays = [_as_float32(k, a)
+                    arrays = [_as_program_dtype(k, a, server.input_dtypes[k])
                               for k, a in zip(server.input_keys, arrays)]
                 except Exception as e:
                     return self._reply_json(400, {"error": str(e)})
@@ -192,18 +212,32 @@ def server_from_bundle(bundle_dir: str, *, program: str = "predict",
                        max_batch: int = 32, max_wait_ms: float = 5.0,
                        device=None) -> GazeServer:
     """Serve a bundle written by either package's `save_bundle` on
-    `device` (None = the card). Only the feature-fed `predict` program is
-    ported: (frames, c3d) -> maps. The batcher pads each coalesced batch to
-    a power-of-two bucket."""
+    `device` (None = the card). `predict` serves (frames, c3d) -> maps;
+    `fused` serves (video,) -> maps, video [F,H,W,3] pixels in the
+    program's video dtype (a uint8 bundle's stay uint8 through the batcher
+    and the copy to the card). The batcher pads each coalesced batch to a
+    power-of-two bucket."""
     if program in _NOT_PORTED:
         raise ValueError(f"program {program!r} is not ported yet: "
                          f"{_NOT_PORTED[program]}")
-    if program != "predict":
+    if program not in ("predict", "fused"):
         raise ValueError(
             f"program must be predict|fused|fused_int8, got {program}")
     manifest = read_manifest(bundle_dir)
-    meta = program_meta(manifest, "predict")
+    meta = program_meta(manifest, program)
+    if program == "fused" and not meta:
+        raise ValueError("bundle has no 'fused' program (saved without "
+                         "c3d_params/num_frames)")
     model = load_bundle(bundle_dir, device=device)
+    if program == "fused":
+        predict = fused_predict_fn(model)
+        hw = tuple(meta.get("video_hw") or (None, None))
+        return GazeServer(
+            lambda video: predict(video).cpu().numpy(), ("video",),
+            host=host, port=port, max_batch=max_batch,
+            max_wait_ms=max_wait_ms, input_ndims={"video": 4},
+            input_shapes={"video": (meta["num_frames"], *hw, 3)},
+            input_dtypes={"video": meta.get("video_dtype", "float32")})
     cfg = model.cfg
     dev = next(model.parameters()).device
     wire = WIRE_DTYPES[meta.get("wire_dtype", "float32")]

@@ -1,8 +1,10 @@
-"""Training: state and optimizer, schedules, the fit loop, checkpoints and
-the metric writer (the port's counterpart of the JAX package's `train/`)."""
+"""Training: state and optimizer, schedules, the fit loops (feature-fed and
+from raw video), checkpoints and the metric writer (the port's counterpart
+of the JAX package's `train/`)."""
 
 from . import schedules
 from .checkpoint import Checkpointer
+from .fused import FusedTrainState, fit_fused
 from .loop import fit
 from .state import (Optimizer, TrainState, build_optimizer, build_schedule,
                     create_train_state, flip_half_batch, make_eval_step,
@@ -20,5 +22,7 @@ __all__ = [
     "make_eval_step",
     "make_predict_fn",
     "fit",
+    "FusedTrainState",
+    "fit_fused",
     "Checkpointer",
 ]

@@ -6,9 +6,12 @@ package's `train/checkpoint.py`, with its layout.
     (reference layout: checkpoints in `{train_dir}/model/`,
     `models/base.py:240-253`);
   * a checkpoint holds {params, opt_state, step} explicitly, so resume is
-    exact, including the LR schedule position. Params and moments are
-    stored under the JAX package's flat names ("cell/W_z"), on the CPU,
-    with `torch.save`.
+    exact, including the LR schedule position; a fused run's state
+    (`train/fused.FusedTrainState`) adds the C3D tower's weights
+    (`c3d_params`) and, when the tower is fine-tuned, its optimizer state
+    (`opt_state` is a list of one or two). Params and moments are stored
+    under the JAX package's flat names ("cell/W_z"), on the CPU, with
+    `torch.save`.
 
 Reading the JAX package's orbax checkpoints is out of scope: the port does
 not import orbax. Weights cross between the packages through bundles
@@ -33,6 +36,18 @@ _FILE = "state.pt"
 
 def _by_jax_name(tensors: dict) -> dict:
     return {jax_name(n): t.detach().cpu() for n, t in tensors.items()}
+
+
+def _opt_states(state: TrainState) -> tuple:
+    """The state's optimizer states: one, or the pair (gaze, C3D) of a
+    fine-tuned fused run."""
+    opt = state.opt_state
+    return tuple(opt) if isinstance(opt, (tuple, list)) else (opt,)
+
+
+def _saved_opt(opt: dict) -> dict:
+    return {k: (_by_jax_name(v) if isinstance(v, dict) else v)
+            for k, v in opt.items()}
 
 
 class Checkpointer:
@@ -60,12 +75,14 @@ class Checkpointer:
         path = os.path.join(self.model_dir, str(state.step))
         if os.path.exists(os.path.join(path, _FILE)):
             return
-        opt = {k: (_by_jax_name(v) if isinstance(v, dict) else v)
-               for k, v in state.opt_state.items()}
+        saved = {"step": state.step, "params": _by_jax_name(state.params),
+                 "opt_state": [_saved_opt(o) for o in _opt_states(state)]}
+        c3d = getattr(state, "c3d_params", None)
+        if c3d is not None:
+            saved["c3d_params"] = _by_jax_name(c3d)
         tmp = f"{path}.tmp{os.getpid()}"
         os.makedirs(tmp, exist_ok=True)
-        torch.save({"step": state.step, "params": _by_jax_name(state.params),
-                    "opt_state": opt}, os.path.join(tmp, _FILE))
+        torch.save(saved, os.path.join(tmp, _FILE))
         os.replace(tmp, path)
         for old in self.steps()[:-self.max_to_keep]:
             shutil.rmtree(os.path.join(self.model_dir, str(old)))
@@ -89,11 +106,25 @@ class Checkpointer:
                     t.copy_(src[jax_name(n)])
 
         copy_into(state.params, saved["params"], "params")
-        for key, value in saved["opt_state"].items():
-            if isinstance(value, dict):
-                copy_into(state.opt_state[key], value, f"opt_state[{key}]")
-            else:
-                state.opt_state[key] = value
+        c3d = getattr(state, "c3d_params", None)
+        if (c3d is None) != ("c3d_params" not in saved):
+            raise ValueError(f"checkpoint {path}: a C3D tower in only one of "
+                             f"the checkpoint and the state")
+        if c3d is not None:
+            copy_into(c3d, saved["c3d_params"], "c3d_params")
+        opts = _opt_states(state)
+        stored_opts = saved["opt_state"]
+        if isinstance(stored_opts, dict):  # written before fused runs
+            stored_opts = [stored_opts]
+        if len(opts) != len(stored_opts):
+            raise ValueError(f"checkpoint {path} holds {len(stored_opts)} "
+                             f"optimizer states, the state {len(opts)}")
+        for i, (opt, stored) in enumerate(zip(opts, stored_opts)):
+            for key, value in stored.items():
+                if isinstance(value, dict):
+                    copy_into(opt[key], value, f"opt_state[{i}][{key}]")
+                else:
+                    opt[key] = value
         state.step = int(saved["step"])
         log.info(" [Checkpoint] restored step %d from %s", step,
                  self.model_dir)

@@ -1,0 +1,310 @@
+"""Training from raw video: the port's counterpart of the JAX package's
+`train/fused.py`.
+
+The C3D tower runs in the train step (`models/pipeline.
+make_fused_train_step`), so a run needs video, not pre-extracted features,
+and the tower can be fine-tuned jointly. This module holds what the CLI
+(`cli/train_fused.py`) wires up:
+
+  * `RawVideoDataset`: fixed-shape uint8 clips and aligned gazemaps;
+  * `make_synthetic_fused_corpus`: a learnable stand-in corpus, with the
+    JAX package's numpy draws (the same seed gives the same arrays);
+  * `FusedTrainState` and `fit_fused`: the checkpointed, resumable loop.
+
+Not ported yet: `load_fused_corpus` (decoding a directory of videos with
+their gaze records needs `data/gazemap.py`, ROADMAP.md queue A item 7) and
+the mesh branch of `fit_fused` (item 6).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import signal
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..config import ExperimentConfig
+from ..models import pipeline
+from ..models.common import GazeModel, sequence_loss
+from ..ops.normalize import normalize_probability_map
+from ..utils import log
+from .checkpoint import Checkpointer
+from .loop import device_batch
+from .state import Optimizer, TrainState, build_schedule
+
+
+@dataclasses.dataclass
+class RawVideoDataset:
+    """Raw-pixel clips at a fixed frame count.
+
+    video    [N, F, H, W, 3] uint8 pixels (the train step widens them on
+             the card)
+    gazemaps [N, T, GH, GW]  float32, T = pipeline_timesteps(F)
+    """
+
+    video: np.ndarray
+    gazemaps: np.ndarray
+    clipnames: list
+
+    def __post_init__(self):
+        if len(self.video) != len(self.gazemaps):
+            raise ValueError(f"{len(self.video)} clips but "
+                             f"{len(self.gazemaps)} gazemap sequences")
+        t = pipeline.pipeline_timesteps(self.video.shape[1])
+        if self.gazemaps.shape[1] != t:
+            raise ValueError(f"gazemaps T={self.gazemaps.shape[1]} does not "
+                             f"match pipeline_timesteps("
+                             f"{self.video.shape[1]})={t}")
+        self._index = 0
+        self.epochs_completed = 0
+
+    def __len__(self) -> int:
+        return len(self.video)
+
+    def shuffle(self, seed: int = 3027300) -> None:
+        perm = np.random.RandomState(seed).permutation(len(self))
+        self.video = self.video[perm]
+        self.gazemaps = self.gazemaps[perm]
+        self.clipnames = [self.clipnames[i] for i in perm]
+
+    def next_batch(self, batch_size: int) -> dict:
+        if batch_size > len(self):
+            raise ValueError(f"batch_size {batch_size} > dataset size "
+                             f"{len(self)}")
+        start = self._index
+        self._index += batch_size
+        if self._index > len(self):
+            self.epochs_completed += 1
+            start = 0
+            self._index = batch_size
+        end = self._index
+        return {"video": self.video[start:end],
+                "gazemaps": self.gazemaps[start:end],
+                "clipnames": self.clipnames[start:end]}
+
+    def split(self, n_valid: int) -> tuple["RawVideoDataset",
+                                           Optional["RawVideoDataset"]]:
+        """Hold out the LAST n_valid clips as a validation set."""
+        if n_valid <= 0 or n_valid >= len(self):
+            return self, None
+        cut = len(self) - n_valid
+        return (RawVideoDataset(self.video[:cut], self.gazemaps[:cut],
+                                self.clipnames[:cut]),
+                RawVideoDataset(self.video[cut:], self.gazemaps[cut:],
+                                self.clipnames[cut:]))
+
+
+def make_synthetic_fused_corpus(n_clips: int = 8, *, num_frames: int = 80,
+                                frame_hw: tuple[int, int] = (64, 80),
+                                gazemap_hw: tuple[int, int] = (49, 49),
+                                seed: int = 0, mode: str = "bright",
+                                walk_bounds: Optional[tuple] = None
+                                ) -> RawVideoDataset:
+    """Learnable raw-video corpus: the gaze target tracks a blob walking
+    across gray-noise frames.
+
+    mode="bright": one saturated-white blob; any spatially selective
+    encoding (even a random frozen tower) carries its position.
+    mode="flicker": two equal-mean blobs walk independently; the target
+    flickers frame to frame (+-60 around 120), the distractor holds 120.
+    mode="period": both flicker, the target every frame (+-35), the
+    distractor every 2 frames (+-70), with +-15 global brightness jitter.
+
+    `walk_bounds` clamps the normalized walk; `c3d.preprocess_frames`
+    center-crops 112/171 of the width, so positions outside ~[0.18, 0.82]
+    horizontally leave the tower's view.
+    """
+    if mode not in ("bright", "flicker", "period"):
+        raise ValueError(f"unknown corpus mode {mode!r}")
+    rng = np.random.RandomState(seed)
+    fh, fw = frame_hw
+    gh, gw = gazemap_hw
+    t = pipeline.pipeline_timesteps(num_frames)
+    lo, hi = walk_bounds if walk_bounds is not None else (
+        (0.15, 0.85) if mode == "bright" else (0.25, 0.75))
+
+    def walk(key_offset: int = 0) -> np.ndarray:
+        wrng = np.random.RandomState(seed + key_offset)
+        pos = wrng.rand(n_clips, 2) * (hi - lo - 0.2) + lo + 0.1
+        steps = np.zeros((n_clips, num_frames, 2))
+        for step in range(num_frames):
+            pos = np.clip(pos + wrng.randn(n_clips, 2) * 0.01, lo, hi)
+            steps[:, step] = pos
+        return steps
+
+    traj = walk()
+    video = rng.randint(0, 70, (n_clips, num_frames, fh, fw, 3),
+                        np.uint8)
+    r = max(2, fh // 12)
+
+    def draw(blob_traj: np.ndarray, brightness) -> None:
+        """brightness: scalar or per-frame array [num_frames]."""
+        ys = (blob_traj[..., 0] * (fh - 1)).astype(int)
+        xs = (blob_traj[..., 1] * (fw - 1)).astype(int)
+        for ci in range(n_clips):
+            for fi in range(num_frames):
+                y0, x0 = ys[ci, fi], xs[ci, fi]
+                bval = brightness if np.isscalar(brightness) \
+                    else brightness[fi]
+                video[ci, fi, max(0, y0 - r):y0 + r,
+                      max(0, x0 - r):x0 + r] = bval
+
+    frames_idx = np.arange(num_frames)
+    if mode == "bright":
+        draw(traj, 255)
+    elif mode == "flicker":
+        flick = 120 + 60 * np.where(frames_idx % 2 == 0, 1, -1)
+        draw(traj, flick)           # target: mean 120, flickering
+        draw(walk(key_offset=777), 120)  # distractor: steady 120
+    else:  # period
+        fast = 120 + 35 * np.where(frames_idx % 2 == 0, 1, -1)
+        slow = 120 + 70 * np.where((frames_idx // 2) % 2 == 0, 1, -1)
+        draw(walk(key_offset=777), slow)  # distractor first ...
+        draw(traj, fast)  # ... so the target overdraws on overlap
+        # global jitter AFTER drawing: every pixel, every frame
+        jit = rng.randint(-15, 16, (n_clips, num_frames, 1, 1, 1))
+        video = np.clip(video.astype(np.int16) + jit, 0, 255) \
+            .astype(np.uint8)
+
+    sub = traj[:, pipeline.FRAME_OFFSET::pipeline.FRAME_STRIDE][:, :t]
+    yy = np.arange(gh).reshape(1, 1, gh, 1)
+    xx = np.arange(gw).reshape(1, 1, 1, gw)
+    cy = (sub[..., 0] * (gh - 1))[..., None, None]
+    cx = (sub[..., 1] * (gw - 1))[..., None, None]
+    gaze = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / (2 * 2.0 ** 2))
+    gaze = gaze.astype(np.float32) + 1e-4
+    names = [f"synthetic{ci:04d}" for ci in range(n_clips)]
+    return RawVideoDataset(video, gaze, names)
+
+
+# ------------------------------------------------------------- train state
+
+@dataclasses.dataclass
+class FusedTrainState(TrainState):
+    """`TrainState` with the tower: `params` are the gaze model's (the JAX
+    package's `gaze_params`), `c3d_params` the tower's dict of tensors,
+    `opt_state` one optimizer state, or the pair (gaze, c3d) when the
+    tower is fine-tuned."""
+
+    c3d_params: dict = dataclasses.field(default_factory=dict)
+
+
+def make_fused_eval_step(gaze_model: GazeModel, *,
+                         compute_dtype=torch.bfloat16) -> Callable:
+    """Validation loss on raw-video batches (no dropout, no flip):
+    `eval_step(c3d_params, batch) -> {"loss"}`."""
+
+    @torch.no_grad()
+    def eval_step(c3d_params: dict, batch: dict) -> dict:
+        logits = pipeline.extract_and_predict(
+            c3d_params, gaze_model, batch["video"],
+            compute_dtype=compute_dtype, logits=True, train=False)
+        gt = batch["gazemaps"]
+        if gaze_model.cfg.loss_type in ("xentropy", "kld"):
+            gt = normalize_probability_map(gt)
+        return {"loss": sequence_loss(logits, gt, gaze_model.cfg.loss_type)}
+
+    return eval_step
+
+
+def fit_fused(gaze_model: GazeModel, state: FusedTrainState, tx: Optimizer,
+              train_data: RawVideoDataset, exp: ExperimentConfig, *,
+              valid_data: Optional[RawVideoDataset] = None,
+              finetune_c3d: bool = False, c3d_tx: Optional[Optimizer] = None,
+              compute_dtype=torch.bfloat16, train_dir: Optional[str] = None,
+              metric_writer: Optional[Callable[[int, dict], None]] = None
+              ) -> FusedTrainState:
+    """Train the fused raw-video step until `exp.schedule.max_steps`.
+
+    `train/loop.fit`'s contract on the fused step: the reference's log
+    cadence, periodic and final checkpoints with auto-resume (both weight
+    trees and the optimizer state or states, so a resumed joint fine-tune
+    continues exactly), checkpoint-and-stop on SIGTERM/SIGINT. The flip and
+    dropout draw from a generator on the model's device seeded from
+    (exp.seed, step), so a resumed run at step N draws what the
+    uninterrupted one would have.
+    """
+    sched_cfg = exp.schedule
+    batch_size = gaze_model.cfg.batch_size
+    device = next(gaze_model.parameters()).device
+    generator = torch.Generator(device=device)
+    lr_schedule = build_schedule(exp.optimizer)
+    train_step = pipeline.make_fused_train_step(
+        gaze_model, tx, finetune_c3d=finetune_c3d, c3d_tx=c3d_tx,
+        compute_dtype=compute_dtype,
+        accum_steps=max(int(exp.optimizer.accum_steps or 1), 1))
+    eval_step = make_fused_eval_step(gaze_model, compute_dtype=compute_dtype)
+
+    ckpt = None
+    if train_dir is not None:
+        ckpt = Checkpointer(train_dir)
+        ckpt.save_config(exp)
+        if ckpt.restore_latest(state) is not None:
+            log.info(" [Checkpoint] resumed fused run at step %d", state.step)
+
+    stop_requested = {"flag": False}
+
+    def _request_stop(signum, frame):
+        del frame
+        log.warn("signal %s received: checkpointing and stopping", signum)
+        stop_requested["flag"] = True
+
+    prev_handlers = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            prev_handlers[sig] = signal.signal(sig, _request_stop)
+        except ValueError:  # not the main thread
+            pass
+
+    has_valid = valid_data is not None and len(valid_data) >= batch_size
+    if valid_data is not None and not has_valid:
+        log.warn("validation set has %d clips < batch_size %d: validation "
+                 "will never run", len(valid_data), batch_size)
+    n_train = max(len(train_data), 1)
+    step = state.step
+    last_logged_step, t_logged = step, time.time()
+    try:
+        while step < sched_cfg.max_steps and not stop_requested["flag"]:
+            batch = device_batch(train_data.next_batch(batch_size), device)
+            generator.manual_seed(exp.seed * 1_000_003 + step)
+            state, metrics = train_step(state, batch, generator)
+            step = state.step
+
+            if step % sched_cfg.steps_per_logprint == 0:
+                loss = float(metrics["loss"])  # the card syncs HERE
+                t1 = time.time()
+                sec_per_batch = (t1 - t_logged) / max(step - last_logged_step,
+                                                      1)
+                last_logged_step, t_logged = step, t1
+                lr = lr_schedule(step)
+                log.info(
+                    " [fused epoch %.1f / step %4d] %s loss: %.5f "
+                    "(%.3f sec/batch, %.3f instances/sec) (lr=%.3g)",
+                    step * batch_size / n_train, step,
+                    (exp.train_tag + " |" if exp.train_tag else ""),
+                    loss, sec_per_batch,
+                    batch_size / max(sec_per_batch, 1e-9), lr)
+                if metric_writer:
+                    metric_writer(step, {"loss/train": loss,
+                                         "learning_rate": lr})
+
+            if ckpt is not None and step % sched_cfg.steps_per_checkpoint == 0:
+                ckpt.save(state)
+
+            if has_valid and step % sched_cfg.steps_per_validation == 0:
+                vbatch = device_batch(valid_data.next_batch(batch_size),
+                                      device)
+                vloss = float(eval_step(state.c3d_params, vbatch)["loss"])
+                log.infov(" [val   step %4d] fused loss: %.5f", step, vloss)
+                if metric_writer:
+                    metric_writer(step, {"loss/val": vloss})
+
+        if ckpt is not None:
+            ckpt.save(state)
+    finally:
+        for sig, handler in prev_handlers.items():
+            signal.signal(sig, handler)
+    return state

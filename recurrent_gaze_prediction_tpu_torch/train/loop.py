@@ -7,8 +7,8 @@ checkpoint-and-stop on SIGTERM/SIGINT; per-step timing logs matching the
 reference's `sec/batch, instances/sec` line (`models/gaze_rnn.py:547-563`).
 
 Not ported yet: the evaluation cadence (`steps_per_evaluation`, which needs
-the evaluator, ROADMAP.md queue A item 12), image summaries, the profiler
-window, and the mesh branch (item 14). The loss is read back from the card
+the evaluator, ROADMAP.md queue A item 4), image summaries, the profiler
+window, and the mesh branch (item 6). The loss is read back from the card
 only at the log cadence, so the host runs ahead of the card in between.
 """
 
@@ -92,7 +92,7 @@ def fit(model: GazeModel, state: TrainState, tx: Optimizer, data: DataSplits,
     if has_valid and sched_cfg.steps_per_evaluation <= sched_cfg.max_steps:
         log.warn("steps_per_evaluation=%d: the evaluation cadence is not "
                  "ported yet (needs the evaluator, ROADMAP.md queue A item "
-                 "12); only the validation loss runs",
+                 "4); only the validation loss runs",
                  sched_cfg.steps_per_evaluation)
     n_train = max(len(data.train), 1)
     input_cast = (torch.bfloat16

@@ -2,8 +2,9 @@
 forward B1, backward B2 and B4; ConvLSTM forward B3) against their plain
 PyTorch versions at shapes chip_smoke.py does not cover, and the cluster
 kernels' (B1, B2, B3) shared-memory reckoning and refusal of widths that do
-not fit. They skip
-without a card. This file imports torch only (no jax), so on a machine
+not fit; the models' routing of other widths to the plain scan (fault C1);
+and the raw-video front (the C3D tower's bf16 gate, fused predict and two
+`cli.train_fused` steps, with launch counts). They skip without a card. This file imports torch only (no jax), so on a machine
 with a card it runs without the JAX test harness:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -288,3 +289,95 @@ def test_convlstm_kernel_rejects_a_width_whose_slice_does_not_fit(
     with pytest.raises(ValueError, match="shared memory"):
         klstm.convlstm_recurrence(fused, gx, *carry)
     assert klstm.launches == before
+
+
+# ---------------------------------------------------------------- fault C1
+
+@pytest.mark.parametrize("name", ["gaze_grcn", "gaze_lstm"])
+@pytest.mark.parametrize("units,launched", [(256, 0), (24, 0), (128, 1)])
+def test_predict_routes_widths_the_kernels_do_not_take_to_the_scan(
+        cuda_no_tf32, name, units, launched):
+    """U=256 and U=24 run the cell's own scan (no launch), U=128 the
+    kernel (one launch), each decided before any launch."""
+    from recurrent_gaze_prediction_tpu_torch import registry
+
+    model = registry.create_model(name, rnn_state_size=units, n_lstm_steps=5,
+                                  compute_dtype="bfloat16",
+                                  device=cuda_no_tf32)
+    c3d = torch.from_numpy(np.random.RandomState(0).randn(
+        2, 5, 1024, 7, 7).astype(np.float32)).to(cuda_no_tf32)
+    module = kconv if name == "gaze_grcn" else klstm
+    before = (kconv.launches, klstm.launches, v2.launches)
+    maps = model.predict(None, c3d)
+    torch.cuda.synchronize()
+    after = (kconv.launches, klstm.launches, v2.launches)
+    assert model.last_route == ("kernel" if launched else "scan")
+    assert sum(after) - sum(before) == launched
+    assert module.launches - before[0 if module is kconv else 1] == launched
+    assert maps.shape == (2, 5, 49, 49) and bool(torch.isfinite(maps).all())
+    sums = maps.reshape(10, -1).sum(-1)
+    assert float((sums - 1).abs().max()) <= 1e-3
+
+
+# -------------------------------------------------------- the raw-video front
+
+def _tower(device):
+    from recurrent_gaze_prediction_tpu_torch.models import c3d
+
+    return c3d.init_params(torch.Generator().manual_seed(1), device=device)
+
+
+def test_c3d_tower_bf16_matches_f32(cuda_no_tf32):
+    """The bf16 tower against the f32 one (TF32 off) at conv5b: corr
+    >= 0.999."""
+    from recurrent_gaze_prediction_tpu_torch.models import c3d
+
+    tower = _tower(cuda_no_tf32)
+    pixels = torch.from_numpy(np.random.RandomState(2).randint(
+        0, 256, (4, 16, 128, 171, 3)).astype(np.uint8)).to(cuda_no_tf32)
+    with torch.inference_mode():
+        clips = c3d.preprocess_frames(pixels)
+        a = c3d.apply(tower, clips, compute_dtype=torch.bfloat16)
+        b = c3d.apply(tower, clips, compute_dtype=None)
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    assert a.shape == (4, 512, 2, 7, 7) and np.isfinite(a).all()
+    assert np.corrcoef(a.ravel(), b.ravel())[0, 1] >= 0.999
+
+
+@pytest.mark.parametrize("name", ["gaze_grcn", "gaze_lstm"])
+def test_fused_predict_launches_the_recurrence_kernel_once(cuda_no_tf32,
+                                                           name):
+    from recurrent_gaze_prediction_tpu_torch import registry
+    from recurrent_gaze_prediction_tpu_torch.models import pipeline
+
+    model = registry.create_model(name, n_lstm_steps=2,
+                                  compute_dtype="bfloat16",
+                                  device=cuda_no_tf32)
+    video = torch.from_numpy(np.random.RandomState(3).randint(
+        0, 256, (2, 32, 128, 171, 3)).astype(np.uint8)).to(cuda_no_tf32)
+    fn = pipeline.make_fused_predict(model, num_frames=32)
+    before = (kconv.launches, klstm.launches, v2.launches, v1.launches)
+    maps = fn(_tower(cuda_no_tf32), video)
+    torch.cuda.synchronize()
+    after = (kconv.launches, klstm.launches, v2.launches, v1.launches)
+    delta = [a - b for a, b in zip(after, before)]
+    assert delta == ([1, 0, 0, 0] if name == "gaze_grcn" else [0, 1, 0, 0])
+    assert maps.shape == (2, 2, 49, 49) and bool(torch.isfinite(maps).all())
+
+
+def test_cli_train_fused_two_steps(cuda_no_tf32, tmp_path):
+    """Two frozen-tower steps of `cli.train_fused` on the card: B1 and B2
+    once per step, a checkpoint written."""
+    from recurrent_gaze_prediction_tpu_torch.cli import train_fused
+    from recurrent_gaze_prediction_tpu_torch.train import Checkpointer
+
+    run = str(tmp_path / "run")
+    before = (kconv.launches, v2.launches, klstm.launches, v1.launches)
+    assert train_fused.main([
+        "--dataset", "synthetic", "--num_frames", "32", "--frame_hw", "128",
+        "171", "--batch_size", "2", "--synthetic_clips", "2", "--max_steps",
+        "2", "--steps_per_logprint", "1", "--train_dir", run]) == 0
+    torch.cuda.synchronize()
+    after = (kconv.launches, v2.launches, klstm.launches, v1.launches)
+    assert [a - b for a, b in zip(after, before)] == [2, 2, 0, 0]
+    assert Checkpointer(run).steps() == [2]

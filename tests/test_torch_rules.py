@@ -79,3 +79,24 @@ def test_entry_points_raise_without_cuda(tmp_path):
                  streaming.init_lstm_stream_state):
         with pytest.raises(RuntimeError, match="cuda"):
             init(1, model.cfg)
+
+
+def test_raw_video_entry_points_raise_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from recurrent_gaze_prediction_tpu_torch import registry
+    from recurrent_gaze_prediction_tpu_torch.cli import train_fused
+    from recurrent_gaze_prediction_tpu_torch.models import c3d
+    from recurrent_gaze_prediction_tpu_torch.serving import (
+        save_bundle, server_from_bundle)
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_fused.main(["--dataset", "synthetic", "--max_steps", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        c3d.init_params()
+    model = registry.create_model("gaze_grcn", device="cpu", dim_feature=1024,
+                                  dim_cnn_proj=8, rnn_state_size=8)
+    tower = {k: v[:1] for k, v in c3d.init_params(device="cpu").items()}
+    save_bundle(str(tmp_path), model, c3d_params=tower, num_frames=16)
+    with pytest.raises(RuntimeError, match="cuda"):
+        server_from_bundle(str(tmp_path), program="fused")

@@ -127,11 +127,19 @@ def test_port_serves_jax_gaze_lstm_bundle(tmp_path):
 
 @pytest.mark.parametrize("program", ["fused", "fused_int8", "stream"])
 def test_unported_programs_raise(tmp_path, program):
-    """`fused` and `fused_int8` name the ROADMAP item that brings them;
-    `stream` is no HTTP program in either package (it runs through the
-    bundle's `stream_step`), so it gets the JAX server's own error."""
-    match = ("program must be predict\\|fused\\|fused_int8"
-             if program == "stream" else "ROADMAP.md")
+    """`fused_int8` names the ROADMAP item that brings it; `stream` is no
+    HTTP program in either package (it runs through the bundle's
+    `stream_step`), so it gets the JAX server's own error. `fused` is
+    ported: a bundle saved without the C3D weights refuses it."""
+    from recurrent_gaze_prediction_tpu_torch import registry
+    from recurrent_gaze_prediction_tpu_torch.serving import save_bundle
+
+    match = {"stream": "program must be predict\\|fused\\|fused_int8",
+             "fused_int8": "ROADMAP.md queue A item 3",
+             "fused": "no 'fused' program"}[program]
+    save_bundle(str(tmp_path), registry.create_model(
+        "gaze_grcn", device="cpu", **{k: v for k, v in WIDTHS.items()
+                                      if k != "compute_dtype"}))
     with pytest.raises(ValueError, match=match):
         server_from_bundle(str(tmp_path), program=program, device="cpu")
 
