@@ -32,10 +32,15 @@ In order, failing (exit 1) on the first check that does not hold:
      all 100 frames, each chunk launches its kernel once, and the second
      chunk differs from a zero-state restart;
   5. trains full-width gaze_grcn through the normal entry point
-     (`cli.train_gaze`, B=28, T=42, bf16, synthetic corpus): the loss is
-     finite at every step and falls, B1 and B2 launch once per step, a
-     checkpoint and metrics.jsonl are written; then takes train steps
-     through `convgru_scan_trainable` (B4 backward), counting its launches;
+     (`cli.train_gaze`, B=28, T=42, bf16, synthetic corpus), its batches
+     prefetched on the worker thread (the default): the loss is finite at
+     every step and falls, B1 and B2 launch once per step, a checkpoint and
+     metrics.jsonl are written, and the final test-split evaluation (one
+     more B1 launch) writes finite `test/<metric>` rows; then the same 20
+     steps with `--no_prefetch`, whose per-step losses must equal the
+     prefetched run's (rel 1e-6), and both runs' CLI sec/batch; then takes
+     train steps through `convgru_scan_trainable` (B4 backward), counting
+     its launches;
   4c. the raw-video front: the C3D tower in bf16 against f32 (TF32 off) on
      16 clips; then the bundle's `fused` program of gaze_grcn and gaze_lstm
      served over HTTP at the JAX package's fused benchmark shape (F=160
@@ -48,6 +53,15 @@ In order, failing (exit 1) on the first check that does not hold:
      pixels through `cli.train_fused` (B=8, F=160, 20 steps with the tower
      frozen: the loss falls, B1 and B2 once per step; then 3 steps with
      `--finetune_c3d`: conv1a moves);
+  5c. evaluation on the card: all seven saliency metrics through
+     `metrics_torch.evaluate_batch` on 8192 frames of 49x49 against the same
+     call on the CPU (max |delta| <= 1e-4, NaN at the same frames) and on
+     256 frames against `metrics_np`, then timed beside the NumPy protocol;
+     `train.fit` for 20 steps with an evaluation every 10 (two in-range
+     `evaluation/<metric>` rows, B1 once per step and per evaluated
+     batch); `cli.evaluate_gaze` on the gaze_grcn and gaze_lstm CLI runs
+     (overall.txt, one scores.txt row per frame, one B1 / B3 launch, mean
+     scores within 0.01 of the same evaluation through the plain scan);
   6. checks the train step's gradients at full width, through either
      backward, against plain autograd of `ConvGRU.scan` on one batch;
   7. times the kernels and their plain versions (B=8, B=16; B1 and B2 also
@@ -79,9 +93,15 @@ import numpy as np
 import torch
 
 from recurrent_gaze_prediction_tpu_torch import registry
-from recurrent_gaze_prediction_tpu_torch.cli import train_fused, train_gaze
-from recurrent_gaze_prediction_tpu_torch.config import OptimizerConfig
+from recurrent_gaze_prediction_tpu_torch.cli import (
+    evaluate_gaze, train_fused, train_gaze)
+from recurrent_gaze_prediction_tpu_torch.config import (
+    ExperimentConfig, OptimizerConfig)
 from recurrent_gaze_prediction_tpu_torch.data import synthetic
+from recurrent_gaze_prediction_tpu_torch.data.prefetch import (
+    device_put_batch, stream_casts)
+from recurrent_gaze_prediction_tpu_torch.eval import (
+    evaluator, metrics_np, metrics_torch)
 from recurrent_gaze_prediction_tpu_torch.models import c3d as c3d_model
 from recurrent_gaze_prediction_tpu_torch.models import pipeline, streaming
 from recurrent_gaze_prediction_tpu_torch.models.common import (
@@ -100,9 +120,8 @@ from recurrent_gaze_prediction_tpu_torch.ops.normalize import (
 from recurrent_gaze_prediction_tpu_torch.serving import (
     load_bundle, save_bundle, server_from_bundle)
 from recurrent_gaze_prediction_tpu_torch.train import (
-    Checkpointer, create_train_state, make_train_step)
+    Checkpointer, create_train_state, fit, make_train_step)
 from recurrent_gaze_prediction_tpu_torch.train import fused as fused_data
-from recurrent_gaze_prediction_tpu_torch.train.loop import device_batch
 
 SEED = 0
 T = 42
@@ -147,6 +166,22 @@ FUSED_BATCHES = (8, 16)   # fused predict timed at these
 FUSED_TRAIN_BATCH = 8
 FUSED_TRAIN_STEPS = 20
 FINETUNE_STEPS = 3
+# evaluation: the metrics on EVAL_FRAMES frames of 49x49 (an 8192-frame
+# batch, the exact path's default chunk), NP_FRAMES of them held against
+# metrics_np and NP_TIMED timed through it; card vs CPU within
+# METRIC_CARD_MAX_ABS (f32, only the summation order differs)
+EVAL_FRAMES = 8192
+NP_FRAMES = 256
+NP_TIMED = 32
+METRIC_CARD_MAX_ABS = 1e-4
+CADENCE = 10          # steps_per_evaluation of the cadence phase
+# evaluate_gaze's mean scores through the kernel vs the plain scan: bf16
+# maps that agree to corr >= 0.999 move a mean score by well under this
+EVAL_MAX_ABS = 0.01
+# per-step losses of the prefetched vs the inline trainer: the same batches
+# and random draws, so only a nondeterministic library reduction could
+# move them
+PREFETCH_MAX_REL = 1e-6
 
 
 def fail(msg: str) -> None:
@@ -534,42 +569,266 @@ def stream_timing(model) -> float:
     return cuda_ms(lambda: step(model, state, chunk), 10)
 
 
-def train_through_cli(card: str) -> dict:
-    """The slice's main path: `cli.train_gaze` at full width on the card,
-    the reference's batch, the loss read back at every step."""
-    with tempfile.TemporaryDirectory() as tmp:
-        run = f"{tmp}/run"
-        argv = ["--dataset", "synthetic", "--batch_size", str(TRAIN_BATCH),
-                "--synthetic_clips", str(TRAIN_BATCH), "--n_lstm_steps",
-                str(T), "--compute_dtype", "bfloat16", "--max_steps",
-                str(TRAIN_STEPS), "--steps_per_logprint", "1", "--seed",
-                str(SEED), "--train_dir", run]
-        reset_launches()
-        start = time.perf_counter()
-        rc = train_gaze.main(argv)
-        launches = read_launches()
-        seconds = time.perf_counter() - start
-        check(rc == 0, f"cli.train_gaze returned {rc}")
-        with open(f"{run}/metrics.jsonl") as f:
-            records = [json.loads(line) for line in f]
-        saved = Checkpointer(run).steps()
-    losses = [r["loss/train"] for r in records]
-    print(f"train (cli.train_gaze, B={TRAIN_BATCH}, T={T}, bf16, "
+def train_through_cli(card: str, run: str, prefetch: bool = True) -> dict:
+    """The feature-fed trainer: `cli.train_gaze` at full width on the card,
+    the reference's batch, the loss read back at every step, the batches
+    prefetched on the worker thread (the default) or copied inline
+    (`--no_prefetch`); then the final test-split evaluation (28 clips, one
+    batch). CLI sec/batch is read from metrics.jsonl's host clock over
+    steps 6..20 (past the warm-up)."""
+    argv = ["--dataset", "synthetic", "--batch_size", str(TRAIN_BATCH),
+            "--synthetic_clips", str(2 * TRAIN_BATCH), "--n_lstm_steps",
+            str(T), "--compute_dtype", "bfloat16", "--max_steps",
+            str(TRAIN_STEPS), "--steps_per_logprint", "1", "--seed",
+            str(SEED), "--train_dir", run]
+    label = "prefetch" if prefetch else "inline (--no_prefetch)"
+    reset_launches()
+    start = time.perf_counter()
+    rc = train_gaze.main(argv + ([] if prefetch else ["--no_prefetch"]))
+    launches = read_launches()
+    seconds = time.perf_counter() - start
+    check(rc == 0, f"cli.train_gaze ({label}) returned {rc}")
+    with open(f"{run}/metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    saved = Checkpointer(run).steps()
+    train = [r for r in records if "loss/train" in r]
+    tests = [r for r in records if "test/cc" in r]
+    losses = [r["loss/train"] for r in train]
+    sec_per_batch = (train[-1]["time"] - train[4]["time"]) / (len(train) - 5)
+    print(f"train (cli.train_gaze, {label}, B={TRAIN_BATCH}, T={T}, bf16, "
           f"{TRAIN_STEPS} steps, {seconds:.1f} s wall with data and model "
-          f"set-up): losses {[round(x, 4) for x in losses]}, launches "
-          f"{launches}, checkpoints {saved} [{card}]", flush=True)
-    check([r["step"] for r in records] == list(range(1, TRAIN_STEPS + 1)),
-          f"metrics.jsonl steps {[r['step'] for r in records]}")
+          f"set-up, {sec_per_batch:.4f} CLI sec/batch over steps 6..20): "
+          f"losses {[round(x, 4) for x in losses]}, launches {launches}, "
+          f"checkpoints {saved}, test split {json.dumps(tests)} [{card}]",
+          flush=True)
+    check([r["step"] for r in train] == list(range(1, TRAIN_STEPS + 1)),
+          f"metrics.jsonl steps {[r['step'] for r in train]}")
     check(all(np.isfinite(losses)), f"non-finite train loss: {losses}")
     check(statistics.mean(losses[-5:]) < losses[0],
           f"loss did not fall: first {losses[0]}, mean of the last 5 "
           f"{statistics.mean(losses[-5:])}")
-    check(launches == {"convgru_fwd": TRAIN_STEPS,
+    # B1 once per step and once for the test split's batch, B2 per step
+    check(launches == {"convgru_fwd": TRAIN_STEPS + 1,
                        "convgru_bwd": TRAIN_STEPS, "convgru_bwd_mono": 0,
                        "convlstm_fwd": 0},
-          f"launches over {TRAIN_STEPS} train steps: {launches}")
+          f"launches over {TRAIN_STEPS} train steps and the test split: "
+          f"{launches}")
     check(saved == [TRAIN_STEPS], f"checkpoints written: {saved}")
-    return {"launches": launches, "losses": losses}
+    check(len(tests) == 1 and tests[0]["step"] == TRAIN_STEPS
+          and all(np.isfinite(tests[0][f"test/{m}"])
+                  for m in metrics_torch.AVAILABLE_METRICS),
+          f"test-split evaluation records: {tests}")
+    return {"launches": launches, "losses": losses,
+            "sec_per_batch": sec_per_batch, "test": tests[0]}
+
+
+def prefetch_check(prefetched: dict, inline: dict, card: str) -> dict:
+    """The prefetched and the inline trainer took the same steps: equal
+    per-step losses (rel 1e-6)."""
+    a, b = prefetched["losses"], inline["losses"]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    print(f"prefetch vs --no_prefetch: per-step losses max rel delta "
+          f"{rel:.3g}, bitwise equal {a == b}; CLI sec/batch "
+          f"{prefetched['sec_per_batch']:.4f} (prefetch) vs "
+          f"{inline['sec_per_batch']:.4f} (inline) [{card}]", flush=True)
+    check(len(a) == len(b) == TRAIN_STEPS and rel <= PREFETCH_MAX_REL,
+          f"prefetched losses {a} vs inline {b} (max rel {rel})")
+    return {"max_rel": rel, "bitwise": a == b}
+
+
+def eval_maps(n: int, seed: int) -> tuple:
+    """n frames of 49x49: gaussian gt maps, 3-12 fixations near each gt
+    peak, and predictions that are noisy gt as a rank map (values 1/2401
+    apart, so AUC_Judd's 1e-7 jitter decides nothing); frame 0 has no
+    fixation and frame 1 a constant prediction (the NaN cases). Also the
+    other map, the union of frames 2..11's fixations."""
+    rng = np.random.RandomState(seed)
+    cy, cx = (rng.rand(2, n, 1, 1) * 33 + 8)
+    ys, xs = np.arange(49)[None, :, None], np.arange(49)[None, None, :]
+    gt = (np.exp(-((ys - cy) ** 2 + (xs - cx) ** 2) / (2 * 5.0 ** 2))
+          + 1e-4).astype(np.float32)
+    fix = np.zeros((n, 49, 49), np.float32)
+    k = rng.randint(3, 13, n)
+    iy = np.clip(np.round(cy[:, :, 0] + rng.randn(n, 12) * 4), 0, 48)
+    ix = np.clip(np.round(cx[:, :, 0] + rng.randn(n, 12) * 4), 0, 48)
+    for i in range(1, n):
+        fix[i, iy[i, :k[i]].astype(int), ix[i, :k[i]].astype(int)] = 1.0
+    noisy = (gt + 0.3 * rng.rand(n, 49, 49)).reshape(n, -1)
+    pred = (np.argsort(np.argsort(noisy, -1), -1) / 2401.0).astype(
+        np.float32).reshape(n, 49, 49)
+    pred[1] = 0.5
+    return pred, gt, fix, (fix[2:12] > 0).sum(0)
+
+
+def metrics_phase(card: str) -> dict:
+    """The batched metrics on the card: all seven through `evaluate_batch`
+    (exact) on EVAL_FRAMES frames against the same call on the CPU in f32;
+    256 frames against the port's `metrics_np`; then `evaluate_batch`
+    timed with CUDA events and the NumPy protocol per frame on the host."""
+    pred, gt, fix, other = eval_maps(EVAL_FRAMES, SEED + 21)
+    metrics = metrics_torch.ALL_METRICS
+    host = [torch.from_numpy(x) for x in (pred, gt, fix)]
+    card_in = [x.cuda() for x in host]
+    other_t = torch.from_numpy(other)
+
+    def run(inputs, other_map):
+        dev = inputs[0].device
+        return metrics_torch.evaluate_batch(
+            *inputs, torch.Generator(device=dev).manual_seed(0),
+            metrics=metrics, other_map=other_map)
+
+    on_card = {m: v.cpu().numpy() for m, v in
+               run(card_in, other_t.cuda()).items()}
+    on_cpu = {m: v.numpy() for m, v in run(host, other_t).items()}
+    deltas = {}
+    for m in metrics:
+        a, b = on_card[m], on_cpu[m]
+        check(a.shape == (EVAL_FRAMES,) and bool(
+            (np.isnan(a) == np.isnan(b)).all()),
+              f"metric {m}: shape {a.shape}, NaN frames differ card vs CPU")
+        # frame 1 is constant: its AUC_Judd is the jitter's coin toss
+        keep = ~np.isnan(a)
+        if m == "AUC_Judd":
+            keep[1] = False
+        deltas[m] = float(np.abs(a[keep] - b[keep]).max())
+    nan_frames = {m: np.flatnonzero(np.isnan(on_card[m])).tolist()
+                  for m in metrics}
+    means = {m: float(np.nanmean(v)) for m, v in on_card.items()}
+    print(f"metrics on the card vs the CPU (evaluate_batch exact, "
+          f"{EVAL_FRAMES} frames of 49x49, f32): max |delta| "
+          f"{json.dumps(deltas)}; NaN frames {json.dumps(nan_frames)}; "
+          f"means {json.dumps(means)} [{card}]", flush=True)
+    check(all(d <= METRIC_CARD_MAX_ABS for d in deltas.values()),
+          f"metrics card vs CPU: {deltas}")
+    check(nan_frames["cc"] == [1] and nan_frames["nss"] == [0]
+          and nan_frames["AUC_Judd"] == [0],
+          f"NaN conventions: {nan_frames}")
+
+    worst = {}
+    for m in ("cc", "sim", "nss", "kld", "AUC_Judd"):
+        ref = np.array([metrics_np.saliency_score_single(
+            m, pred[i], gt[i], fix[i], rng=np.random.RandomState(0))
+            for i in range(2, 2 + NP_FRAMES)])
+        got = on_card[m][2:2 + NP_FRAMES]
+        tol = (dict(rtol=0, atol=2e-3) if m == "AUC_Judd"
+               else dict(rtol=1e-3, atol=1e-4))
+        ok = np.allclose(got, ref, **tol)
+        worst[m] = float(np.abs(got - ref).max())
+        check(ok, f"metric {m} on the card vs metrics_np: max |delta| "
+                  f"{worst[m]} ({tol})")
+    print(f"metrics on the card vs metrics_np ({NP_FRAMES} frames): max "
+          f"|delta| {json.dumps(worst)} [{card}]", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    other_card = other_t.cuda()
+    ms = cuda_ms(lambda: metrics_torch.evaluate_batch(
+        *card_in, gen, metrics=metrics, other_map=other_card), 5)
+    nbytes = sum(x.numel() * x.element_size() for x in card_in)
+    rng = np.random.RandomState(0)
+    start = time.perf_counter()
+    for i in range(NP_TIMED):
+        for m in metrics:
+            metrics_np.saliency_score_single(m, pred[i], gt[i], fix[i],
+                                             other_map_union=other, rng=rng)
+    np_ms = (time.perf_counter() - start) * 1e3 / NP_TIMED
+    print(f"timing: evaluate_batch, all 7 metrics (exact), {EVAL_FRAMES} "
+          f"frames of 49x49 f32 on the card: {ms:.3f} ms "
+          f"({EVAL_FRAMES / ms * 1e3:.0f} frames/s; bytes bound "
+          f"{nbytes / PEAK_BYTES * 1e3:.4f} ms for {nbytes / 1e6:.1f} MB of "
+          f"maps); NumPy protocol (metrics_np, the same 7 metrics, n_rep "
+          f"100) {np_ms:.3f} ms per frame on the host [{card}]", flush=True)
+    return {"deltas": deltas, "golden": worst, "ms": ms, "np_ms": np_ms}
+
+
+def evaluation_cadence(card: str) -> dict:
+    """`train.fit` at full width (B=28, T=42, bf16) for TRAIN_STEPS steps
+    with the evaluation cadence every 10 steps on a 28-clip valid split:
+    two `evaluation/<metric>` rows, each in range, and B1 launched once per
+    step and once per evaluated batch."""
+    model = full_width_model()
+    model.cfg.batch_size = TRAIN_BATCH
+    exp = ExperimentConfig()
+    exp.model = model.cfg
+    exp.seed = SEED
+    exp.schedule.max_steps = TRAIN_STEPS
+    exp.schedule.steps_per_evaluation = CADENCE
+    data = synthetic.make_splits(n_train=TRAIN_BATCH, n_valid=TRAIN_BATCH,
+                                 n_test=2, t=T, seed=SEED + 4)
+    state, tx = create_train_state(model, exp.optimizer)
+    rows = []
+    reset_launches()
+    fit(model, state, tx, data, exp,
+        metric_writer=lambda step, values: rows.append((step, values)))
+    launches = read_launches()
+    evals = [(step, {k.split("/", 1)[1]: v for k, v in values.items()})
+             for step, values in rows
+             if any(k.startswith("evaluation/") for k in values)]
+    print(f"evaluation cadence (train.fit, {TRAIN_STEPS} steps, every "
+          f"{CADENCE}): {json.dumps(evals)}, launches {launches} [{card}]",
+          flush=True)
+    n_evals = TRAIN_STEPS // CADENCE
+    check([s for s, _ in evals] == [CADENCE * (i + 1) for i in range(n_evals)],
+          f"evaluation rows at steps {[s for s, _ in evals]}")
+    for step, scores in evals:
+        check(set(scores) == set(metrics_torch.AVAILABLE_METRICS)
+              and all(np.isfinite(v) for v in scores.values())
+              and all(0 <= scores[m] <= 1
+                      for m in ("sim", "AUC_Borji", "AUC_shuffled"))
+              and -1 <= scores["cc"] <= 1,
+              f"evaluation scores at step {step}: {scores}")
+    check(launches == {"convgru_fwd": TRAIN_STEPS + n_evals,
+                       "convgru_bwd": TRAIN_STEPS, "convgru_bwd_mono": 0,
+                       "convlstm_fwd": 0},
+          f"launches over {TRAIN_STEPS} steps and {n_evals} evaluations: "
+          f"{launches}")
+    return {"evals": evals, "launches": launches}
+
+
+def evaluate_through_cli(card: str, run: str) -> dict:
+    """`cli.evaluate_gaze` on a run of `cli.train_gaze`: overall.txt and one
+    scores.txt row per frame of the synthetic valid split (8 clips, one
+    batch), one launch of the model's forward kernel and no other; the
+    mean scores within EVAL_MAX_ABS of the same evaluation through the
+    plain scan."""
+    exp = Checkpointer.load_config(run)
+    name, kernel = exp.model.name, FORWARD_KERNEL[exp.model.name]
+    reset_launches()
+    start = time.perf_counter()
+    rc = evaluate_gaze.main(["--train_dir", run])
+    launches = read_launches()
+    seconds = time.perf_counter() - start
+    check(rc == 0, f"cli.evaluate_gaze {name} returned {rc}")
+    with open(f"{run}/evaluation/overall.txt") as f:
+        overall = {k: float(v) for k, v in
+                   (line.strip().split(": ") for line in f)}
+    with open(f"{run}/evaluation/scores.txt") as f:
+        header, *rows = f.read().splitlines()
+
+    model = registry.create_model(name, exp.model, device="cuda")
+    state, _ = create_train_state(model, exp.optimizer)
+    Checkpointer(run).restore_latest(state)
+    valid = synthetic.make_splits(n_train=2, n_valid=8, n_test=2, t=T,
+                                  seed=exp.seed).valid
+    _, plain = evaluator.generate_and_evaluate(
+        lambda frames, c3d: plain_predict(model, c3d), valid,
+        model.cfg.batch_size, max_instances=None,
+        input_cast=torch.bfloat16, device="cuda")
+    delta = max(abs(overall[m] - plain[m]) for m in plain)
+    print(f"cli.evaluate_gaze {name} ({len(rows)} frames, {seconds:.1f} s "
+          f"wall with model set-up): {json.dumps(overall)}, launches "
+          f"{launches}; plain-scan evaluation {json.dumps(plain)}, max "
+          f"|delta| {delta:.3g} [{card}]", flush=True)
+    check(header == "frame\t" + "\t".join(evaluator.AVAILABLE_METRICS)
+          and len(rows) == 8 * T and rows[-1].startswith(f"{8 * T - 1:06d}\t"),
+          f"scores.txt: header {header!r}, {len(rows)} rows")
+    check(set(overall) == set(plain)
+          and all(np.isfinite(v) for v in overall.values()),
+          f"overall.txt {overall}")
+    check(launches[kernel] == 1 and sum(launches.values()) == 1,
+          f"evaluate_gaze {name} launches {launches}")
+    check(delta <= EVAL_MAX_ABS, f"evaluate_gaze {name}: {overall} vs the "
+                                 f"plain scan {plain}")
+    return {"overall": overall, "plain": plain, "launches": launches}
 
 
 def train_through_mono(model, batch: dict) -> dict:
@@ -652,7 +911,7 @@ def train_step_timing(model, raw: dict) -> dict:
     cdt = torch.bfloat16
     dev = torch.device("cuda")
     start = time.perf_counter()
-    batch = device_batch(raw, dev, cdt)
+    batch = device_put_batch(raw, dev, stream_casts(cdt))
     torch.cuda.synchronize()
     h2d_ms = (time.perf_counter() - start) * 1e3
     state, tx = create_train_state(model, OptimizerConfig())
@@ -986,26 +1245,25 @@ def train_fused_through_cli(card: str) -> dict:
     return out
 
 
-def train_lstm_through_cli(card: str) -> dict:
+def train_lstm_through_cli(card: str, run: str) -> dict:
     """gaze_lstm through `cli.train_gaze` at full width (B=28, T=42): it
     trains on `ConvLSTM.scan` under autograd (no backward kernel), so no
-    kernel launches."""
-    with tempfile.TemporaryDirectory() as tmp:
-        run = f"{tmp}/run"
-        argv = ["--model", "gaze_lstm", "--dataset", "synthetic",
-                "--batch_size", str(TRAIN_BATCH), "--synthetic_clips",
-                str(TRAIN_BATCH), "--n_lstm_steps", str(T),
-                "--compute_dtype", "bfloat16", "--max_steps",
-                str(TRAIN_STEPS), "--steps_per_logprint", "1", "--seed",
-                str(SEED), "--train_dir", run]
-        reset_launches()
-        start = time.perf_counter()
-        rc = train_gaze.main(argv)
-        launches = read_launches()
-        seconds = time.perf_counter() - start
-        check(rc == 0, f"cli.train_gaze --model gaze_lstm returned {rc}")
-        with open(f"{run}/metrics.jsonl") as f:
-            losses = [json.loads(line)["loss/train"] for line in f]
+    kernel launches; its 14-clip test split is smaller than a batch, so
+    there is no final evaluation."""
+    argv = ["--model", "gaze_lstm", "--dataset", "synthetic",
+            "--batch_size", str(TRAIN_BATCH), "--synthetic_clips",
+            str(TRAIN_BATCH), "--n_lstm_steps", str(T),
+            "--compute_dtype", "bfloat16", "--max_steps",
+            str(TRAIN_STEPS), "--steps_per_logprint", "1", "--seed",
+            str(SEED), "--train_dir", run]
+    reset_launches()
+    start = time.perf_counter()
+    rc = train_gaze.main(argv)
+    launches = read_launches()
+    seconds = time.perf_counter() - start
+    check(rc == 0, f"cli.train_gaze --model gaze_lstm returned {rc}")
+    with open(f"{run}/metrics.jsonl") as f:
+        losses = [json.loads(line)["loss/train"] for line in f]
     print(f"train gaze_lstm (cli.train_gaze, B={TRAIN_BATCH}, T={T}, bf16, "
           f"{TRAIN_STEPS} steps, {seconds:.1f} s wall): losses "
           f"{[round(x, 4) for x in losses]}, launches {launches} [{card}]",
@@ -1123,8 +1381,8 @@ def fused_train_step_timing(model, finetune: bool) -> float:
     corpus = fused_data.make_synthetic_fused_corpus(
         FUSED_TRAIN_BATCH, num_frames=FUSED_FRAMES, frame_hw=VIDEO_HW,
         seed=SEED + 15)
-    batch = device_batch(corpus.next_batch(FUSED_TRAIN_BATCH),
-                         torch.device("cuda"))
+    batch = device_put_batch(corpus.next_batch(FUSED_TRAIN_BATCH),
+                             torch.device("cuda"))
     tower = c3d_model.init_params(torch.Generator().manual_seed(SEED + 1))
     state, tx = create_train_state(model, OptimizerConfig())
     state = fused_data.FusedTrainState(
@@ -1235,17 +1493,29 @@ def main() -> int:
     fused_served = {m.cfg.name: fused_serve_and_check(m, tower, videos, card)
                     for m in (model, lstm_model)}
 
-    # 5. training at full width: the normal entry point (B1 + B2), then
-    # the v1 entry point (B1 + B4); gaze_lstm (plain scan); from raw video
-    trained = train_through_cli(card)
+    # 5. training at full width: the normal entry point (B1 + B2),
+    # prefetched and inline, then the v1 entry point (B1 + B4); gaze_lstm
+    # (plain scan); from raw video. 5c. evaluation: the metrics, fit's
+    # cadence, and cli.evaluate_gaze on the two CLI runs
+    runs_dir = tempfile.TemporaryDirectory()
+    runs = runs_dir.name
+    trained = train_through_cli(card, f"{runs}/grcn")
+    inline = train_through_cli(card, f"{runs}/grcn_inline", prefetch=False)
+    prefetch_check(trained, inline, card)
     raw_batch = synthetic.make_clip_windows(
         TRAIN_BATCH, T, seed=SEED + 3).next_batch(TRAIN_BATCH)
-    batch = device_batch(raw_batch, torch.device("cuda"), torch.bfloat16)
+    batch = device_put_batch(raw_batch, torch.device("cuda"),
+                             stream_casts(torch.bfloat16))
     gradient_check(full_width_model(), batch)  # 6.
     mono = train_through_mono(full_width_model(), batch)
-    train_lstm_through_cli(card)
+    train_lstm_through_cli(card, f"{runs}/lstm")
     lstm_gradient_check(full_width_model("gaze_lstm"), batch)
     train_fused_through_cli(card)
+    metrics_phase(card)
+    evaluation_cadence(card)
+    for run in ("grcn", "lstm"):
+        evaluate_through_cli(card, f"{runs}/{run}")
+    runs_dir.cleanup()
 
     # 7. timings
     fused = ConvGRU.fuse({k: v.detach() for k, v in model.cell.items()})

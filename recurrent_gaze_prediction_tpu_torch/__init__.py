@@ -16,10 +16,13 @@ entry points on the card unless the caller passes device="cpu".
               carried-state streaming steps
   registry  — name -> model
   bridge    — weights and optimizer moments from the JAX package's trees
-  data      — clip datasets and the synthetic corpus (numpy copies)
-  train     — optimizer, train/eval steps, fit loop, checkpoints, metrics
+  data      — clip datasets and the synthetic corpus (numpy copies), and
+              the host-to-device batch copy and its prefetch thread
+  train     — optimizer, train/eval steps, fit loops, checkpoints, metrics
+  eval      — the saliency metrics batched on the device, the NumPy
+              protocol, the evaluator, the checkpoint sweep, visualization
   serving   — bundles, the dynamic batcher and the HTTP server
-  cli       — serve, train_gaze
+  cli       — serve, train_gaze, train_fused, evaluate_gaze
 """
 
 __version__ = "0.1.0"

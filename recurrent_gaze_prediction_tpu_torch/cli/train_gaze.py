@@ -5,13 +5,14 @@ JAX package's `cli/train_gaze.py`.
         --dataset synthetic --max_steps 200 --train_dir /tmp/rgp
 
 Model registry selection, config overrides (CLI wins), the synthetic
-corpus, fit with auto-resume from `--train_dir`. The train step runs the
-ConvGRU through the CUDA kernels (forward B1, backward B2) on the card.
+corpus, fit with auto-resume from `--train_dir`, then the saliency metrics
+on the whole test split (written as `test/<metric>`). The train step runs
+the ConvGRU through the CUDA kernels (forward B1, backward B2) on the
+card. Training batches are prefetched by a worker thread (cast on the
+host, copied on a side stream) unless `--no_prefetch`.
 
 Not ported yet: the real-data loaders (`--dataset crc|hollywood2|crcxh2`
-stop with an error), ShallowNet grafting, the prefetch thread, profiling,
-the mesh flags, and the final test-split evaluation (it needs the
-evaluator, ROADMAP.md queue A item 4).
+stop with an error), ShallowNet grafting, profiling and the mesh flags.
 """
 
 from __future__ import annotations
@@ -25,8 +26,11 @@ import torch
 from ..config import ExperimentConfig
 from ..data import synthetic
 from ..data.datasets import DataSplits
+from ..data.prefetch import prefetch_batches, stream_casts
+from ..eval import evaluator
 from ..registry import available_models, create_model
-from ..train import create_train_state, fit
+from ..train import create_train_state, fit, make_predict_fn
+from ..train.loop import input_dtype_of
 from ..train.writer import MetricWriter
 from ..utils import log, resolve_device
 
@@ -67,6 +71,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--compute_dtype", default=None,
                         choices=[None, "bfloat16", "float32"])
     parser.add_argument("--seed", default=0, type=int)
+    parser.add_argument("--no_prefetch", dest="prefetch",
+                        action="store_false", default=True,
+                        help="copy each training batch inline instead of "
+                             "on the prefetch thread")
     parser.add_argument("--device", default="cuda",
                         help="torch device; the default needs a CUDA card")
     return parser
@@ -110,17 +118,32 @@ def main(argv: Optional[list[str]] = None) -> int:
     log.warn("Building model %s on %s ...", args.model, device)
     state, tx = create_train_state(model, exp.optimizer)
     writer = MetricWriter(exp.train_dir) if exp.train_dir else None
+    input_dtype = input_dtype_of(model)
 
+    # max_batches bounds the worker; a resumed run stops consuming at
+    # max_steps inside fit, and closing the generator stops the worker
+    train_iter = (prefetch_batches(data.train, model.cfg.batch_size,
+                                   device=device,
+                                   cast=stream_casts(input_dtype),
+                                   max_batches=exp.schedule.max_steps)
+                  if args.prefetch else None)
     log.warn("Start fitting ...")
     try:
-        fit(model, state, tx, data, exp, train_dir=exp.train_dir,
-            metric_writer=writer)
+        state = fit(model, state, tx, data, exp, train_dir=exp.train_dir,
+                    metric_writer=writer, train_iterator=train_iter)
+        if data.test is not None and len(data.test) >= model.cfg.batch_size:
+            log.warn("Final test-split evaluation ...")
+            _, scores = evaluator.generate_and_evaluate(
+                make_predict_fn(model), data.test, model.cfg.batch_size,
+                max_instances=None, input_cast=input_dtype, device=device)
+            if writer:
+                writer.scalars(state.step,
+                               {f"test/{m}": s for m, s in scores.items()})
     finally:
+        if train_iter is not None:
+            train_iter.close()
         if writer:
             writer.close()
-    if data.test is not None and len(data.test) >= model.cfg.batch_size:
-        log.warn("final test-split evaluation skipped: the evaluator is not "
-                 "ported yet (ROADMAP.md queue A item 4)")
     return 0
 
 

@@ -27,12 +27,12 @@ import numpy as np
 import torch
 
 from ..config import ExperimentConfig
+from ..data.prefetch import device_put_batch
 from ..models import pipeline
 from ..models.common import GazeModel, sequence_loss
 from ..ops.normalize import normalize_probability_map
 from ..utils import log
 from .checkpoint import Checkpointer
-from .loop import device_batch
 from .state import Optimizer, TrainState, build_schedule
 
 
@@ -268,7 +268,7 @@ def fit_fused(gaze_model: GazeModel, state: FusedTrainState, tx: Optimizer,
     last_logged_step, t_logged = step, time.time()
     try:
         while step < sched_cfg.max_steps and not stop_requested["flag"]:
-            batch = device_batch(train_data.next_batch(batch_size), device)
+            batch = device_put_batch(train_data.next_batch(batch_size), device)
             generator.manual_seed(exp.seed * 1_000_003 + step)
             state, metrics = train_step(state, batch, generator)
             step = state.step
@@ -295,8 +295,8 @@ def fit_fused(gaze_model: GazeModel, state: FusedTrainState, tx: Optimizer,
                 ckpt.save(state)
 
             if has_valid and step % sched_cfg.steps_per_validation == 0:
-                vbatch = device_batch(valid_data.next_batch(batch_size),
-                                      device)
+                vbatch = device_put_batch(
+                    valid_data.next_batch(batch_size), device)
                 vloss = float(eval_step(state.c3d_params, vbatch)["loss"])
                 log.infov(" [val   step %4d] fused loss: %.5f", step, vloss)
                 if metric_writer:

@@ -1,61 +1,60 @@
 """The training loop: the port's counterpart of the JAX package's
 `train/loop.py` (the reference's `ModelBase.fit`, `models/base.py:330-358`).
 
-One train step per iteration; checkpoint and validation-loss cadences;
-auto-resume from the latest checkpoint at start (`base.py:341-342`); a
-checkpoint-and-stop on SIGTERM/SIGINT; per-step timing logs matching the
-reference's `sec/batch, instances/sec` line (`models/gaze_rnn.py:547-563`).
+One train step per iteration, on batches copied inline or taken from a
+`train_iterator` (the CLI's prefetch thread, `data/prefetch.py`);
+checkpoint, validation-loss and evaluation cadences; auto-resume from the
+latest checkpoint at start (`base.py:341-342`); a checkpoint-and-stop on
+SIGTERM/SIGINT; per-step timing logs matching the reference's `sec/batch,
+instances/sec` line (`models/gaze_rnn.py:547-563`).
 
-Not ported yet: the evaluation cadence (`steps_per_evaluation`, which needs
-the evaluator, ROADMAP.md queue A item 4), image summaries, the profiler
-window, and the mesh branch (item 6). The loss is read back from the card
-only at the log cadence, so the host runs ahead of the card in between.
+Not ported yet: the profiler window (ROADMAP.md queue A item 7) and the
+mesh branch (item 6). The loss is read back from the card only at the log
+cadence, so the host runs ahead of the card in between.
 """
 
 from __future__ import annotations
 
 import signal
 import time
-from typing import Callable, Optional
+from typing import Callable, Iterator, Optional
 
-import numpy as np
 import torch
 
 from ..config import ExperimentConfig
 from ..data.datasets import DataSplits
+from ..data.prefetch import device_put_batch, stream_casts
+from ..eval import evaluator
 from ..models.common import GazeModel
 from ..utils import log
 from .checkpoint import Checkpointer
 from .state import (Optimizer, TrainState, build_schedule, make_eval_step,
-                    make_train_step)
+                    make_predict_fn, make_train_step)
 
 
-def device_batch(batch: dict, device: torch.device,
-                 input_cast: Optional[torch.dtype] = None) -> dict:
-    """A host batch as tensors on `device`. `input_cast` casts the two big
-    input streams (frames, c3d) on the HOST first, halving the copy in
-    bf16; the models cast them to the compute dtype anyway. Loss targets
-    stay f32. Clip names and ragged object arrays (which no step reads)
-    are dropped."""
-    out = {}
-    for key, value in batch.items():
-        if key == "clipnames" or getattr(value, "dtype", None) == np.dtype(
-                object):
-            continue
-        t = torch.from_numpy(np.ascontiguousarray(value))
-        if input_cast is not None and key in ("frames", "c3d"):
-            t = t.to(input_cast)
-        out[key] = t.to(device)
-    return out
+def input_dtype_of(model: GazeModel) -> Optional[torch.dtype]:
+    """The dtype the two big input streams (frames, c3d) are cast to on
+    the host: bf16 under a bf16 compute dtype, halving their copy (the
+    models cast them to it anyway); None otherwise. Loss targets stay
+    f32."""
+    return torch.bfloat16 if model.cfg.compute_dtype == "bfloat16" else None
 
 
 def fit(model: GazeModel, state: TrainState, tx: Optimizer, data: DataSplits,
         exp: ExperimentConfig, *, train_dir: Optional[str] = None,
-        metric_writer: Optional[Callable[[int, dict], None]] = None
-        ) -> TrainState:
-    """Train until `exp.schedule.max_steps` on batches of `data.train`;
-    returns the final state. The flip and dropout draw from one generator
-    on the model's device, seeded with `exp.seed`."""
+        metric_writer: Optional[Callable[[int, dict], None]] = None,
+        max_eval_instances: int = 50,
+        train_iterator: Optional[Iterator[dict]] = None) -> TrainState:
+    """Train until `exp.schedule.max_steps`; returns the final state. The
+    flip and dropout draw from one generator on the model's device, seeded
+    with `exp.seed`.
+
+    Batches come from `train_iterator` when given (dicts of tensors or
+    arrays, e.g. `data.prefetch.prefetch_batches`; the loop stops with a
+    warning when it runs dry), else from `data.train.next_batch`, copied
+    inline. Every `steps_per_evaluation` steps the saliency metrics of
+    `generate_and_evaluate` on up to `max_eval_instances` clips of
+    `data.valid` go to `metric_writer` as `evaluation/<metric>`."""
     sched_cfg = exp.schedule
     batch_size = model.cfg.batch_size
     device = next(model.parameters()).device
@@ -64,6 +63,7 @@ def fit(model: GazeModel, state: TrainState, tx: Optimizer, data: DataSplits,
     train_step = make_train_step(model, tx,
                                  accum_steps=exp.optimizer.accum_steps)
     eval_step = make_eval_step(model)
+    predict_fn = make_predict_fn(model)
 
     ckpt = None
     if train_dir is not None:
@@ -89,20 +89,23 @@ def fit(model: GazeModel, state: TrainState, tx: Optimizer, data: DataSplits,
             pass
 
     has_valid = data.valid is not None and len(data.valid) >= batch_size
-    if has_valid and sched_cfg.steps_per_evaluation <= sched_cfg.max_steps:
-        log.warn("steps_per_evaluation=%d: the evaluation cadence is not "
-                 "ported yet (needs the evaluator, ROADMAP.md queue A item "
-                 "4); only the validation loss runs",
-                 sched_cfg.steps_per_evaluation)
-    n_train = max(len(data.train), 1)
-    input_cast = (torch.bfloat16
-                  if model.cfg.compute_dtype == "bfloat16" else None)
+    n_train = max(len(data.train), 1) if data.train is not None else 1
+    input_dtype = input_dtype_of(model)
+    cast = stream_casts(input_dtype)
     step = state.step
     last_logged_step, t_logged = step, time.time()
     try:
         while step < sched_cfg.max_steps and not stop_requested["flag"]:
-            batch = device_batch(data.train.next_batch(batch_size), device,
-                                 input_cast)
+            if train_iterator is not None:
+                raw = next(train_iterator, None)
+                if raw is None:
+                    log.warn("train iterator exhausted at step %d", step)
+                    break
+                batch = {k: torch.as_tensor(v, device=device)
+                         for k, v in raw.items() if k != "clipnames"}
+            else:
+                batch = device_put_batch(data.train.next_batch(batch_size),
+                                         device, cast)
             state, metrics = train_step(state, batch, generator)
             step = state.step
 
@@ -130,12 +133,30 @@ def fit(model: GazeModel, state: TrainState, tx: Optimizer, data: DataSplits,
                 ckpt.save(state)
 
             if has_valid and step % sched_cfg.steps_per_validation == 0:
-                vbatch = device_batch(data.valid.next_batch(batch_size),
-                                      device, input_cast)
+                vbatch = device_put_batch(data.valid.next_batch(batch_size),
+                                          device, cast)
                 vloss = float(eval_step(vbatch)["loss"])
                 log.infov(" [val   step %4d] loss: %.5f", step, vloss)
                 if metric_writer:
                     metric_writer(step, {"loss/val": vloss})
+                if hasattr(metric_writer, "images"):
+                    # the last timestep, like the reference's validation
+                    # dumps (gaze_rnn.py:172-208, max_outputs=2)
+                    preds = predict_fn(vbatch["frames"], vbatch["c3d"])
+                    for tag, maps in (("inputimage", vbatch["frames"]),
+                                      ("saliency_maps_gt", vbatch["gazemaps"]),
+                                      ("saliency_maps_pred_norm", preds)):
+                        metric_writer.images(step, tag,
+                                             maps[:, -1].float().cpu().numpy())
+
+            if has_valid and step % sched_cfg.steps_per_evaluation == 0:
+                _, scores = evaluator.generate_and_evaluate(
+                    predict_fn, data.valid, batch_size,
+                    max_instances=max_eval_instances, input_cast=input_dtype,
+                    device=device)
+                if metric_writer:
+                    metric_writer(step, {f"evaluation/{m}": s
+                                         for m, s in scores.items()})
 
         if ckpt is not None:
             ckpt.save(state)

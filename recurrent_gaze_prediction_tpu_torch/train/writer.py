@@ -3,7 +3,9 @@
 Scalars always go to `{train_dir}/metrics.jsonl`, one record per call in
 the JAX package's format (`{"step", "time", <name>: value, ...}`);
 TensorBoard event files are written too when `torch.utils.tensorboard`
-imports. Image summaries are not ported yet (ROADMAP.md).
+imports, and with them the image summaries of the validation steps
+(input frame, gt map, predicted map; the reference's
+`models/gaze_rnn.py:172-208`).
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from __future__ import annotations
 import json
 import os
 import time
+
+import numpy as np
 
 from ..utils import log
 
@@ -35,6 +39,20 @@ class MetricWriter:
         if self._tb is not None:
             for key, value in values.items():
                 self._tb.add_scalar(key, float(value), int(step))
+
+    def images(self, step: int, tag: str, maps: np.ndarray,
+               max_outputs: int = 2) -> None:
+        """[N, H, W] or [N, H, W, C] image summaries, each min-max
+        normalized (reference `_add_image_summary`, max_outputs=2,
+        `gaze_rnn.py:172-173`); TensorBoard only."""
+        if self._tb is None:
+            return
+        for i, img in enumerate(np.asarray(maps, np.float32)[:max_outputs]):
+            img = img[None] if img.ndim == 2 else np.transpose(img, (2, 0, 1))
+            lo, hi = img.min(), img.max()
+            if hi > lo:
+                img = (img - lo) / (hi - lo)
+            self._tb.add_image(f"{tag}/{i}", img, int(step))
 
     def __call__(self, step: int, values: dict) -> None:
         self.scalars(step, values)

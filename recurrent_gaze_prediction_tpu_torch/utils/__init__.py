@@ -1,4 +1,4 @@
-from .logging import log
+from .logging import log, mkdir_p
 from .platform import resolve_device
 
-__all__ = ["log", "resolve_device"]
+__all__ = ["log", "mkdir_p", "resolve_device"]

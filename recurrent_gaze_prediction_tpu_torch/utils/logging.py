@@ -1,8 +1,8 @@
 """Console logger with a custom INFOV ("info, verbose/highlight") level.
 
 The port's copy of the JAX package's `utils/logging.py`, cut to what the
-server and the CLI use: `log.info/infov/warn` on top of stdlib logging,
-with ANSI colors when stderr is a terminal.
+server and the CLIs use: `log.info/infov/warn/error` on top of stdlib
+logging, with ANSI colors when stderr is a terminal, and `mkdir_p`.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ _COLORS = {
     logging.INFO: "\033[0m",       # default
     INFOV: "\033[32;1m",           # bold green
     logging.WARNING: "\033[33m",   # yellow
+    logging.ERROR: "\033[31m",     # red
 }
 _RESET = "\033[0m"
 
@@ -58,5 +59,13 @@ class _Log:
     def warn(self, msg, *args) -> None:
         self._logger.warning(msg, *args)
 
+    def error(self, msg, *args) -> None:
+        self._logger.error(msg, *args)
+
 
 log = _Log()
+
+
+def mkdir_p(path: str) -> None:
+    """Recursive mkdir (reference `util.py:44-49`)."""
+    os.makedirs(path, exist_ok=True)

@@ -3,9 +3,12 @@ forward B1, backward B2 and B4; ConvLSTM forward B3) against their plain
 PyTorch versions at shapes chip_smoke.py does not cover, and the cluster
 kernels' (B1, B2, B3) shared-memory reckoning and refusal of widths that do
 not fit; the models' routing of other widths to the plain scan (fault C1);
-and the raw-video front (the C3D tower's bf16 gate, fused predict and two
-`cli.train_fused` steps, with launch counts). They skip without a card. This file imports torch only (no jax), so on a machine
-with a card it runs without the JAX test harness:
+the raw-video front (the C3D tower's bf16 gate, fused predict and two
+`cli.train_fused` steps, with launch counts); and evaluation (the metrics
+on the card against the CPU, one B1 launch per evaluated batch) and the
+prefetched trainer against the inline one. They skip without a card. This
+file imports torch only (no jax), so on a machine with a card it runs
+without the JAX test harness:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
@@ -381,3 +384,106 @@ def test_cli_train_fused_two_steps(cuda_no_tf32, tmp_path):
     after = (kconv.launches, v2.launches, klstm.launches, v1.launches)
     assert [a - b for a, b in zip(after, before)] == [2, 2, 0, 0]
     assert Checkpointer(run).steps() == [2]
+
+
+def _eval_maps(n, hw=21, seed=0):
+    rng = np.random.RandomState(seed)
+    gt = rng.rand(n, hw, hw).astype(np.float32) + 0.05
+    noisy = (gt + 0.5 * rng.rand(n, hw, hw)).reshape(n, -1)
+    # a rank map: values 1/hw^2 apart, so AUC_Judd's jitter decides nothing
+    pred = (np.argsort(np.argsort(noisy, -1), -1) / hw ** 2).astype(
+        np.float32).reshape(n, hw, hw)
+    fix = (rng.rand(n, hw, hw) < 0.02).astype(np.float32)
+    fix[0] = 0.0
+    return pred, gt, fix
+
+
+def test_metrics_on_the_card_match_the_cpu(cuda_no_tf32):
+    """All seven metrics through `evaluate_batch` (exact, a given other
+    map), in chunks of 24 of 64 frames, on the card and on the CPU."""
+    from recurrent_gaze_prediction_tpu_torch.eval import metrics_torch as mt
+
+    host = [torch.from_numpy(x) for x in _eval_maps(64)]
+    other = (host[2][1:11] > 0).sum(0)
+
+    def run(tensors, other_map):
+        dev = tensors[0].device
+        return mt.evaluate_batch(
+            *tensors, torch.Generator(device=dev).manual_seed(0),
+            metrics=mt.ALL_METRICS, other_map=other_map, chunk_size=24)
+
+    on_card = run([x.to(cuda_no_tf32) for x in host],
+                  other.to(cuda_no_tf32))
+    on_cpu = run(host, other)
+    for m in mt.ALL_METRICS:
+        a, b = on_card[m].cpu().numpy(), on_cpu[m].numpy()
+        assert a.shape == (64,)
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4, err_msg=m)
+
+
+def _small_grcn(device, **overrides):
+    """gaze_grcn at a width B1 takes (U=16, one CTA per cluster) on the
+    synthetic corpus's 1024-channel features, T=3, B=2."""
+    from recurrent_gaze_prediction_tpu_torch import registry
+
+    kw = dict(dim_feature=1024, dim_cnn_proj=8, rnn_state_size=16,
+              n_lstm_steps=3, batch_size=2, compute_dtype="bfloat16")
+    kw.update(overrides)
+    return registry.create_model("gaze_grcn", device=device,
+                                 generator=torch.Generator().manual_seed(0),
+                                 **kw)
+
+
+def test_evaluation_launches_the_forward_kernel_once_per_batch(
+        cuda_no_tf32):
+    """5 clips at B=2: three batches, three B1 launches and no other
+    kernel; the maps stay on the card."""
+    from recurrent_gaze_prediction_tpu_torch.data import synthetic
+    from recurrent_gaze_prediction_tpu_torch.eval import evaluator
+    from recurrent_gaze_prediction_tpu_torch.train import make_predict_fn
+
+    model = _small_grcn(cuda_no_tf32)
+    valid = synthetic.make_clip_windows(5, 3, seed=1)
+    before = (kconv.launches, v2.launches, klstm.launches, v1.launches)
+    ret, scores = evaluator.generate_and_evaluate(
+        make_predict_fn(model), valid, 2, max_instances=None,
+        input_cast=torch.bfloat16, device=cuda_no_tf32)
+    torch.cuda.synchronize()
+    after = (kconv.launches, v2.launches, klstm.launches, v1.launches)
+    assert [a - b for a, b in zip(after, before)] == [3, 0, 0, 0]
+    assert ret["pred_gazemaps"].is_cuda
+    assert ret["pred_gazemaps"].shape == (15, 49, 49)
+    assert all(np.isfinite(v) for v in scores.values())
+
+
+def test_prefetched_trainer_losses_equal_the_inline_trainer(cuda_no_tf32):
+    """3 steps of `train.fit` on the card fed by `prefetch_batches` (bf16
+    casts on the host, copies on a side stream) and inline: equal losses
+    (rel 1e-6)."""
+    from recurrent_gaze_prediction_tpu_torch.config import ExperimentConfig
+    from recurrent_gaze_prediction_tpu_torch.data import synthetic
+    from recurrent_gaze_prediction_tpu_torch.data.prefetch import (
+        prefetch_batches, stream_casts)
+    from recurrent_gaze_prediction_tpu_torch.train import (
+        create_train_state, fit)
+
+    def losses(prefetch):
+        model = _small_grcn(cuda_no_tf32)
+        exp = ExperimentConfig()
+        exp.model = model.cfg
+        exp.schedule.max_steps = 3
+        exp.schedule.steps_per_logprint = 1
+        data = synthetic.make_splits(n_train=4, n_valid=2, n_test=2, t=3)
+        it = (prefetch_batches(data.train, 2, device=cuda_no_tf32,
+                               cast=stream_casts(torch.bfloat16),
+                               max_batches=3) if prefetch else None)
+        state, tx = create_train_state(model, exp.optimizer)
+        rows = []
+        fit(model, state, tx, data, exp, train_iterator=it,
+            metric_writer=lambda step, v: rows.append(v["loss/train"]))
+        return rows
+
+    inline, fed = losses(False), losses(True)
+    assert len(inline) == len(fed) == 3
+    np.testing.assert_allclose(fed, inline, rtol=1e-6)

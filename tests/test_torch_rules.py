@@ -81,6 +81,26 @@ def test_entry_points_raise_without_cuda(tmp_path):
             init(1, model.cfg)
 
 
+def test_evaluation_and_prefetch_entry_points_raise_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from recurrent_gaze_prediction_tpu_torch.cli import evaluate_gaze
+    from recurrent_gaze_prediction_tpu_torch.config import ExperimentConfig
+    from recurrent_gaze_prediction_tpu_torch.data import synthetic
+    from recurrent_gaze_prediction_tpu_torch.data.prefetch import (
+        prefetch_batches)
+    from recurrent_gaze_prediction_tpu_torch.eval import evaluator
+
+    data = synthetic.make_clip_windows(2, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        prefetch_batches(data, 2)
+    with pytest.raises(RuntimeError, match="cuda"):
+        evaluator.generate(lambda f, c: c, data, 2)
+    ExperimentConfig().dump(str(tmp_path / "config.json"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        evaluate_gaze.main(["--train_dir", str(tmp_path)])
+
+
 def test_raw_video_entry_points_raise_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")

@@ -95,8 +95,10 @@ def test_checkpoint_save_restore_and_retention(tmp_path):
 
 
 def _records(train_dir):
+    """metrics.jsonl's training records (the final test-split evaluation
+    writes its own `test/<metric>` record after each run)."""
     with open(os.path.join(train_dir, "metrics.jsonl")) as f:
-        return [json.loads(line) for line in f]
+        return [r for r in map(json.loads, f) if "loss/train" in r]
 
 
 def test_cli_trains_writes_and_resumes(tmp_path):
