@@ -64,6 +64,29 @@ In order, failing (exit 1) on the first check that does not hold:
      scores within 0.01 of the same evaluation through the plain scan);
   6. checks the train step's gradients at full width, through either
      backward, against plain autograd of `ConvGRU.scan` on one batch;
+  9. the rest of the model zoo, each family at its registry
+     width in bf16: the cluster lines of B1 and B2 at U=64 (C=4) and their
+     gates at gaze_pupil_grcn's shapes (T=35, 32 -> 64) at B=7, 1 and 28
+     (bf16, and f32 with TF32 off; B1's final h == ys[-1]); predict of
+     gaze_rnn, gaze_rnn77, gaze_c3d_conv, gaze_framewise_shallownet,
+     gaze_grcn_cascade, gaze_pupil_grcn and gaze_pupil_gru2 at their
+     registry batch and T and at B=16 (finite, corr >= 0.999 vs f32 with
+     TF32 off; B1 once per call for gaze_pupil_grcn, no launch for the
+     others); gaze_pupil_grcn and gaze_framewise_shallownet served over
+     HTTP (8 concurrent POSTs vs the plain path; B1 once per batcher call /
+     none); one fused predict of gaze_framewise_shallownet (B=8, F=160
+     uint8, the frame stream resized on the card, the tower skipped) vs
+     the host-resized plain path; `cli.pretrain_shallownet` (20 steps,
+     B=128), then `cli.train_gaze` 20 steps each of gaze_pupil_grcn (B1 and
+     B2 once per step), gaze_grcn_cascade (remat on), gaze_rnn with
+     `--shallownet_pretrain` (its frozen ShallowNet bitwise the file's
+     after training) and gaze_framewise_shallownet (its ShallowNet moves),
+     each loss falling; gaze_pupil_grcn's gradients through B1 + B2 vs
+     plain autograd (and its pupil term), the cascade's with remat vs
+     without (and the peak memory of each); then times B1 and B2 at U=64
+     beside their bounds, each family's predict at B=16 and train step at
+     its registry batch, a ShallowNet pretraining step at B=128, the
+     cascade's step without remat, and the two zoo HTTP latencies;
   7. times the kernels and their plain versions (B=8, B=16; B1 and B2 also
      at B=1 and 28, B3 also at B=1, in us per step beside the bound), the
      feature-fed predict of both models (B=16) with a breakdown, the HTTP
@@ -73,7 +96,8 @@ In order, failing (exit 1) on the first check that does not hold:
      the fused predict at B=8 and 16 with its stages, the fused train step
      (frozen, fine-tuned) and the fused HTTP latency; with CUDA events or
      the host clock after warm-up;
-  8. prints the kernels' JSON line, then, last, the device JSON line.
+  8. prints the kernels' JSON line (B1-B4, and B1 and B2 at U=64), then,
+     last, the device JSON line.
 """
 
 from __future__ import annotations
@@ -94,7 +118,7 @@ import torch
 
 from recurrent_gaze_prediction_tpu_torch import registry
 from recurrent_gaze_prediction_tpu_torch.cli import (
-    evaluate_gaze, train_fused, train_gaze)
+    evaluate_gaze, pretrain_shallownet, train_fused, train_gaze)
 from recurrent_gaze_prediction_tpu_torch.config import (
     ExperimentConfig, OptimizerConfig)
 from recurrent_gaze_prediction_tpu_torch.data import synthetic
@@ -103,7 +127,8 @@ from recurrent_gaze_prediction_tpu_torch.data.prefetch import (
 from recurrent_gaze_prediction_tpu_torch.eval import (
     evaluator, metrics_np, metrics_torch)
 from recurrent_gaze_prediction_tpu_torch.models import c3d as c3d_model
-from recurrent_gaze_prediction_tpu_torch.models import pipeline, streaming
+from recurrent_gaze_prediction_tpu_torch.models import (pipeline, shallownet,
+                                                        streaming)
 from recurrent_gaze_prediction_tpu_torch.models.common import (
     apply_c3d_projection, apply_decoder, sequence_loss)
 from recurrent_gaze_prediction_tpu_torch.ops.cells import ConvGRU, ConvLSTM
@@ -115,6 +140,7 @@ from recurrent_gaze_prediction_tpu_torch.ops.kernels import convlstm as klstm
 from recurrent_gaze_prediction_tpu_torch.ops.kernels.parity import (
     MIN_CORR, backward_inputs, backward_kernel_and_plain, backward_parity,
     backward_parity_ok, convgru_parity, convlstm_parity, parity_ok)
+from recurrent_gaze_prediction_tpu_torch.ops.layers import resize_bilinear
 from recurrent_gaze_prediction_tpu_torch.ops.normalize import (
     normalize_probability_map, softmax_2d)
 from recurrent_gaze_prediction_tpu_torch.serving import (
@@ -122,6 +148,7 @@ from recurrent_gaze_prediction_tpu_torch.serving import (
 from recurrent_gaze_prediction_tpu_torch.train import (
     Checkpointer, create_train_state, fit, make_train_step)
 from recurrent_gaze_prediction_tpu_torch.train import fused as fused_data
+from recurrent_gaze_prediction_tpu_torch.train import load_params, saliency
 
 SEED = 0
 T = 42
@@ -182,6 +209,29 @@ EVAL_MAX_ABS = 0.01
 # and random draws, so only a nondeterministic library reduction could
 # move them
 PREFETCH_MAX_REL = 1e-6
+# the rest of the model zoo: the seven families beside gaze_grcn,
+# gaze_grcn77 and gaze_lstm, at their registry widths, T and batches
+ZOO = ("gaze_rnn", "gaze_rnn77", "gaze_c3d_conv",
+       "gaze_framewise_shallownet", "gaze_grcn_cascade", "gaze_pupil_grcn",
+       "gaze_pupil_gru2")
+ZOO_PREDICT_BATCH = 16
+# gaze_pupil_grcn's ConvGRU: U=64 on clusters of 4 CTAs, T=35, its 1024->32
+# projection feeding the input gates
+C4_UNITS, C4_T, C4_C = 64, 35, 32
+C4_BATCHES = (7, 1, 28)   # its registry batch, one cluster, two batches' worth
+# the zoo's CLI runs take 20 steps at lr 3e-4: at the model classes' 3e-3
+# the cascade's relu head dies within a few steps on the synthetic corpus
+ZOO_LR = 3e-4
+# cli.train_gaze's synthetic test split at its default 16 clips: max(16 //
+# 2, 2); the final evaluation runs it in ceil(8 / B) batches, the last one
+# padded
+ZOO_TEST_CLIPS = 8
+PRETRAIN_BATCH = 128
+# the cascade with remat against without: the same forward, and gradients
+# that differ only by the order of the recomputed steps' sums
+REMAT_GRAD_MIN_CORR = 0.9999
+REMAT_LOSS_MAX_REL = 1e-6
+CELLS = ("cell", "bottom_cell", "top_cell")
 
 
 def fail(msg: str) -> None:
@@ -267,21 +317,22 @@ def post_all(url: str, frames: np.ndarray, c3d: np.ndarray) -> list:
     return results
 
 
-def kernel_timing(fused: dict, b: int, rng: np.random.RandomState) -> dict:
+def kernel_timing(fused: dict, b: int, rng: np.random.RandomState,
+                  t: int = T) -> dict:
     """The kernel and its plain version on the same precomputed gates."""
     dev = torch.device("cuda")
     c = fused["Wx_zrc"].shape[2]
     units = fused["U_c"].shape[-1]
     xs = torch.from_numpy(
-        rng.randn(T, b, 7, 7, c).astype(np.float32)).to(dev)
+        rng.randn(t, b, 7, 7, c).astype(np.float32)).to(dev)
     h0 = ConvGRU.zero_state(b, (7, 7), units, device=dev)
     with torch.inference_mode():
         wx = ConvGRU.input_gates(fused, xs, torch.bfloat16)
         ms = cuda_ms(lambda: kconv.convgru_recurrence(fused, wx, h0), 20)
         plain_ms = cuda_ms(lambda: ConvGRU.scan_precomputed(
             fused, wx, h0, torch.bfloat16), 5)
-    flops = T * b * 49 * 9 * units * 3 * units * 2
-    nbytes = (wx.numel() * 2 + T * b * 49 * units * 4          # wx, ys
+    flops = t * b * 49 * 9 * units * 3 * units * 2
+    nbytes = (wx.numel() * 2 + t * b * 49 * units * 4          # wx, ys
               + (fused["Uh_zr"].numel() + fused["U_c"].numel()) * 2
               + 2 * b * 49 * units * 4)                        # h0, hT
     return {"ms": ms, "plain_ms": plain_ms, **bound(flops, nbytes)}
@@ -318,49 +369,58 @@ def bound(flops: float, nbytes: float) -> dict:
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
 
 
-def cluster_lines(card: str) -> None:
+def cluster_lines(card: str, units: int = UNITS,
+                  names: tuple = ("convgru_fwd", "convgru_bwd",
+                                  "convlstm_fwd"),
+                  batches: tuple = CLUSTER_TIMED) -> dict:
     """For each cluster kernel: its cluster size, CTAs, the clusters that
     fit on the card at once (cudaOccupancyMaxActiveClusters) and shared
     memory per CTA, each checked against what the wrapper reckons."""
     lib = build.load()
-    clusters = kconv.cluster_size(UNITS)
-    for name, reckon in (("convgru_fwd", kconv.smem_bytes),
-                         ("convgru_bwd", v2.smem_bytes),
-                         ("convlstm_fwd", klstm.smem_bytes)):
+    clusters = kconv.cluster_size(units)
+    reckoners = {"convgru_fwd": kconv.smem_bytes,
+                 "convgru_bwd": v2.smem_bytes,
+                 "convlstm_fwd": klstm.smem_bytes}
+    out = {}
+    for name in names:
+        reckon = reckoners[name]
         info = {}
         for dtype, elem in (("bf16", 2), ("f32", 4)):
-            smem = getattr(lib, f"{name}_smem_bytes")(7, 7, UNITS, elem)
-            fit = getattr(lib, f"{name}_max_clusters")(7, 7, UNITS, elem)
-            check(smem == reckon(7, 7, UNITS, elem),
+            smem = getattr(lib, f"{name}_smem_bytes")(7, 7, units, elem)
+            fit = getattr(lib, f"{name}_max_clusters")(7, 7, units, elem)
+            check(smem == reckon(7, 7, units, elem),
                   f"{name} {dtype}: the kernel needs {smem} B per CTA, the "
-                  f"wrapper reckons {reckon(7, 7, UNITS, elem)}")
+                  f"wrapper reckons {reckon(7, 7, units, elem)}")
             check(fit >= 1, f"{name} {dtype}: no cluster fits ({fit})")
             info[dtype] = {"smem_per_cta": smem, "max_active_clusters": fit}
-        print(f"cluster {name} U={UNITS} 7x7: C={clusters}, CTAs at B="
-              f"{'/'.join(map(str, CLUSTER_TIMED))}: "
-              f"{'/'.join(str(b * clusters) for b in CLUSTER_TIMED)}, "
+        print(f"cluster {name} U={units} 7x7: C={clusters}, CTAs at B="
+              f"{'/'.join(map(str, batches))}: "
+              f"{'/'.join(str(b * clusters) for b in batches)}, "
               f"{json.dumps(info)} [{card}]", flush=True)
+        out[name] = info
+    return out
 
 
-def per_step(k: dict) -> str:
+def per_step(k: dict, t: int = T) -> str:
     """A timing's ms with its us per step, beside the bound's."""
-    return (f"{k['ms']:.4f} ms ({k['ms'] * 1e3 / T:.2f} us/step), plain "
+    return (f"{k['ms']:.4f} ms ({k['ms'] * 1e3 / t:.2f} us/step), plain "
             f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
-            f"({k['bound_ms'] * 1e3 / T:.3f} us/step, {k['bound_by']}: "
+            f"({k['bound_ms'] * 1e3 / t:.3f} us/step, {k['bound_by']}: "
             f"{k['gflop']:.2f} GFLOP, {k['mbytes']:.1f} MB)")
 
 
-def backward_timing(kernel: str, b: int, seed: int) -> dict:
+def backward_timing(kernel: str, b: int, seed: int, t: int = T,
+                    c: int = 512, units: int = UNITS) -> dict:
     """A backward kernel and its plain version on the same inputs from a
-    real forward (bf16, T=42, 512->128)."""
-    x = backward_inputs(T, b, 512, UNITS, torch.bfloat16, seed, "cuda")
+    real forward (bf16; T=42, 512->128 unless given)."""
+    x = backward_inputs(t, b, c, units, torch.bfloat16, seed, "cuda")
     run_kernel, run_plain, _ = backward_kernel_and_plain(kernel, x)
     with torch.no_grad():
         ms = cuda_ms(run_kernel, 10)
         plain_ms = cuda_ms(run_plain, 3)
-    convs = T * b * 49 * 9 * 3 * UNITS * UNITS * 2  # one set of state convs
-    stream = T * b * 49 * UNITS * 4                 # one f32 [T,B,7,7,U]
-    state = b * 49 * UNITS * 4                      # h0 or dh0
+    convs = t * b * 49 * 9 * 3 * units * units * 2  # one set of state convs
+    stream = t * b * 49 * units * 4                 # one f32 [T,B,7,7,U]
+    state = b * 49 * units * 4                      # h0 or dh0
     weights = (x["uzr"].numel() + x["uc"].numel()) * 2
     if kernel == "convgru_bwd":
         # two transposed convs; u, r, c, h_prev, g in, dzr (2U), da out
@@ -370,7 +430,7 @@ def backward_timing(kernel: str, b: int, seed: int) -> dict:
         # h0 in, dwx (3U), dh0, dU_zr, dU_c out
         flops = 3 * convs
         nbytes = (x["wx"].numel() * 2 + 2 * stream + 3 * stream + 2 * state
-                  + weights + 9 * UNITS * 3 * UNITS * 4)
+                  + weights + 9 * units * 3 * units * 4)
     return {"ms": ms, "plain_ms": plain_ms, **bound(flops, nbytes)}
 
 
@@ -1394,6 +1454,520 @@ def fused_train_step_timing(model, finetune: bool) -> float:
     return cuda_ms(lambda: step(state, batch, gen), 3, warmup=1)
 
 
+# ------------------------------------------------------------ the model zoo
+
+def zoo_model(name: str, **overrides):
+    """A family of the zoo at its registry width in bf16 on the card,
+    seeded random weights with the ConvGRU kernels at N(0, 1/fan_in) (the
+    reference init leaves the recurrence ~0)."""
+    gen = torch.Generator().manual_seed(SEED)
+    model = registry.create_model(name, compute_dtype="bfloat16",
+                                  device="cuda", generator=gen, **overrides)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.split(".")[0] in CELLS and p.dim() == 4:
+                fan_in = p.shape[0] * p.shape[1] * p.shape[2]
+                p.copy_(torch.randn(p.shape, generator=gen)
+                        / float(np.sqrt(fan_in)))
+    return model
+
+
+def zoo_inputs(model, b: int, seed: int) -> tuple:
+    """frames [B,T,98,98,3] in [0,1] and c3d [B,T,1024,7,7] on the card."""
+    rng = np.random.RandomState(seed)
+    t = model.cfg.n_lstm_steps
+    frames = torch.from_numpy(rng.rand(b, t, 98, 98, 3).astype(np.float32))
+    c3d = torch.from_numpy(rng.randn(b, t, 1024, 7, 7).astype(np.float32))
+    return frames.cuda(), c3d.cuda()
+
+
+def zoo_kernel_launches(name: str, calls: int = 1) -> dict:
+    """The launches of `calls` forwards: B1 for gaze_pupil_grcn, none for
+    the other families of the zoo."""
+    fwd = calls if name == "gaze_pupil_grcn" else 0
+    return {"convgru_fwd": fwd, "convgru_bwd": 0, "convgru_bwd_mono": 0,
+            "convlstm_fwd": 0}
+
+
+def c4_kernel_gates(card: str) -> dict:
+    """B1 and B2 at gaze_pupil_grcn's shapes (U=64, C=4, T=35, 32 input
+    channels) against their plain versions, bf16 under the gate and f32
+    (TF32 off) at F32_MAX_REL_DELTA, at each of C4_BATCHES; B1's final h
+    must equal ys[-1] (`parity_ok`)."""
+    out = {}
+    for b in C4_BATCHES:
+        bf16 = convgru_parity(t=C4_T, b=b, c=C4_C, units=C4_UNITS,
+                              device="cuda")
+        with tf32_off():
+            f32 = convgru_parity(t=C4_T, b=b, c=C4_C, units=C4_UNITS,
+                                 compute_dtype=torch.float32, device="cuda")
+        print(f"parity convgru_fwd U={C4_UNITS} (C=4) T={C4_T} B={b}: bf16 "
+              f"{json.dumps(bf16)}; f32 {json.dumps(f32)}", flush=True)
+        check(parity_ok(bf16), f"U=64 bf16 parity gate failed at B={b}: "
+                               f"{bf16}")
+        check(parity_ok(f32, max_rel_delta=F32_MAX_REL_DELTA),
+              f"U=64 f32 parity failed at B={b}: {f32}")
+        stats = backward_parity("convgru_bwd", t=C4_T, b=b, c=C4_C,
+                                units=C4_UNITS, device="cuda")
+        with tf32_off():
+            stats32 = backward_parity("convgru_bwd", t=C4_T, b=b, c=C4_C,
+                                      units=C4_UNITS,
+                                      compute_dtype=torch.float32,
+                                      device="cuda")
+        print(f"parity convgru_bwd U={C4_UNITS} (C=4) T={C4_T} B={b}: bf16 "
+              f"{json.dumps(stats['outputs'])}; f32 "
+              f"{json.dumps(stats32['outputs'])}", flush=True)
+        check(backward_parity_ok(stats), f"U=64 convgru_bwd bf16 gate "
+                                         f"failed at B={b}: {stats}")
+        check(backward_parity_ok(stats32, max_rel_delta=F32_MAX_REL_DELTA),
+              f"U=64 convgru_bwd f32 parity failed at B={b}: {stats32}")
+        out[b] = {"fwd": bf16, "bwd": stats}
+    return out
+
+
+def zoo_predict_check(card: str) -> dict:
+    """Each family's predict (its logits) at its registry T and batch and
+    at B=16 in bf16: finite, of shape [B,T,GH,GW], corr >= MAP_MIN_CORR
+    against the same weights in f32 with TF32 off; gaze_pupil_grcn
+    launches B1 once per call (its route "kernel"), the others no
+    recurrence kernel."""
+    out = {}
+    for name in ZOO:
+        model = zoo_model(name)
+        gh, gw = model.cfg.gazemap_height, model.cfg.gazemap_width
+        t = model.cfg.n_lstm_steps
+        for b in (model.cfg.batch_size, ZOO_PREDICT_BATCH):
+            frames, c3d = zoo_inputs(model, b, SEED + 21)
+            reset_launches()
+            with torch.inference_mode():
+                logits = model(frames, c3d)
+            launches = read_launches()
+            route = getattr(model, "last_route", None)
+            model.cfg.compute_dtype = "float32"
+            try:
+                with tf32_off(), torch.inference_mode():
+                    ref = model(frames, c3d)
+            finally:
+                model.cfg.compute_dtype = "bfloat16"
+            a = logits.float().cpu().numpy()
+            c = corr(a, ref.float().cpu().numpy())
+            print(f"zoo predict {name} B={b} T={t}: logits "
+                  f"{list(a.shape)}, route {route}, launches {launches}, "
+                  f"corr vs f32 (TF32 off) {c:.6f} [{card}]", flush=True)
+            check(a.shape == (b, t, gh, gw) and bool(np.isfinite(a).all()),
+                  f"{name} B={b}: logits {a.shape}, finite "
+                  f"{bool(np.isfinite(a).all())}")
+            check(c >= MAP_MIN_CORR, f"{name} B={b}: corr {c} vs f32")
+            check(launches == zoo_kernel_launches(name),
+                  f"{name} B={b}: launches {launches}")
+            if name == "gaze_pupil_grcn":
+                check(route == "kernel", f"{name}: route {route}")
+            elif route is not None:
+                check(route == "scan", f"{name}: route {route}")
+            out[name, b] = {"corr": c, "route": route}
+    return out
+
+
+def serve_zoo_and_check(model, card: str) -> dict:
+    """Serve a zoo family over HTTP from a bundle it writes (the `predict`
+    program); POST N_REQUESTS clips at once; each reply HTTP 200, [T,GH,GW],
+    finite, corr >= MAP_MIN_CORR against the plain path (the bundle's model
+    on all clips in one call, its recurrence on the cell's own scan); B1
+    once per batcher call for gaze_pupil_grcn, no launch for the others.
+    Then POST them again for the latency."""
+    name = model.cfg.name
+    t, gh = model.cfg.n_lstm_steps, model.cfg.gazemap_height
+    rng = np.random.RandomState(SEED + 23)
+    c3d = rng.randn(N_REQUESTS, t, 1024, 7, 7).astype(np.float32)
+    frames = rng.rand(N_REQUESTS, t, 98, 98, 3).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_bundle(f"{tmp}/bundle", model)
+        server = server_from_bundle(f"{tmp}/bundle", device="cuda",
+                                    max_batch=32, max_wait_ms=50.0).start()
+        try:
+            host, port = server.address
+            url = f"http://{host}:{port}"
+            reset_launches()
+            served = post_all(f"{url}/predict", frames, c3d)
+            launches = read_launches()
+            with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+                health = json.loads(r.read())
+            print(f"serving {name}: {N_REQUESTS} concurrent requests, "
+                  f"healthz {health}, kernel launches {launches}", flush=True)
+            check(health["requests"] == N_REQUESTS
+                  and launches == zoo_kernel_launches(name, health["calls"]),
+                  f"serving {name}: healthz {health}, launches {launches}")
+            reference = load_bundle(f"{tmp}/bundle", device="cuda")
+            if hasattr(reference, "recurrence_route"):
+                reference.recurrence_route = lambda train: "scan"
+            plain = reference.predict(torch.from_numpy(frames).cuda(),
+                                      torch.from_numpy(c3d).cuda())
+            plain = plain.float().cpu().numpy()
+            for i, (status, maps, _) in enumerate(served):
+                check(status == 200, f"{name} request {i}: HTTP {status}")
+                check(maps.shape == (t, gh, gh),
+                      f"{name} request {i}: gazemaps shape {maps.shape}")
+                check(bool(np.isfinite(maps).all()),
+                      f"{name} request {i}: non-finite maps")
+                c = corr(maps, plain[i])
+                check(c >= MAP_MIN_CORR,
+                      f"{name} request {i}: corr {c} vs the plain path")
+            min_corr = min(corr(m, plain[i])
+                           for i, (_, m, _) in enumerate(served))
+            print(f"serving {name}: all {N_REQUESTS} replies HTTP 200, "
+                  f"[{t},{gh},{gh}] finite, min corr vs plain path "
+                  f"{min_corr:.6f} [{card}]", flush=True)
+            again = post_all(f"{url}/predict", frames, c3d)
+            http_ms = statistics.median(s for _, _, s in again) * 1e3
+        finally:
+            server.close()
+    return {"launches": launches, "http_ms": http_ms, "min_corr": min_corr}
+
+
+def fused_framewise_check(model, tower: dict, card: str) -> dict:
+    """One fused predict of gaze_framewise_shallownet (B=8, F=160 uint8
+    128x171): the frame stream ([15::5], resized to 98x98 on the card)
+    feeds its ShallowNet, and the C3D tower is skipped (`reads_c3d`).
+    Against the plain path: the same frames resized on the host in f32,
+    then the model's predict. Timed beside it."""
+    t = pipeline.pipeline_timesteps(FUSED_FRAMES)
+    videos = np.random.RandomState(SEED + 24).randint(
+        0, 256, (8, FUSED_FRAMES, *VIDEO_HW, 3)).astype(np.uint8)
+    video = torch.from_numpy(videos).cuda()
+    fn = pipeline.make_fused_predict(model, num_frames=FUSED_FRAMES)
+    maps = fn(tower, video).float().cpu().numpy()
+    sub = torch.from_numpy(videos[:, pipeline.FRAME_OFFSET::
+                                  pipeline.FRAME_STRIDE][:, :t]).float()
+    frames = resize_bilinear(sub.reshape(8 * t, *sub.shape[2:]),
+                             pipeline.FRAME_HW).reshape(
+                                 8, t, *pipeline.FRAME_HW, 3) / 255.0
+    plain = model.predict(frames.cuda(), None).float().cpu().numpy()
+    c = corr(maps, plain)
+    ms = cuda_ms(lambda: fn(tower, video), 5)
+    print(f"fused predict gaze_framewise_shallownet B=8 F={FUSED_FRAMES} "
+          f"uint8 -> T={t}: maps {list(maps.shape)}, corr vs the host-resized "
+          f"plain path {c:.6f}; {ms:.3f} ms/call (tower skipped) [{card}]",
+          flush=True)
+    check(maps.shape == (8, t, 49, 49) and bool(np.isfinite(maps).all()),
+          f"fused framewise maps {maps.shape}")
+    check(c >= MAP_MIN_CORR, f"fused framewise corr {c}")
+    return {"corr": c, "ms": ms}
+
+
+def train_records(run: str) -> tuple:
+    with open(f"{run}/metrics.jsonl") as f:
+        records = [json.loads(line) for line in f]
+    train = [r for r in records if "loss/train" in r]
+    return [r["loss/train"] for r in train], [r["step"] for r in train]
+
+
+def check_learned(label: str, losses: list, steps: list, n: int) -> None:
+    check(steps == list(range(1, n + 1)), f"{label}: logged steps {steps}")
+    check(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+    check(statistics.mean(losses[-5:]) < losses[0],
+          f"{label}: loss did not fall: first {losses[0]}, mean of the "
+          f"last 5 {statistics.mean(losses[-5:])}")
+
+
+def pretrain_through_cli(card: str, run: str, out: str) -> dict:
+    """`cli.pretrain_shallownet --dataset synthetic` on the card, 20 steps
+    at B=128 (the CLI's defaults otherwise: lr 3e-5, f32): the loss falls
+    and the params file is written."""
+    argv = ["--dataset", "synthetic", "--max_steps", str(TRAIN_STEPS),
+            "--batch_size", str(PRETRAIN_BATCH), "--steps_per_logprint", "1",
+            "--out", out, "--train_dir", run]
+    reset_launches()
+    start = time.perf_counter()
+    rc = pretrain_shallownet.main(argv)
+    seconds = time.perf_counter() - start
+    launches = read_launches()
+    check(rc == 0, f"cli.pretrain_shallownet returned {rc}")
+    losses, steps = train_records(run)
+    print(f"pretrain (cli.pretrain_shallownet, B={PRETRAIN_BATCH}, "
+          f"{TRAIN_STEPS} steps, {seconds:.1f} s wall with data set-up): "
+          f"losses {[round(x, 5) for x in losses]}, launches {launches} "
+          f"[{card}]", flush=True)
+    check_learned("pretrain_shallownet", losses, steps, TRAIN_STEPS)
+    check(sum(launches.values()) == 0, f"pretraining launched {launches}")
+    check(set(load_params(out)) == set(shallownet.init_params()),
+          f"{out}: not ShallowNet's params")
+    return {"losses": losses}
+
+
+def zoo_train_through_cli(card: str, run: str, name: str,
+                          extra: tuple = ()) -> dict:
+    """`cli.train_gaze` on a zoo family at its registry T and batch, bf16,
+    20 steps at ZOO_LR, batches prefetched: the loss falls; B1 and B2 once
+    per step for gaze_pupil_grcn (and B1 once per batch of the final
+    test-split evaluation), no launch for the others."""
+    argv = ["--model", name, "--dataset", "synthetic", "--compute_dtype",
+            "bfloat16", "--max_steps", str(TRAIN_STEPS),
+            "--steps_per_logprint", "1", "--learning_rate", str(ZOO_LR),
+            "--seed", str(SEED), "--train_dir", run, *extra]
+    reset_launches()
+    start = time.perf_counter()
+    rc = train_gaze.main(argv)
+    seconds = time.perf_counter() - start
+    launches = read_launches()
+    check(rc == 0, f"cli.train_gaze --model {name} returned {rc}")
+    losses, steps = train_records(run)
+    print(f"train {name} (cli.train_gaze {' '.join(extra)}, registry B and "
+          f"T, bf16, {TRAIN_STEPS} steps at lr {ZOO_LR}, {seconds:.1f} s wall "
+          f"with data and model set-up): losses "
+          f"{[round(x, 4) for x in losses]}, launches {launches} [{card}]",
+          flush=True)
+    check_learned(name, losses, steps, TRAIN_STEPS)
+    if name == "gaze_pupil_grcn":
+        test_batches = -(-ZOO_TEST_CLIPS // 7)
+        want = {"convgru_fwd": TRAIN_STEPS + test_batches,
+                "convgru_bwd": TRAIN_STEPS,
+                "convgru_bwd_mono": 0, "convlstm_fwd": 0}
+    else:
+        want = zoo_kernel_launches(name, 0)
+    check(launches == want, f"{name}: launches {launches}, want {want}")
+    saved = torch.load(f"{run}/model/{TRAIN_STEPS}/state.pt",
+                       weights_only=True)["params"]
+    return {"losses": losses, "launches": launches, "params": saved,
+            "seconds": seconds}
+
+
+def pupil_gradient_check(card: str) -> dict:
+    """gaze_pupil_grcn's train loss and gradients on one batch (B=7, T=35,
+    bf16, no dropout) through B1 + B2 against plain autograd of
+    `ConvGRU.scan`: loss within LOSS_MAX_REL, every tensor's gradient corr
+    >= GRAD_MIN_CORR; B1 and B2 once on the kernel path, none on the plain;
+    the loss is the gaze term plus 0.01 x a nonzero pupil term."""
+    model = zoo_model("gaze_pupil_grcn")
+    model.cfg.dropout_keep_prob = 1.0
+    raw = synthetic.make_clip_windows(
+        7, C4_T, seed=SEED + 3, gazemap_hw=(7, 7)).next_batch(7)
+    batch = device_put_batch(raw, torch.device("cuda"),
+                             stream_casts(torch.bfloat16))
+    names = [n for n, _ in model.named_parameters()]
+    params = [p for _, p in model.named_parameters()]
+    out = {}
+    for label, scan in (("plain", ConvGRU.scan),
+                        ("kernels", v2.convgru_scan_trainable_v2)):
+        model.train_scan = scan
+        reset_launches()
+        loss, aux = model.loss(batch, train=True)
+        grads = torch.autograd.grad(loss, params)
+        launches = read_launches()
+        out[label] = (loss.item(), [g.float().cpu().numpy() for g in grads],
+                      launches, {k: aux[k].item() for k in
+                                 ("gaze_loss", "pupil_loss")})
+    del model.train_scan
+    (plain_loss, plain_grads, plain_launches, _), \
+        (loss, grads, launches, parts) = out["plain"], out["kernels"]
+    rel = abs(loss - plain_loss) / abs(plain_loss)
+    corrs = {n: corr(k, a) for n, a, k in zip(names, plain_grads, grads)}
+    joint = parts["gaze_loss"] + 0.01 * parts["pupil_loss"]
+    print(f"gradient check gaze_pupil_grcn (B=7, T={C4_T}, bf16, B1 + B2 at "
+          f"U=64 vs plain autograd): loss {loss} vs {plain_loss} (rel "
+          f"{rel:.3g}), gaze {parts['gaze_loss']:.5f} + 0.01 x pupil "
+          f"{parts['pupil_loss']:.5f}, min grad corr "
+          f"{min(corrs.values()):.6f} ({min(corrs, key=corrs.get)}), "
+          f"launches {launches} / plain {plain_launches} [{card}]",
+          flush=True)
+    check(rel <= LOSS_MAX_REL, f"pupil grcn loss rel {rel}")
+    for n, c in corrs.items():
+        check(c >= GRAD_MIN_CORR, f"pupil grcn grad {n} corr {c}")
+    check(launches == {"convgru_fwd": 1, "convgru_bwd": 1,
+                       "convgru_bwd_mono": 0, "convlstm_fwd": 0}
+          and sum(plain_launches.values()) == 0,
+          f"pupil grcn launches {launches}, plain {plain_launches}")
+    check(parts["pupil_loss"] > 0 and abs(loss - joint) <= 1e-5 * abs(loss),
+          f"pupil term: loss {loss}, gaze + 0.01 pupil {joint}")
+    return {"loss_rel": rel, "min_corr": min(corrs.values()), **parts}
+
+
+def cascade_remat_check(card: str) -> dict:
+    """gaze_grcn_cascade's loss and gradients (B=7, T=42, bf16, no
+    dropout) with each step of both cells rematerialized and without: the
+    same loss, every gradient corr >= REMAT_GRAD_MIN_CORR; the peak memory
+    of each forward + backward."""
+    model = zoo_model("gaze_grcn_cascade")
+    model.cfg.dropout_keep_prob = 1.0
+    raw = synthetic.make_clip_windows(7, T, seed=SEED + 4).next_batch(7)
+    batch = device_put_batch(raw, torch.device("cuda"),
+                             stream_casts(torch.bfloat16))
+    named = [(n, p) for n, p in model.named_parameters()
+             if not n.startswith("shallownet.")]
+    out = {}
+    for remat in (True, False):
+        model.cfg.remat_cells = remat
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss, _ = model.loss(batch, train=True)
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        out[remat] = (loss.item(), [g.float().cpu().numpy() for g in grads],
+                      peak)
+    model.cfg.remat_cells = True
+    rel = abs(out[True][0] - out[False][0]) / abs(out[False][0])
+    corrs = {n: corr(a, b) for (n, _), a, b in
+             zip(named, out[True][1], out[False][1]) if a.size > 1}
+    print(f"cascade remat check (B=7, T={T}, bf16): loss {out[True][0]} "
+          f"(remat) vs {out[False][0]} (rel {rel:.3g}), min grad corr "
+          f"{min(corrs.values()):.7f} ({min(corrs, key=corrs.get)}); peak "
+          f"memory above the weights and batch: {out[True][2]:.1f} MiB "
+          f"(remat) vs {out[False][2]:.1f} MiB [{card}]", flush=True)
+    check(rel <= REMAT_LOSS_MAX_REL, f"cascade remat loss rel {rel}")
+    for n, c in corrs.items():
+        check(c >= REMAT_GRAD_MIN_CORR, f"cascade remat grad {n} corr {c}")
+    return {"loss_rel": rel, "min_corr": min(corrs.values()),
+            "peak_mib": {"remat": out[True][2], "no_remat": out[False][2]}}
+
+
+def zoo_train_step_timing(name: str, remat: bool = True) -> dict:
+    """One family's train step (flip, dropout, clip + Adam) at its registry
+    batch and T in bf16, by CUDA events after warm-up, with the peak
+    memory of one step above the weights, optimizer state and batch."""
+    model = zoo_model(name)
+    model.cfg.remat_cells = remat
+    b, t = model.cfg.batch_size, model.cfg.n_lstm_steps
+    raw = synthetic.make_clip_windows(
+        b, t, seed=SEED + 5, gazemap_hw=(model.cfg.gazemap_height,
+                                         model.cfg.gazemap_width)
+    ).next_batch(b)
+    batch = device_put_batch(raw, torch.device("cuda"),
+                             stream_casts(torch.bfloat16))
+    state, tx = create_train_state(
+        model, OptimizerConfig(initial_learning_rate=ZOO_LR))
+    step = make_train_step(model, tx)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ms = cuda_ms(lambda: step(state, batch, gen), 5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step(state, batch, gen)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    return {"ms": ms, "peak_mib": peak, "batch": b, "t": t}
+
+
+def pretrain_step_timing() -> dict:
+    """One ShallowNet pretraining step (flip, dropout 0.4, clip + Adam) at
+    B=128, f32 (the CLI's default) and bf16."""
+    out = {}
+    rng = np.random.RandomState(SEED + 6)
+    images = torch.from_numpy(rng.rand(PRETRAIN_BATCH, 98, 98, 3).astype(
+        np.float32)).cuda()
+    maps = torch.from_numpy(rng.rand(PRETRAIN_BATCH, 49, 49).astype(
+        np.float32)).cuda()
+    for label, cdt in (("f32", None), ("bf16", torch.bfloat16)):
+        params = {k: v.cuda().requires_grad_() for k, v in
+                  shallownet.init_params(generator=torch.Generator()
+                                         .manual_seed(SEED)).items()}
+        step, tx = saliency.make_saliency_train_step(
+            OptimizerConfig(initial_learning_rate=3e-5,
+                            use_decay_schedule=False), compute_dtype=cdt)
+        opt_state = tx.init(params)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        out[label] = cuda_ms(
+            lambda: step(params, opt_state, images, maps, gen), 5)
+    return out
+
+
+def zoo_phases(card: str, tower: dict, runs: str) -> dict:
+    """Phase 9, the rest of the model zoo: the cluster lines and gates of
+    B1 and B2 at U=64 (C=4); predict of each family; serving
+    gaze_pupil_grcn (B1) and gaze_framewise_shallownet (frames); the fused
+    frame stream; the CLIs (pretraining, then grafting into gaze_rnn); the
+    pupil gradients and the cascade's remat. Run files go under `runs`."""
+    c4_clusters = cluster_lines(card, C4_UNITS, ("convgru_fwd",
+                                                 "convgru_bwd"), C4_BATCHES)
+    c4_parity = c4_kernel_gates(card)
+    zoo_predict_check(card)
+    pupil_served = serve_zoo_and_check(zoo_model("gaze_pupil_grcn"), card)
+    framewise = zoo_model("gaze_framewise_shallownet")
+    framewise_served = serve_zoo_and_check(framewise, card)
+    framewise_fused = fused_framewise_check(framewise, tower, card)
+    pretrained = f"{runs}/shallownet.pt"
+    pretrain_through_cli(card, f"{runs}/pretrain", pretrained)
+    zoo_trained = {}
+    for name, extra in (("gaze_pupil_grcn", ()),
+                        ("gaze_grcn_cascade", ()),
+                        ("gaze_rnn", ("--shallownet_pretrain", pretrained)),
+                        ("gaze_framewise_shallownet", ())):
+        zoo_trained[name] = zoo_train_through_cli(
+            card, f"{runs}/{name}", name, extra)
+    grafted = load_params(pretrained)
+    check(all(torch.equal(zoo_trained["gaze_rnn"]["params"][f"shallownet/{k}"],
+                          v) for k, v in grafted.items()),
+          "gaze_rnn's ShallowNet is not the pretrained file's after training")
+    initial = registry.create_model(
+        "gaze_framewise_shallownet", device="cpu",
+        generator=torch.Generator().manual_seed(SEED)).shallownet
+    moved = {k: float((zoo_trained["gaze_framewise_shallownet"]["params"][
+        f"shallownet/{k}"] - initial[k].detach()).abs().max())
+        for k in ("conv1_w", "conv2_w", "conv3_w", "fc1_w", "fc2_w")}
+    print(f"grafting: gaze_rnn's shallownet.* bitwise the pretrained file's "
+          f"after {TRAIN_STEPS} steps (frozen); gaze_framewise_shallownet's "
+          f"ShallowNet max |change| {json.dumps(moved)} [{card}]", flush=True)
+    check(all(v > 0 for v in moved.values()),
+          f"gaze_framewise_shallownet's ShallowNet did not train: {moved}")
+    pupil_grads = pupil_gradient_check(card)
+    remat = cascade_remat_check(card)
+    return {"c4_clusters": c4_clusters, "c4_parity": c4_parity,
+            "pupil_served": pupil_served,
+            "framewise_served": framewise_served,
+            "framewise_fused": framewise_fused, "trained": zoo_trained,
+            "pupil_grads": pupil_grads, "remat": remat}
+
+
+def zoo_timings(card: str, zoo: dict, timing_rng) -> tuple:
+    """The zoo's times: B1 and B2 at U=64 (C=4) beside their bounds,
+    predict per family at B=16, the train step per family at its registry
+    batch, a ShallowNet pretraining step, the cascade without remat, the
+    zoo's HTTP latencies. Returns the U=64 kernel timings by batch."""
+    c4_clusters = zoo["c4_clusters"]
+    pupil = zoo_model("gaze_pupil_grcn")
+    c4_fused = ConvGRU.fuse({k: v.detach() for k, v in pupil.cell.items()})
+    c4_timing, c4_bwd_timing = {}, {}
+    for b in C4_BATCHES:
+        k = c4_timing[b] = kernel_timing(c4_fused, b, timing_rng, t=C4_T)
+        print(f"timing: convgru_fwd T={C4_T} B={b} U={C4_UNITS} (C=4) bf16: "
+              f"{per_step(k, C4_T)}; co-resident clusters "
+              f"{c4_clusters['convgru_fwd']['bf16']['max_active_clusters']} "
+              f"[{card}]", flush=True)
+        k = c4_bwd_timing[b] = backward_timing(
+            "convgru_bwd", b, SEED + b, t=C4_T, c=C4_C, units=C4_UNITS)
+        print(f"timing: convgru_bwd T={C4_T} B={b} U={C4_UNITS} (C=4) bf16: "
+              f"{per_step(k, C4_T)}; co-resident clusters "
+              f"{c4_clusters['convgru_bwd']['bf16']['max_active_clusters']} "
+              f"[{card}]", flush=True)
+    for name in ZOO:
+        m = zoo_model(name)
+        frames16, c3d16z = zoo_inputs(m, ZOO_PREDICT_BATCH, SEED + 22)
+        ms = cuda_ms(lambda: m.predict(frames16, c3d16z), 5)
+        print(f"timing: {name} predict B={ZOO_PREDICT_BATCH} "
+              f"T={m.cfg.n_lstm_steps} bf16: {ms:.3f} ms/call [{card}]",
+              flush=True)
+        del m, frames16, c3d16z
+    for name in ZOO:
+        st = zoo_train_step_timing(name)
+        print(f"timing: {name} train step B={st['batch']} T={st['t']} bf16 "
+              f"(flip, dropout, clip + adam): {st['ms']:.3f} ms, peak "
+              f"{st['peak_mib']:.1f} MiB above weights, state and batch "
+              f"[{card}]", flush=True)
+    st = zoo_train_step_timing("gaze_grcn_cascade", remat=False)
+    print(f"timing: gaze_grcn_cascade train step without remat "
+          f"B={st['batch']} T={st['t']}: {st['ms']:.3f} ms, peak "
+          f"{st['peak_mib']:.1f} MiB [{card}]", flush=True)
+    pre = pretrain_step_timing()
+    print(f"timing: ShallowNet pretraining step B={PRETRAIN_BATCH} (flip, "
+          f"dropout, clip + adam): f32 {pre['f32']:.3f} ms, bf16 "
+          f"{pre['bf16']:.3f} ms [{card}]", flush=True)
+    print(f"timing: HTTP request latency, median of {N_REQUESTS} concurrent "
+          f"POSTs: gaze_pupil_grcn {zoo['pupil_served']['http_ms']:.1f} ms, "
+          f"gaze_framewise_shallownet "
+          f"{zoo['framewise_served']['http_ms']:.1f} ms [{card}]", flush=True)
+    return c4_timing, c4_bwd_timing
+
+
 def main() -> int:
     # 1. the card
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
@@ -1515,6 +2089,8 @@ def main() -> int:
     evaluation_cadence(card)
     for run in ("grcn", "lstm"):
         evaluate_through_cli(card, f"{runs}/{run}")
+
+    zoo = zoo_phases(card, tower, runs)  # 9.
     runs_dir.cleanup()
 
     # 7. timings
@@ -1610,6 +2186,8 @@ def main() -> int:
               f"({FUSED_TRAIN_BATCH * FUSED_FRAMES / ms * 1e3:.0f} raw "
               f"frames/s) [{card}]", flush=True)
 
+    c4_timing, c4_bwd_timing = zoo_timings(card, zoo, timing_rng)
+
     # 8. result lines
     def entry(name, source, replaces, launches, err, t):
         return {"name": name, "route": "cuda",
@@ -1640,6 +2218,13 @@ def main() -> int:
               max(lstm_parity[8]["max_delta"],
                   lstm_parity[8]["final_c"]["max_delta"]),
               lstm_timing[8]),
+        # gaze_pupil_grcn's cell: U=64, clusters of 4, T=35, B=7
+        entry("convgru_fwd_u64", "convgru_fwd.cu", "convgru.py:45",
+              zoo["pupil_served"]["launches"]["convgru_fwd"],
+              zoo["c4_parity"][7]["fwd"]["max_delta"], c4_timing[7]),
+        entry("convgru_bwd_u64", "convgru_bwd.cu", "convgru_vjp2.py:56",
+              zoo["trained"]["gaze_pupil_grcn"]["launches"]["convgru_bwd"],
+              max_err(zoo["c4_parity"][7]["bwd"]), c4_bwd_timing[7]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

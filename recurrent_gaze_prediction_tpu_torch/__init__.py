@@ -7,22 +7,26 @@ JAX package), keeps the JAX package's module names and public layouts
 entry points on the card unless the caller passes device="cpu".
 
   config    — the port's copy of the config dataclasses
-  ops       — layers, normalizers, initializers, the ConvGRU and ConvLSTM
-              cells, and the hand-written CUDA kernels (ops.kernels,
-              sources in csrc/): the ConvGRU forward recurrence and its two
-              backward kernels, with the autograd Functions the trainer
-              runs, and the ConvLSTM forward recurrence
-  models    — gaze_grcn, gaze_grcn77 and gaze_lstm as nn.Modules, and the
-              carried-state streaming steps
+  ops       — layers, normalizers, initializers, the ConvGRU, ConvLSTM
+              and flat GRU cells, and the hand-written CUDA kernels
+              (ops.kernels, sources in csrc/): the ConvGRU forward
+              recurrence and its two backward kernels, with the autograd
+              Functions the trainer runs, and the ConvLSTM forward
+              recurrence
+  models    — the ten gaze model families of the JAX registry as
+              nn.Modules, ShallowNet, the C3D tower, the raw-video
+              pipeline, and the carried-state streaming steps
   registry  — name -> model
   bridge    — weights and optimizer moments from the JAX package's trees
   data      — clip datasets and the synthetic corpus (numpy copies), and
               the host-to-device batch copy and its prefetch thread
-  train     — optimizer, train/eval steps, fit loops, checkpoints, metrics
+  train     — optimizer, train/eval steps, fit loops, checkpoints, metrics,
+              ShallowNet pretraining
   eval      — the saliency metrics batched on the device, the NumPy
               protocol, the evaluator, the checkpoint sweep, visualization
   serving   — bundles, the dynamic batcher and the HTTP server
-  cli       — serve, train_gaze, train_fused, evaluate_gaze
+  cli       — serve, train_gaze, train_fused, evaluate_gaze,
+              pretrain_shallownet
 """
 
 __version__ = "0.1.0"

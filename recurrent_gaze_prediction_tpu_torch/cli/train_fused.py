@@ -7,13 +7,16 @@ train step: the port's counterpart of the JAX package's
 
 The tower is frozen by default, or fine-tuned jointly with
 `--finetune_c3d` (its own Adam at `--c3d_lr`). The gaze recurrence trains
-through its kernels (B1 and B2 for gaze_grcn). `--c3d_weights` takes a
-`.caffemodel` (BGR-folded into conv1a at load) or an `.npz` of the JAX
-package's flat C3D layout (a bundle's `c3d_params.npz`).
+through its kernels where they take it (B1 and B2 for gaze_grcn).
+`--c3d_weights` takes a `.caffemodel` (BGR-folded into conv1a at load) or
+an `.npz` of the JAX package's flat C3D layout (a bundle's
+`c3d_params.npz`). `--shallownet_pretrain` grafts a pretrained ShallowNet
+(a file of `cli.pretrain_shallownet`) into a model that has one;
+`--freeze_shallownet` keeps it frozen (as in the JAX package's fused
+trainer, it trains unless this flag is given).
 
 Not ported yet, and refused with exit code 2: `--dataset videos` (its
-loader needs `data/gazemap.py`, ROADMAP.md queue A item 7),
-`--shallownet_pretrain` / `--freeze_shallownet` (item 3) and
+loader needs `data/gazemap.py`, ROADMAP.md queue A item 7) and
 `--data_parallel` / `--model_parallel` (item 6).
 """
 
@@ -31,7 +34,8 @@ from ..config import ExperimentConfig
 from ..models import c3d as c3d_model
 from ..models import pipeline
 from ..registry import available_models, create_model
-from ..train import create_train_state, fused, schedules
+from ..train import (create_train_state, fused, restore_shallownet,
+                     schedules)
 from ..train.state import Optimizer
 from ..train.writer import MetricWriter
 from ..utils import log, resolve_device
@@ -76,8 +80,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--c3d_lr", default=None, type=float,
                         help="separate LR for the tower under "
                              "--finetune_c3d (default: the gaze LR)")
-    parser.add_argument("--shallownet_pretrain", default=None)
-    parser.add_argument("--freeze_shallownet", action="store_true")
+    parser.add_argument("--shallownet_pretrain", default=None,
+                        help="params file to graft into ShallowNet "
+                             "(cli.pretrain_shallownet --out)")
+    parser.add_argument("--freeze_shallownet", action="store_true",
+                        help="keep the ShallowNet subtree frozen")
     parser.add_argument("--data_parallel", default=0, type=int)
     parser.add_argument("--model_parallel", default=1, type=int)
     parser.add_argument("--accum_steps", default=None, type=int,
@@ -119,10 +126,6 @@ def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
         parser.error("--dataset videos: the video + gaze-record loader is "
                      "not ported yet (ROADMAP.md queue A item 7); use "
                      "--dataset synthetic")
-    if args.shallownet_pretrain or args.freeze_shallownet:
-        parser.error("--shallownet_pretrain / --freeze_shallownet: "
-                     "ShallowNet is not ported yet (ROADMAP.md queue A "
-                     "item 3)")
     if args.data_parallel > 1 or args.model_parallel > 1:
         parser.error("--data_parallel / --model_parallel: multi-GPU is not "
                      "ported yet (ROADMAP.md queue A item 6)")
@@ -181,7 +184,10 @@ def main(argv: Optional[list[str]] = None) -> int:
     c3d_params = load_c3d_params(
         args.c3d_weights, torch.Generator().manual_seed(exp.seed + 1),
         device)
-    gaze_state, tx = create_train_state(model, exp.optimizer)
+    if args.shallownet_pretrain:
+        restore_shallownet(model, args.shallownet_pretrain)
+    gaze_state, tx = create_train_state(
+        model, exp.optimizer, freeze_shallownet=args.freeze_shallownet)
     c3d_tx = None
     if args.c3d_lr is not None and not args.finetune_c3d:
         log.warn("--c3d_lr %g has no effect without --finetune_c3d (the "

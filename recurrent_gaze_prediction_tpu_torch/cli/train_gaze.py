@@ -4,15 +4,17 @@ JAX package's `cli/train_gaze.py`.
     python -m recurrent_gaze_prediction_tpu_torch.cli.train_gaze \\
         --dataset synthetic --max_steps 200 --train_dir /tmp/rgp
 
-Model registry selection, config overrides (CLI wins), the synthetic
-corpus, fit with auto-resume from `--train_dir`, then the saliency metrics
-on the whole test split (written as `test/<metric>`). The train step runs
-the ConvGRU through the CUDA kernels (forward B1, backward B2) on the
+Model registry selection (all ten families), config overrides (CLI wins),
+the synthetic corpus, an optional pretrained ShallowNet grafted into the
+model (`--shallownet_pretrain`, a file of `cli.pretrain_shallownet`), fit
+with auto-resume from `--train_dir`, then the saliency metrics on the
+whole test split (written as `test/<metric>`). The train step runs a
+ConvGRU the kernels take through them (forward B1, backward B2) on the
 card. Training batches are prefetched by a worker thread (cast on the
 host, copied on a side stream) unless `--no_prefetch`.
 
 Not ported yet: the real-data loaders (`--dataset crc|hollywood2|crcxh2`
-stop with an error), ShallowNet grafting, profiling and the mesh flags.
+stop with an error), profiling and the mesh flags.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from ..data.datasets import DataSplits
 from ..data.prefetch import prefetch_batches, stream_casts
 from ..eval import evaluator
 from ..registry import available_models, create_model
-from ..train import create_train_state, fit, make_predict_fn
+from ..train import (create_train_state, fit, make_predict_fn,
+                     restore_shallownet)
 from ..train.loop import input_dtype_of
 from ..train.writer import MetricWriter
 from ..utils import log, resolve_device
@@ -68,6 +71,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--n_lstm_steps", default=None, type=int)
     parser.add_argument("--train_dir", default=None)
     parser.add_argument("--train_tag", "--tag", default="")
+    parser.add_argument("--shallownet_pretrain", default=None,
+                        help="params file to graft into ShallowNet "
+                             "(cli.pretrain_shallownet --out)")
     parser.add_argument("--compute_dtype", default=None,
                         choices=[None, "bfloat16", "float32"])
     parser.add_argument("--seed", default=0, type=int)
@@ -117,6 +123,8 @@ def main(argv: Optional[list[str]] = None) -> int:
 
     log.warn("Building model %s on %s ...", args.model, device)
     state, tx = create_train_state(model, exp.optimizer)
+    if args.shallownet_pretrain:
+        restore_shallownet(model, args.shallownet_pretrain)
     writer = MetricWriter(exp.train_dir) if exp.train_dir else None
     input_dtype = input_dtype_of(model)
 

@@ -89,10 +89,10 @@ class ModelConfig:
     # cell's own scan at the others (`recurrence_route`); a CPU tensor runs
     # the kernels' plain PyTorch versions.
     use_pallas: bool = False
-    # rematerialize each recurrence step in the backward pass (kept for
-    # manifest compatibility and has no effect: the port's trainable
-    # recurrence saves only the hidden states and recomputes the gates in
-    # its backward either way)
+    # rematerialize each recurrence step in the backward pass: the
+    # cascade's two cells run `ConvGRU.scan(remat=True)` in training. The
+    # kernels' trainable recurrence (gaze_grcn, gaze_pupil_grcn) saves only
+    # the hidden states and recomputes the gates in its backward either way
     remat_cells: bool = True
 
     def __post_init__(self):

@@ -1,2 +1,3 @@
-"""Gaze models of the port (gaze_grcn, its 7x7 head and gaze_lstm so far),
-and the carried-state streaming steps."""
+"""Gaze models of the port (the ten families of the registry), ShallowNet,
+the C3D tower, the raw-video pipeline and the carried-state streaming
+steps."""

@@ -8,7 +8,8 @@ JAX package's `models/common.py`.
   * `sequence_loss` (summed over T, averaged over B*T or the valid frames);
   * `GazeModel`: the `nn.Module` base with `predict` and `loss`.
 
-Frame-wise work (projection, decoder) runs with T folded into the batch.
+Frame-wise work (projection, decoder, ShallowNet) runs with T folded into
+the batch.
 """
 
 from __future__ import annotations
@@ -216,9 +217,16 @@ class GazeModel(nn.Module):
     raw per-frame logits [B, T, GH, GW]; `predict` post-processes them to
     probability maps when the loss is xentropy/kld."""
 
-    # whether `forward` reads `frames`; the raw-video pipeline computes the
-    # frame stream only for a model that does
+    # whether `forward` reads `frames` / `c3d`; the raw-video pipeline
+    # computes the frame stream, and runs the C3D tower, only for a model
+    # that does (the JAX package's compiled program drops either when the
+    # model ignores it)
     reads_frames = True
+    reads_c3d = True
+    # whether the model holds a ShallowNet subtree that gaze training keeps
+    # frozen by default (`gaze_rnn.py:447-478`); gaze_framewise_shallownet's
+    # ShallowNet is the whole model and trains
+    has_shallownet = False
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()

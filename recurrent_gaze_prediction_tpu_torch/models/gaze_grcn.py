@@ -13,9 +13,10 @@ kernel's wrapper (`ops/kernels/convgru.py`); training runs it through the
 autograd Function `convgru_scan_trainable_v2` (forward kernel B1, backward
 kernel B2, `ops/kernels/convgru_vjp2.py`). On a CPU tensor both use their
 kernels' plain versions. A width the kernels do not take (U not a multiple
-of 16, or a CTA's slice too large for shared memory, e.g. U=256) runs
-`ConvGRU.scan` instead, on any device (`recurrence_route`); the forward
-records the route it took in `last_route`.
+of 16, or a CTA's slice too large for shared memory, e.g. U=256) or
+kernel size (not 3x3) runs `ConvGRU.scan` instead, on any device
+(`convgru_route`); the forward records the route it took in
+`last_route`.
 
 gaze_grcn does not read `frames`, so the raw-video pipeline skips their
 resize for it (`reads_frames`).
@@ -43,8 +44,25 @@ from .common import (GazeModel, apply_c3d_projection, apply_decoder,
                      compute_dtype_of, init_c3d_projection, init_decoder)
 
 
+def convgru_route(cell, hw: tuple[int, int], compute_dtype: torch.dtype,
+                  train: bool) -> str:
+    """"kernel" when the kernels take a ConvGRU cell (params `cell`) on an
+    `hw` grid, judged from its kernel size and units (B1 to predict, B1 and
+    B2 to train), else "scan": the cell's own `ConvGRU.scan`, which runs
+    any width and kernel size, as the JAX package's default path does.
+    Decided from the shapes alone, before any launch."""
+    kernel = ConvGRU.kernel_size(cell)
+    units = cell["U"].shape[-1]
+    takes = convgru.kernel_takes(*hw, units, compute_dtype, kernel)
+    if train:
+        takes = takes and convgru_vjp2.kernel_takes(*hw, units,
+                                                    compute_dtype, kernel)
+    return "kernel" if takes else "scan"
+
+
 class _GRCNTrunk(GazeModel):
-    """Projection + ConvGRU shared by both heads."""
+    """Projection + ConvGRU shared by both heads (and by the pupil
+    prototype gaze_pupil_grcn, `models/gaze_legacy.py`)."""
 
     # The recurrence of the train path. An instance may set `ConvGRU.scan`
     # (plain autograd, the reference the kernels are held against) or
@@ -54,24 +72,19 @@ class _GRCNTrunk(GazeModel):
     last_route: Optional[str] = None
 
     def __init__(self, cfg: ModelConfig, *,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dim_proj: Optional[int] = None):
         super().__init__(cfg)
+        dim_proj = cfg.dim_cnn_proj if dim_proj is None else dim_proj
         self.c3d_proj = nn.ParameterDict(init_c3d_projection(
-            cfg.dim_feature, cfg.dim_cnn_proj, generator=generator))
+            cfg.dim_feature, dim_proj, generator=generator))
         self.cell = nn.ParameterDict(ConvGRU.init(
-            cfg.dim_cnn_proj, cfg.rnn_state_size, generator=generator))
+            dim_proj, cfg.rnn_state_size, generator=generator))
 
     def recurrence_route(self, train: bool) -> str:
-        """"kernel" when the kernels take this width (B1 to predict, B1 and
-        B2 to train), else "scan": the cell's own `ConvGRU.scan`, which runs
-        any width, as the JAX package's default path does. Decided from the
-        shapes alone, before any launch."""
-        cdt = compute_dtype_of(self.cfg)
-        units = self.cfg.rnn_state_size
-        takes = convgru.kernel_takes(7, 7, units, cdt)
-        if train:
-            takes = takes and convgru_vjp2.kernel_takes(7, 7, units, cdt)
-        return "kernel" if takes else "scan"
+        """The route of this model's cell (`convgru_route`)."""
+        return convgru_route(self.cell, (7, 7), compute_dtype_of(self.cfg),
+                             train)
 
     def _states(self, c3d: torch.Tensor, *, keep: float, train: bool,
                 generator: Optional[torch.Generator]) -> torch.Tensor:

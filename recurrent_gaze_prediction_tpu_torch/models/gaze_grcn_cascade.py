@@ -1,0 +1,124 @@
+"""gaze_grcn_cascade, the two-level coarse-to-fine ConvGRU cascade: the
+port's counterpart of the JAX package's `models/gaze_grcn_cascade.py`
+(reference `GazePredictionGRCN`, `models/gaze_grcn_cascade.py:188-481`):
+
+    c3d -> 1024->512 projection (no dropout)
+        -> bottom ConvGRU (256 units, 3x3) at 7x7
+        -> one deconv 11x11 stride 7 SAME over all T*B steps -> [49,49,64]
+        -> top ConvGRU (3 units, 5x5) at 49x49
+        -> per-frame head: fc 4802 + relu + dropout + maxout
+                          -> fc 4802 + relu + maxout -> [49,49]
+
+Both cells run their own `ConvGRU.scan`, as in the JAX package: neither
+is a shape of kernel B1 (U=256 does not fit a CTA's shared memory, and
+the top cell is 5x5), which `convgru_route` decides from the shapes. With
+`cfg.remat_cells` in training, each step of both cells is checkpointed
+(`torch.utils.checkpoint`): the 49x49 top cell's per-step gates are 49x
+the bottom cell's, and autograd would otherwise keep all of them.
+
+The ShallowNet branch feeds nothing in the reference (its concat is
+commented out, `gaze_grcn_cascade.py:370-377`); its parameters are kept
+for parity (`has_shallownet`, frozen by default) and it runs only for a
+caller's `net` introspection dict. The top cell takes the 64 upsampled
+channels where the reference declares 65 (a latent shape bug there,
+`gaze_grcn_cascade.py:17-20`), as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..config import ModelConfig
+from ..ops import initializers as init
+from ..ops.cells import ConvGRU
+from ..ops.layers import conv2d_transpose, dropout, linear, maxout2
+from . import shallownet
+from .common import (GazeModel, apply_c3d_projection, compute_dtype_of,
+                     init_c3d_projection)
+from .gaze_grcn import convgru_route
+
+BOTTOM_UNITS = 256       # gaze_grcn_cascade.py:229
+UP_CHANNELS = 64         # gaze_grcn_cascade.py:318
+TOP_UNITS = 3            # gaze_grcn_cascade.py:346
+TOP_KERNEL = (5, 5)
+FC_WIDTH = 4802
+
+
+class GazeGRCNCascade(GazeModel):
+    reads_frames = False    # the ShallowNet branch feeds nothing
+    has_shallownet = True
+    last_route: Optional[str] = None
+
+    def __init__(self, cfg: ModelConfig, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(cfg)
+        g = generator
+        self.shallownet = nn.ParameterDict(shallownet.init_params(
+            generator=g))
+        self.c3d_proj = nn.ParameterDict(init_c3d_projection(
+            cfg.dim_feature, cfg.dim_cnn_proj, generator=g))
+        self.bottom_cell = nn.ParameterDict(ConvGRU.init(
+            cfg.dim_cnn_proj, BOTTOM_UNITS, generator=g))
+        self.up_w = nn.Parameter(init.xavier_uniform(
+            (11, 11, BOTTOM_UNITS, UP_CHANNELS), generator=g))
+        self.top_cell = nn.ParameterDict(ConvGRU.init(
+            UP_CHANNELS, TOP_UNITS, kernel=TOP_KERNEL, generator=g))
+        self.fc1_w = nn.Parameter(init.xavier_uniform(
+            (49 * 49 * TOP_UNITS, FC_WIDTH), generator=g))
+        self.fc1_b = nn.Parameter(init.zeros((FC_WIDTH,)))
+        self.fc2_w = nn.Parameter(init.xavier_uniform(
+            (FC_WIDTH // 2, FC_WIDTH), generator=g))
+        self.fc2_b = nn.Parameter(init.zeros((FC_WIDTH,)))
+
+    def recurrence_route(self, train: bool) -> str:
+        """"scan": the kernels take neither cell (the bottom cell's U=256
+        and the top cell's 5x5), judged by `convgru_route`."""
+        cdt = compute_dtype_of(self.cfg)
+        routes = {convgru_route(self.bottom_cell, (7, 7), cdt, train),
+                  convgru_route(self.top_cell, (49, 49), cdt, train)}
+        return "kernel" if routes == {"kernel"} else "scan"
+
+    def forward(self, frames, c3d: torch.Tensor, *, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                net: Optional[dict] = None) -> torch.Tensor:
+        cdt = compute_dtype_of(self.cfg)
+        keep = self.cfg.dropout_keep_prob if train else 1.0
+        remat = self.cfg.remat_cells and train
+        b, t = c3d.shape[:2]
+        if net is not None and frames is not None:
+            net["frm_sal"] = shallownet.apply(
+                self.shallownet, frames.reshape(-1, *frames.shape[2:]),
+                train=False, compute_dtype=cdt).reshape(b, t, 49, 49)
+        self.last_route = self.recurrence_route(train)  # always "scan"
+
+        embedded = apply_c3d_projection(self.c3d_proj, c3d, keep_prob=1.0,
+                                        generator=None, train=False,
+                                        compute_dtype=cdt)
+        # bottom recurrence at 7x7
+        h0 = ConvGRU.zero_state(b, (7, 7), BOTTOM_UNITS, device=c3d.device)
+        _, ys = ConvGRU.scan(self.bottom_cell, embedded.transpose(0, 1), h0,
+                             compute_dtype=cdt, remat=remat)
+        # upsample every step at once: [T*B,7,7,256] -> [T*B,49,49,64]
+        up = conv2d_transpose(ys.reshape(t * b, 7, 7, BOTTOM_UNITS),
+                              self.up_w, stride=7, padding="SAME",
+                              compute_dtype=cdt)
+        # top recurrence at 49x49
+        g0 = ConvGRU.zero_state(b, (49, 49), TOP_UNITS, device=c3d.device)
+        _, gs = ConvGRU.scan(self.top_cell,
+                             up.reshape(t, b, 49, 49, UP_CHANNELS), g0,
+                             compute_dtype=cdt, remat=remat)
+        # per-frame maxout head over T*B
+        x = torch.relu(linear(gs.reshape(t * b, -1), self.fc1_w, self.fc1_b,
+                              compute_dtype=cdt))
+        x = maxout2(dropout(x, keep, generator, deterministic=not train))
+        x = maxout2(torch.relu(linear(x, self.fc2_w, self.fc2_b,
+                                      compute_dtype=cdt)))
+        return x.reshape(t, b, 49, 49).transpose(0, 1)
+
+
+def build(cfg: ModelConfig, *,
+          generator: Optional[torch.Generator] = None) -> GazeModel:
+    return GazeGRCNCascade(cfg, generator=generator)

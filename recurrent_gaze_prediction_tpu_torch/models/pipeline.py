@@ -75,26 +75,31 @@ def extract_and_predict(c3d_params: dict, gaze_model: GazeModel,
         raise ValueError(f"need >= 16 frames and >= 16 subsampled offset, "
                          f"got F={f}")
 
-    # --- C3D stream: [B*n_windows, 16, H, W, 3] -> conv5b -> fold
-    n_windows = f // WINDOW
-    clips = video_frames[:, :n_windows * WINDOW].reshape(
-        b * n_windows, WINDOW, *video_frames.shape[2:])
-    clips = c3d_model.preprocess_frames(clips, mean_cube=mean_cube)
-    tower_grad = torch.is_grad_enabled() and any(
-        p.requires_grad for p in c3d_params.values())
-    with torch.set_grad_enabled(tower_grad):
-        if c3d_forward is None:
-            feats = c3d_model.apply(c3d_params, clips, feature_layer="conv5b",
-                                    compute_dtype=compute_dtype)
-        else:
-            feats = c3d_forward(c3d_params, clips)
-    feats = c3d_model.conv5b_to_rgp(feats).reshape(
-        b, n_windows, 1024, 7, 7)[:, :t]
+    # --- C3D stream: [B*n_windows, 16, H, W, 3] -> conv5b -> fold. Run
+    # only for a model that reads the features (not
+    # gaze_framewise_shallownet)
+    feats = None
+    if gaze_model.reads_c3d:
+        n_windows = f // WINDOW
+        clips = video_frames[:, :n_windows * WINDOW].reshape(
+            b * n_windows, WINDOW, *video_frames.shape[2:])
+        clips = c3d_model.preprocess_frames(clips, mean_cube=mean_cube)
+        tower_grad = torch.is_grad_enabled() and any(
+            p.requires_grad for p in c3d_params.values())
+        with torch.set_grad_enabled(tower_grad):
+            if c3d_forward is None:
+                feats = c3d_model.apply(c3d_params, clips,
+                                        feature_layer="conv5b",
+                                        compute_dtype=compute_dtype)
+            else:
+                feats = c3d_forward(c3d_params, clips)
+        feats = c3d_model.conv5b_to_rgp(feats).reshape(
+            b, n_windows, 1024, 7, 7)[:, :t]
 
     # --- frame stream: [15::5], resized to 98x98, [0, 1] scale. Computed
-    # only for a model whose forward reads frames: gaze_grcn and gaze_lstm
-    # ignore them, and the JAX package's compiled program drops this dead
-    # resize for them too.
+    # only for a model whose forward reads frames (of the ten families,
+    # gaze_framewise_shallownet): the others ignore them, and the JAX
+    # package's compiled program drops this dead resize for them too.
     sub = None
     if gaze_model.reads_frames:
         sub = video_frames[:, FRAME_OFFSET::FRAME_STRIDE][:, :t].float()

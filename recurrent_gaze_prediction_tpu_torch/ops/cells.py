@@ -1,11 +1,15 @@
-"""Recurrent cells: the port's counterparts of `ConvGRU` and `ConvLSTM` in
-the JAX package's `ops/cells.py`.
+"""Recurrent cells: the port's counterparts of `ConvGRU`, `ConvLSTM` and
+`FlatGRU` in the JAX package's `ops/cells.py`.
 
-ConvGRU (GRU-RCN): six per-gate 3x3 kernels without biases (Ballas et al.,
-arXiv:1511.06432), stored per gate (W_z, U_z, W_r, U_r, W, U) for
-checkpoint parity and fused into three convs: the input side z|r|candidate
-in one conv hoisted out of the time loop, the state side z|r in one conv,
-and the candidate's state conv after the reset gate.
+ConvGRU (GRU-RCN): six per-gate kernels without biases (Ballas et al.,
+arXiv:1511.06432), 3x3 by default (the cascade's top cell is 5x5), stored
+per gate (W_z, U_z, W_r, U_r, W, U) for checkpoint parity and fused into
+three convs: the input side z|r|candidate in one conv hoisted out of the
+time loop, the state side z|r in one conv, and the candidate's state conv
+after the reset gate. `scan(..., remat=True)` checkpoints each step
+(`torch.utils.checkpoint`), the counterpart of the JAX package's
+`jax.checkpoint`: the backward recomputes a step's gates instead of
+keeping them, and no number changes.
 
 ConvLSTM (peephole): eight 3x3 kernels without biases and three
 elementwise peephole weights W_ci/W_cf/W_co [H, W, U], fused into two
@@ -13,6 +17,10 @@ convs (the input side i|f|c|o hoisted out of the time loop, the state side
 i|f|c|o). Two deviations from the reference are intended and kept, as in
 the JAX package: the candidate convolves h with W_hc (the reference uses
 W_hi there), and the output gate peeps at the OLD cell state.
+
+FlatGRU: TF's `GRUCell` on flat vectors (the flat gaze_rnn and the pupil
+prototype gaze_pupil_gru2), with its input-side matmuls hoisted out of the
+time loop. No TPU kernel covers it, so it has no CUDA kernel either.
 
 `ConvGRU.scan` and `ConvLSTM.scan` are the PLAIN versions of the
 hand-written CUDA kernels (`ops/kernels/convgru.py`,
@@ -25,9 +33,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import initializers as init
-from .layers import conv2d
+from .layers import conv2d, linear
 
 
 class ConvGRU:
@@ -40,10 +49,12 @@ class ConvGRU:
     """
 
     @staticmethod
-    def init(dim_feature: int, num_units: int, stddev: float = 1e-4, *,
+    def init(dim_feature: int, num_units: int,
+             kernel: tuple[int, int] = (3, 3), stddev: float = 1e-4, *,
              generator: Optional[torch.Generator] = None) -> dict:
-        shape_w = (3, 3, dim_feature, num_units)
-        shape_u = (3, 3, num_units, num_units)
+        kh, kw = kernel
+        shape_w = (kh, kw, dim_feature, num_units)
+        shape_u = (kh, kw, num_units, num_units)
         return {
             name: init.truncated_normal(shape, stddev, generator=generator)
             for name, shape in (("W_z", shape_w), ("U_z", shape_u),
@@ -87,17 +98,23 @@ class ConvGRU:
 
     @staticmethod
     def scan_precomputed(fused: dict, wx_all: torch.Tensor,
-                         h0: torch.Tensor, compute_dtype=None
+                         h0: torch.Tensor, compute_dtype=None,
+                         remat: bool = False
                          ) -> tuple[torch.Tensor, torch.Tensor]:
         """The recurrence over precomputed input gates wx_all
         [T, B, H, W, 3U] -> (final_h, ys [T, B, H, W, U]): the plain
-        version of exactly what the CUDA kernel computes."""
+        version of exactly what the CUDA kernel computes. `remat=True`
+        checkpoints each step: autograd keeps only its inputs h and wx."""
+        def step(h, wx):
+            return ConvGRU.step_precomputed(fused, h, wx,
+                                            compute_dtype=compute_dtype)[0]
+
         h = h0
         ys = []
         for wx in wx_all:
-            h, y = ConvGRU.step_precomputed(fused, h, wx,
-                                            compute_dtype=compute_dtype)
-            ys.append(y)
+            h = (checkpoint(step, h, wx, use_reentrant=False) if remat
+                 else step(h, wx))
+            ys.append(h)
         return h, torch.stack(ys)
 
     @staticmethod
@@ -113,13 +130,21 @@ class ConvGRU:
 
     @staticmethod
     def scan(params, x_tbhwc: torch.Tensor, h0: torch.Tensor,
-             compute_dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
+             compute_dtype=None, remat: bool = False
+             ) -> tuple[torch.Tensor, torch.Tensor]:
         """Run over time-major inputs [T, B, H, W, C] -> (final_h,
         outputs [T, B, H, W, U]). The input-side conv is hoisted out of
-        the loop; only the state convs stay sequential."""
+        the loop; only the state convs stay sequential. `remat=True`
+        rematerializes each step in the backward pass."""
         fused = ConvGRU.fuse(params)
         wx_all = ConvGRU.input_gates(fused, x_tbhwc, compute_dtype)
-        return ConvGRU.scan_precomputed(fused, wx_all, h0, compute_dtype)
+        return ConvGRU.scan_precomputed(fused, wx_all, h0, compute_dtype,
+                                        remat)
+
+    @staticmethod
+    def kernel_size(params) -> tuple[int, int]:
+        """The (kh, kw) of a cell's kernels."""
+        return tuple(params["U"].shape[:2])
 
 
 class ConvLSTM:
@@ -235,3 +260,73 @@ class ConvLSTM:
         fused = ConvLSTM.fuse(params)
         gx_all = ConvLSTM.input_gates(fused, x_tbhwc, compute_dtype)
         return ConvLSTM.scan_precomputed(fused, gx_all, carry0, compute_dtype)
+
+
+class FlatGRU:
+    """TF `tf.nn.rnn_cell.GRUCell` semantics (reference `gaze_rnn.py:315`):
+
+        [r, u] = sigmoid([x, h] @ W_gates + b_gates)   # b_gates init 1.0
+        c      = tanh([x, r * h] @ W_cand + b_cand)
+        h'     = u * h + (1 - u) * c
+
+    The gate split is [r, u], reset first, as TF's.
+    """
+
+    @staticmethod
+    def init(dim_input: int, num_units: int, *,
+             generator: Optional[torch.Generator] = None) -> dict:
+        return {
+            "gates_kernel": init.orthogonal(
+                (dim_input + num_units, 2 * num_units), generator=generator),
+            "gates_bias": init.constant(1.0, (2 * num_units,)),
+            "candidate_kernel": init.orthogonal(
+                (dim_input + num_units, num_units), generator=generator),
+            "candidate_bias": init.zeros((num_units,)),
+        }
+
+    @staticmethod
+    def step(params, h: torch.Tensor, x: torch.Tensor,
+             compute_dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
+        units = h.shape[-1]
+        gates = torch.sigmoid(linear(torch.cat([x, h], dim=-1),
+                                     params["gates_kernel"],
+                                     params["gates_bias"],
+                                     compute_dtype=compute_dtype))
+        r, u = gates.split(units, dim=-1)
+        c = torch.tanh(linear(torch.cat([x, r * h], dim=-1),
+                              params["candidate_kernel"],
+                              params["candidate_bias"],
+                              compute_dtype=compute_dtype))
+        new_h = u * h + (1.0 - u) * c
+        return new_h, new_h
+
+    @staticmethod
+    def zero_state(batch: int, num_units: int, *, device=None,
+                   dtype=torch.float32) -> torch.Tensor:
+        return torch.zeros((batch, num_units), dtype=dtype, device=device)
+
+    @staticmethod
+    def scan(params, x_tbc: torch.Tensor, h0: torch.Tensor,
+             compute_dtype=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """Time-major inputs [T, B, D] -> (final_h, ys [T, B, U]). The
+        kernels' input rows (x @ W[:D]) run for all T at once; only the
+        state rows (h @ W[D:]) stay on the sequential path."""
+        t, b, d = x_tbc.shape
+        units = h0.shape[-1]
+        gk, ck = params["gates_kernel"], params["candidate_kernel"]
+        flat_x = x_tbc.reshape(t * b, d)
+        gx_all = linear(flat_x, gk[:d], params["gates_bias"],
+                        compute_dtype=compute_dtype).reshape(t, b, -1)
+        cx_all = linear(flat_x, ck[:d], params["candidate_bias"],
+                        compute_dtype=compute_dtype).reshape(t, b, -1)
+        h = h0
+        ys = []
+        for gx, cx in zip(gx_all, cx_all):
+            gates = torch.sigmoid(gx + linear(h, gk[d:],
+                                              compute_dtype=compute_dtype))
+            r, u = gates.split(units, dim=-1)
+            c = torch.tanh(cx + linear(r * h, ck[d:],
+                                       compute_dtype=compute_dtype))
+            h = u * h + (1.0 - u) * c
+            ys.append(h)
+        return h, torch.stack(ys)

@@ -55,3 +55,27 @@ def uniform_scale(shape: Sequence[int], scale: float = 0.1, *,
                   ) -> torch.Tensor:
     """`tf.random_uniform([-scale, scale])` used for projection weights."""
     return _uniform(shape, -scale, scale, generator)
+
+
+def orthogonal(shape: Sequence[int], *,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Orthogonal init of a 2-D kernel (the flat GRU's,
+    `models/gaze_rnn.py:315`), as `jax.nn.initializers.orthogonal()`: the
+    Q of a QR decomposition of a standard normal draw, its columns' signs
+    fixed by R's diagonal, so the rows (or columns, whichever are fewer)
+    are orthonormal."""
+    if len(shape) != 2:
+        raise ValueError(f"orthogonal init expects a 2-D shape, got {shape}")
+    rows, cols = shape
+    a = torch.randn((max(rows, cols), min(rows, cols)), generator=generator)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    return (q if rows >= cols else q.T).contiguous()
+
+
+def zeros(shape: Sequence[int]) -> torch.Tensor:
+    return torch.zeros(tuple(shape))
+
+
+def constant(value: float, shape: Sequence[int]) -> torch.Tensor:
+    return torch.full(tuple(shape), float(value))

@@ -124,13 +124,17 @@ def smem_bytes(h: int, w: int, units: int, elem: int) -> int:
             + align128(2 * 3 * hw * ns * elem))
 
 
-def kernel_takes(h: int, w: int, units: int, dtype: torch.dtype) -> bool:
-    """Whether kernel B1 takes a recurrence of U units on an H x W grid in
-    `dtype` (the dtype of wx): U a positive multiple of 16, and one CTA's
-    shared memory (`smem_bytes`) within what `check_fits` allows. A pure
-    function of the shapes: the models decide their route with it before
-    any launch, and `_launch` still raises on what it refuses."""
-    return (dtype in _DTYPES and units >= 16 and units % 16 == 0
+def kernel_takes(h: int, w: int, units: int, dtype: torch.dtype,
+                 kernel: tuple[int, int] = (3, 3)) -> bool:
+    """Whether kernel B1 takes a recurrence of U units with `kernel`-sized
+    state convs on an H x W grid in `dtype` (the dtype of wx): a 3x3 cell
+    (the kernel's convs are 3x3; the cascade's 5x5 top cell is not), U a
+    positive multiple of 16, and one CTA's shared memory (`smem_bytes`)
+    within what `check_fits` allows. A pure function of the shapes: the
+    models decide their route with it before any launch, and `_launch`
+    still raises on what it refuses."""
+    return (tuple(kernel) == (3, 3) and dtype in _DTYPES and units >= 16
+            and units % 16 == 0
             and smem_bytes(h, w, units, _DTYPES[dtype]) <= SMEM_LIMIT)
 
 

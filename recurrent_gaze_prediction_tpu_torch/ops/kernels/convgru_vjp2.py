@@ -85,11 +85,13 @@ def smem_bytes(h: int, w: int, units: int, elem: int) -> int:
             + align128(hw * ns * 4) + align128(5 * hw * ns * 4))
 
 
-def kernel_takes(h: int, w: int, units: int, dtype: torch.dtype) -> bool:
-    """Whether kernel B2 takes U units on an H x W grid with conv operands
-    in `dtype` (bf16, or f32 for compute dtype None), reckoned as
-    `convgru.kernel_takes` is for B1."""
-    return (dtype in _DTYPES and units >= 16 and units % 16 == 0
+def kernel_takes(h: int, w: int, units: int, dtype: torch.dtype,
+                 kernel: tuple[int, int] = (3, 3)) -> bool:
+    """Whether kernel B2 takes U units of a `kernel`-sized cell on an H x W
+    grid with conv operands in `dtype` (bf16, or f32 for compute dtype
+    None), reckoned as `convgru.kernel_takes` is for B1: 3x3 only."""
+    return (tuple(kernel) == (3, 3) and dtype in _DTYPES and units >= 16
+            and units % 16 == 0
             and smem_bytes(h, w, units, _DTYPES[dtype]) <= SMEM_LIMIT)
 
 

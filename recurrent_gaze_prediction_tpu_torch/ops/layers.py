@@ -1,5 +1,5 @@
-"""Core NN ops on the port's paths: conv / deconv / 3-D conv and pool /
-linear / dropout / frozen batch norm.
+"""Core NN ops on the port's paths: conv / deconv / 2-D and 3-D pools /
+3-D conv / linear / maxout / dropout / frozen batch norm.
 
 Plain tensor functions with the JAX package's layouts at the interface:
 NHWC activations and HWIO kernels (`ops/layers.py` there), so the tests
@@ -93,6 +93,53 @@ def conv2d_transpose(x: torch.Tensor, kernel: torch.Tensor, *, stride: int,
     return _cast(out, out_dtype if out_dtype is not None else torch.float32)
 
 
+def _pool_pads(x: torch.Tensor, window: tuple[int, int],
+               stride: tuple[int, int], padding: str) -> list[int]:
+    """F.pad's list for an NCHW tensor under TF/XLA SAME (the extra pad at
+    the high end) or VALID."""
+    if padding == "VALID":
+        return [0, 0, 0, 0]
+    if padding != "SAME":
+        raise ValueError(f"padding must be SAME|VALID, got {padding!r}")
+    ph = _same_pads(x.shape[2], window[0], stride[0])
+    pw = _same_pads(x.shape[3], window[1], stride[1])
+    return [pw[0], pw[1], ph[0], ph[1]]
+
+
+def _pair(v) -> tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def max_pool2d(x: torch.Tensor, window, stride,
+               padding: str = "SAME") -> torch.Tensor:
+    """2-D max pool over NHWC with the JAX package's `reduce_window`
+    semantics: SAME pads with -inf, the extra pad on the high side (an
+    explicit pad, since `F.max_pool2d(padding=)` pads both sides
+    equally)."""
+    window, stride = _pair(window), _pair(stride)
+    xc = x.permute(0, 3, 1, 2)
+    pads = _pool_pads(xc, window, stride, padding)
+    if any(pads):
+        xc = F.pad(xc, pads, value=float("-inf"))
+    return F.max_pool2d(xc, window, stride).permute(0, 2, 3, 1)
+
+
+def avg_pool2d(x: torch.Tensor, window, stride,
+               padding: str = "VALID") -> torch.Tensor:
+    """2-D average pool over NHWC; under SAME each window is divided by the
+    count of its real (unpadded) elements, as in the JAX package."""
+    window, stride = _pair(window), _pair(stride)
+    xc = x.permute(0, 3, 1, 2)
+    pads = _pool_pads(xc, window, stride, padding)
+    if not any(pads):
+        return F.avg_pool2d(xc, window, stride).permute(0, 2, 3, 1)
+    summed = F.avg_pool2d(F.pad(xc, pads), window, stride,
+                          divisor_override=1)
+    ones = F.pad(torch.ones_like(xc[:1, :1]), pads)
+    counts = F.avg_pool2d(ones, window, stride, divisor_override=1)
+    return (summed / counts).permute(0, 2, 3, 1)
+
+
 def _same_pads_3d(x: torch.Tensor, window, stride) -> list[tuple[int, int]]:
     return [_same_pads(size, k, s)
             for size, k, s in zip(x.shape[2:], window, stride)]
@@ -174,6 +221,13 @@ def linear(x: torch.Tensor, w: torch.Tensor,
     if b is not None:
         out = out + b.float()
     return _cast(out, out_dtype)
+
+
+def maxout2(x: torch.Tensor) -> torch.Tensor:
+    """Split the last dim in two halves and take their elementwise max
+    (`models/saliency_shallownet.py:157-158,178-179`)."""
+    a, b = x.chunk(2, dim=-1)
+    return torch.maximum(a, b)
 
 
 def dropout(x: torch.Tensor, rate_keep: float,

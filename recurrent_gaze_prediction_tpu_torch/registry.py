@@ -1,8 +1,8 @@
 """Model registry: string name -> model builder + per-model config defaults.
 
-The port's counterpart of the JAX package's `registry.py`, holding the
-families ported so far (`gaze_grcn`, `gaze_grcn77`, `gaze_lstm`) with the
-same defaults and precedence rules. Any other name raises KeyError.
+The port's counterpart of the JAX package's `registry.py`: the same ten
+families with the same defaults and precedence rules. Any other name
+raises KeyError.
 """
 
 from __future__ import annotations
@@ -13,10 +13,17 @@ from typing import Callable, Optional
 import torch
 
 from .config import ModelConfig
-from .models import gaze_grcn, gaze_lstm
+from .models import (gaze_c3d_conv, gaze_framewise_shallownet, gaze_grcn,
+                     gaze_grcn_cascade, gaze_legacy, gaze_lstm, gaze_rnn)
 from .utils import resolve_device
 
 _REGISTRY: dict[str, tuple[Callable, dict]] = {
+    "gaze_rnn": (gaze_rnn.build, dict(
+        gazemap_height=49, gazemap_width=49, n_lstm_steps=42, batch_size=7,
+        dim_cnn_proj=32, loss_type="xentropy")),
+    "gaze_rnn77": (gaze_rnn.build, dict(
+        gazemap_height=7, gazemap_width=7, n_lstm_steps=35, batch_size=7,
+        dim_cnn_proj=32, loss_type="l2")),
     "gaze_grcn": (gaze_grcn.build, dict(
         gazemap_height=49, gazemap_width=49, n_lstm_steps=42, batch_size=7,
         dim_cnn_proj=512, rnn_state_size=128, loss_type="xentropy")),
@@ -26,6 +33,24 @@ _REGISTRY: dict[str, tuple[Callable, dict]] = {
     "gaze_lstm": (gaze_lstm.build, dict(
         gazemap_height=49, gazemap_width=49, n_lstm_steps=42, batch_size=7,
         dim_cnn_proj=512, rnn_state_size=128, loss_type="xentropy")),
+    "gaze_grcn_cascade": (gaze_grcn_cascade.build, dict(
+        gazemap_height=49, gazemap_width=49, n_lstm_steps=42, batch_size=7,
+        dim_cnn_proj=512, loss_type="l2")),
+    "gaze_c3d_conv": (gaze_c3d_conv.build, dict(
+        gazemap_height=49, gazemap_width=49, n_lstm_steps=42, batch_size=7,
+        dim_cnn_proj=512, loss_type="xentropy")),
+    "gaze_framewise_shallownet": (gaze_framewise_shallownet.build, dict(
+        gazemap_height=49, gazemap_width=49, n_lstm_steps=35, batch_size=5,
+        loss_type="l2")),
+    # the legacy prototypes with pupil heads (model_gru_rcn.py,
+    # model_2layer_gru.py); gaze_pupil_grcn's gaze loss is l2 on the raw
+    # joint logits (model_gru_rcn.py:135-136), so it predicts raw maps
+    "gaze_pupil_grcn": (gaze_legacy.build_grcn, dict(
+        gazemap_height=7, gazemap_width=7, n_lstm_steps=35, batch_size=7,
+        dim_cnn_proj=32, rnn_state_size=64, loss_type="l2")),
+    "gaze_pupil_gru2": (gaze_legacy.build_gru2, dict(
+        gazemap_height=7, gazemap_width=7, n_lstm_steps=35, batch_size=7,
+        dim_cnn_proj=32, rnn_state_size=128, loss_type="xentropy")),
 }
 
 
@@ -33,12 +58,14 @@ def available_models() -> list[str]:
     return sorted(_REGISTRY)
 
 
+def model_defaults(name: str) -> dict:
+    return dict(_entry(name)[1])
+
+
 def _entry(name: str) -> tuple[Callable, dict]:
     if name not in _REGISTRY:
         raise KeyError(
-            f"model family '{name}' is not yet ported to the PyTorch "
-            f"package (ported: {available_models()}; the rest are queued "
-            f"in ROADMAP.md queue A)")
+            f"Unknown model '{name}'. Available: {available_models()}")
     return _REGISTRY[name]
 
 

@@ -243,10 +243,16 @@ def server_from_bundle(bundle_dir: str, *, program: str = "predict",
     wire = WIRE_DTYPES[meta.get("wire_dtype", "float32")]
     t = meta.get("t", cfg.n_lstm_steps)
 
+    def on_card(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(dev).to(wire).float()
+
     def predict_fn(frames: np.ndarray, c3d: np.ndarray) -> np.ndarray:
-        # frames stay on the host: the ported models do not read them
-        feats = torch.from_numpy(c3d).to(dev).to(wire).float()
-        return model.predict(torch.from_numpy(frames), feats).cpu().numpy()
+        # each stream goes up only for a model that reads it (frames:
+        # gaze_framewise_shallownet alone, which reads no features)
+        frames_in = (on_card(frames) if model.reads_frames
+                     else torch.from_numpy(frames))
+        feats = on_card(c3d) if model.reads_c3d else torch.from_numpy(c3d)
+        return model.predict(frames_in, feats).cpu().numpy()
 
     return GazeServer(
         predict_fn, ("frames", "c3d"), host=host, port=port,

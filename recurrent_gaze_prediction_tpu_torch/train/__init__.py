@@ -3,7 +3,8 @@ from raw video), checkpoints and the metric writer (the port's counterpart
 of the JAX package's `train/`)."""
 
 from . import schedules
-from .checkpoint import Checkpointer
+from .checkpoint import (Checkpointer, load_params, restore_shallownet,
+                         save_params)
 from .fused import FusedTrainState, fit_fused
 from .loop import fit
 from .state import (Optimizer, TrainState, build_optimizer, build_schedule,
@@ -25,4 +26,7 @@ __all__ = [
     "FusedTrainState",
     "fit_fused",
     "Checkpointer",
+    "save_params",
+    "load_params",
+    "restore_shallownet",
 ]

@@ -13,9 +13,18 @@ package's `train/checkpoint.py`, with its layout.
     under the JAX package's flat names ("cell/W_z"), on the CPU, with
     `torch.save`.
 
-Reading the JAX package's orbax checkpoints is out of scope: the port does
-not import orbax. Weights cross between the packages through bundles
-(`serving/bundle.py`) and `bridge.py`.
+  * `save_params` / `load_params`: a params-only file (a pretrained
+    ShallowNet, `cli.pretrain_shallownet`) in the port's own format, a
+    `torch.save` of {flat JAX name: CPU tensor};
+  * `restore_shallownet` grafts such a file's ShallowNet into a gaze
+    model's `shallownet.*` parameters, the counterpart of the reference's
+    per-variable assign surgery (`models/gaze_rnn.py:412-433`).
+
+Reading the JAX package's orbax checkpoints (its `save_params` writes
+orbax) is out of scope: the port does not import orbax, and the card's
+machine has no jax. They wait for the converter script of ROADMAP.md queue
+A item 7, which runs where jax is. Weights cross between the packages
+through bundles (`serving/bundle.py`) and `bridge.py`.
 """
 
 from __future__ import annotations
@@ -144,3 +153,57 @@ class Checkpointer:
     @staticmethod
     def load_config(train_dir: str) -> ExperimentConfig:
         return ExperimentConfig.load(os.path.join(train_dir, "config.json"))
+
+
+_PARAMS_FORMAT = "rgp_torch_params/1"
+
+
+def save_params(path: str, params: dict) -> None:
+    """Write a params-only file: {flat JAX name ("conv1_w", "cell/W_z"):
+    tensor} on the CPU. Refuses an existing path (as the JAX package's
+    orbax writer does), before anything is written."""
+    if os.path.exists(path):
+        raise FileExistsError(f"{path} already exists; remove it or pick a "
+                              f"fresh path")
+    parent = os.path.dirname(os.path.abspath(path))
+    os.makedirs(parent, exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    torch.save({"format": _PARAMS_FORMAT, "params": _by_jax_name(params)},
+               tmp)
+    os.replace(tmp, path)
+
+
+def load_params(path: str) -> dict:
+    """The {flat JAX name: CPU tensor} dict of a `save_params` file."""
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(saved, dict) or saved.get("format") != _PARAMS_FORMAT:
+        raise ValueError(f"{path} is not a params file of this package "
+                         f"(save_params); the JAX package's orbax "
+                         f"checkpoints need converting first")
+    return saved["params"]
+
+
+def restore_shallownet(model, path: str):
+    """Graft a pretrained ShallowNet (a `save_params` file of its params,
+    as `cli.pretrain_shallownet` writes) into `model`'s `shallownet.*`
+    parameters, in place; returns the model. Only the ShallowNet is
+    touched: the optimizer's moments are never read or written here."""
+    if not hasattr(model, "shallownet"):
+        raise ValueError(f"model {model.cfg.name} has no 'shallownet' "
+                         f"subtree")
+    loaded = load_params(path)
+    target = model.shallownet
+    want = set(target.keys())
+    if set(loaded) != want:
+        raise ValueError(f"{path}: ShallowNet params do not match: missing "
+                         f"{sorted(want - set(loaded))}, unexpected "
+                         f"{sorted(set(loaded) - want)}")
+    with torch.no_grad():
+        for name, p in target.items():
+            if tuple(loaded[name].shape) != tuple(p.shape):
+                raise ValueError(f"{path}: {name} has shape "
+                                 f"{tuple(loaded[name].shape)}, the model "
+                                 f"{tuple(p.shape)}")
+            p.copy_(loaded[name])
+    log.info("Loaded pretrained ShallowNet from %s", path)
+    return model

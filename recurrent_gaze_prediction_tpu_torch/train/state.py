@@ -11,6 +11,9 @@ counterpart of the JAX package's `train/state.py`.
   * two parameter groups: a top-level `shallownet` subtree gets zero
     updates when frozen (reference `models/gaze_rnn.py:459-476`); the clip's
     norm covers the trained group only, as optax's `multi_transform` does.
+    `create_train_state` freezes it by default only in a model that
+    declares `has_shallownet` (gaze_rnn, gaze_grcn_cascade):
+    gaze_framewise_shallownet's ShallowNet is the whole model and trains.
   * the LR schedule is a function of the update count, so resume restores
     the right LR.
   * the flip augmentation mirrors exactly floor(B/2) samples of the batch,
@@ -93,7 +96,7 @@ class Optimizer:
         """One update of `params` and `opt_state` from `grads`, in place."""
         names = [n for n in params if n not in self.frozen]
         g = {n: grads[n].float() for n in names}
-        if self.max_grad_norm > 0:
+        if self.max_grad_norm > 0 and g:  # g is empty when all is frozen
             norm = global_norm(g.values())
             keep = norm < self.max_grad_norm
             g = {n: torch.where(keep, t, t / norm * self.max_grad_norm)
@@ -141,9 +144,15 @@ def create_train_state(model: GazeModel, opt_cfg: OptimizerConfig,
                        freeze_shallownet: Optional[bool] = None
                        ) -> tuple[TrainState, Optimizer]:
     """The state of a fresh run on `model`'s parameters (the model was
-    initialized from its generator when it was built)."""
+    initialized from its generator when it was built). The `shallownet.*`
+    group is frozen when `freeze_shallownet` is True, or when it is None
+    and both `opt_cfg.freeze_shallownet` and `model.has_shallownet`
+    hold."""
     params = dict(model.named_parameters())
-    tx = build_optimizer(opt_cfg, params, freeze_shallownet)
+    freeze = freeze_shallownet
+    if freeze is None:
+        freeze = opt_cfg.freeze_shallownet and model.has_shallownet
+    tx = build_optimizer(opt_cfg, params, freeze_shallownet=freeze)
     return TrainState(params=params, opt_state=tx.init(params), step=0), tx
 
 
@@ -174,7 +183,8 @@ def random_half_flip(batch: dict, generator: torch.Generator,
 def flip_half_batch(batch: dict, generator: torch.Generator) -> dict:
     """Mirror a random half of the batch horizontally: frames [B,T,H,W,3]
     on W, gazemaps/fixationmaps [B,T,GH,GW] on W, and c3d [B,T,1024,7,7]
-    on its last axis (`gaze_rnn.py:502-510`)."""
+    on its last axis (`gaze_rnn.py:502-510`). Other keys (pupils [B,T], a
+    scalar per frame) pass as they are."""
     return random_half_flip(batch, generator, {"frames": 3, "gazemaps": 3,
                                                "c3d": 4, "fixationmaps": 3})
 

@@ -13,21 +13,29 @@ from recurrent_gaze_prediction_tpu_torch.bridge import (
     flatten_params, params_from_jax, params_to_jax, unflatten_params)
 from recurrent_gaze_prediction_tpu_torch.serving import (
     load_bundle, save_bundle)
+from test_torch_zoo import torch_threads_per_worker  # noqa: F401
 
 WIDTHS = dict(dim_feature=16, dim_cnn_proj=8, rnn_state_size=8,
               n_lstm_steps=3, compute_dtype="float32")
 
 
 def _jax_params(name):
-    params = jregistry.create_model(name, **WIDTHS).init(
-        jax.random.PRNGKey(0))
-    return jax.tree_util.tree_map(np.asarray, params)
+    """The JAX model's params tree: its init's names and shapes (from
+    `jax.eval_shape`, so the full-width zoo does not draw 84 M random
+    numbers), filled with distinct position-dependent values."""
+    shapes = jax.eval_shape(jregistry.create_model(name, **WIDTHS).init,
+                            jax.random.PRNGKey(0))
+    return jax.tree_util.tree_map(
+        lambda s: (np.arange(int(np.prod(s.shape)), dtype=np.float32) % 251
+                   ).reshape(s.shape), shapes)
 
 
-@pytest.mark.parametrize("name", ["gaze_grcn", "gaze_grcn77", "gaze_lstm"])
+@pytest.mark.parametrize("name", jregistry.available_models())
 def test_param_names_and_shapes_match_jax(name):
     """The port's state dict is the JAX tree under the same names and
-    shapes, and both directions invert each other."""
+    shapes (the nested `shallownet.*`, `bottom_cell.*`, `top_cell.*` and
+    FlatGRU's `cell.gates_kernel` included), and both directions invert
+    each other, for every family."""
     jparams = _jax_params(name)
     model = registry.create_model(name, device="cpu", **WIDTHS)
     ported = params_to_jax(model)

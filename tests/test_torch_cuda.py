@@ -4,7 +4,8 @@ PyTorch versions at shapes chip_smoke.py does not cover, and the cluster
 kernels' (B1, B2, B3) shared-memory reckoning and refusal of widths that do
 not fit; the models' routing of other widths to the plain scan (fault C1);
 the raw-video front (the C3D tower's bf16 gate, fused predict and two
-`cli.train_fused` steps, with launch counts); and evaluation (the metrics
+`cli.train_fused` steps, with launch counts); each family of the model
+zoo's predict in bf16 against f32; and evaluation (the metrics
 on the card against the CPU, one B1 launch per evaluated batch) and the
 prefetched trainer against the inline one. They skip without a card. This
 file imports torch only (no jax), so on a machine with a card it runs
@@ -61,6 +62,8 @@ def _inputs(t, b, hw, units, dtype, device, seed=0):
 # batch) and 32 in two
 CLUSTER_SHAPES = [(4, 1, (7, 7), 128), (4, 8, (7, 7), 128),
                   (4, 28, (7, 7), 128)]
+# U=64 (gaze_pupil_grcn) runs on clusters of 4 CTAs of 16 channels each
+C4_SHAPES = [(4, 1, (7, 7), 64), (4, 7, (7, 7), 64), (4, 28, (7, 7), 64)]
 
 
 @pytest.mark.parametrize("t,b,hw,units", [
@@ -68,7 +71,7 @@ CLUSTER_SHAPES = [(4, 1, (7, 7), 128), (4, 8, (7, 7), 128),
     (5, 3, (7, 7), 32),
     (4, 2, (5, 9), 48),
     (3, 32, (7, 7), 128),
-] + CLUSTER_SHAPES)
+] + CLUSTER_SHAPES + C4_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_convgru_kernel_matches_plain(cuda_no_tf32, t, b, hw, units, dtype):
     fused, wx, h0 = _inputs(t, b, hw, units, dtype, cuda_no_tf32)
@@ -167,7 +170,8 @@ def _gates(t, b, hw, units, device, seed):
 
 # B2 at U=128 also at B=1 and 28 (SHAPES holds B=8)
 @pytest.mark.parametrize("t,b,hw,units",
-                         SHAPES + [CLUSTER_SHAPES[0], CLUSTER_SHAPES[2]])
+                         SHAPES + [CLUSTER_SHAPES[0], CLUSTER_SHAPES[2]]
+                         + C4_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_convgru_bwd_kernel_matches_plain(cuda_no_tf32, t, b, hw, units,
                                           dtype):
@@ -320,6 +324,48 @@ def test_predict_routes_widths_the_kernels_do_not_take_to_the_scan(
     assert maps.shape == (2, 5, 49, 49) and bool(torch.isfinite(maps).all())
     sums = maps.reshape(10, -1).sum(-1)
     assert float((sums - 1).abs().max()) <= 1e-3
+
+
+# ------------------------------------------------------------ the model zoo
+
+ZOO = ["gaze_rnn", "gaze_rnn77", "gaze_c3d_conv",
+       "gaze_framewise_shallownet", "gaze_grcn_cascade", "gaze_pupil_grcn",
+       "gaze_pupil_gru2"]
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_zoo_family_predicts_on_the_card(cuda_no_tf32, name):
+    """Each zoo family below predicts at its registry width in bf16:
+    finite, corr >= 0.999 against the same weights in f32 (TF32 off);
+    gaze_pupil_grcn launches B1 once (U=64, clusters of 4), the others no
+    recurrence kernel."""
+    from recurrent_gaze_prediction_tpu_torch import registry
+
+    gen = torch.Generator().manual_seed(0)
+    model = registry.create_model(name, n_lstm_steps=5, device=cuda_no_tf32,
+                                  compute_dtype="bfloat16", generator=gen)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.startswith("cell.") and p.dim() == 4:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+    rng = np.random.RandomState(1)
+    frames = torch.from_numpy(rng.rand(2, 5, 98, 98, 3).astype(
+        np.float32)).to(cuda_no_tf32)
+    c3d = torch.from_numpy(rng.randn(2, 5, 1024, 7, 7).astype(
+        np.float32)).to(cuda_no_tf32)
+    before = (kconv.launches, klstm.launches, v2.launches, v1.launches)
+    maps = model.predict(frames, c3d)
+    torch.cuda.synchronize()
+    launched = [a - b for a, b in zip(
+        (kconv.launches, klstm.launches, v2.launches, v1.launches), before)]
+    want = [1, 0, 0, 0] if name == "gaze_pupil_grcn" else [0, 0, 0, 0]
+    assert launched == want
+    model.cfg.compute_dtype = "float32"
+    f32 = model.predict(frames, c3d)
+    gh = model.cfg.gazemap_height
+    assert maps.shape == (2, 5, gh, gh) and bool(torch.isfinite(maps).all())
+    a, b = maps.float().flatten().cpu(), f32.flatten().cpu()
+    assert float(torch.corrcoef(torch.stack([a, b]))[0, 1]) >= 0.999
 
 
 # -------------------------------------------------------- the raw-video front

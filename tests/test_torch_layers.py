@@ -56,6 +56,20 @@ def _deconv_bf16(rng):
     return j, t, BF16
 
 
+def _pool(rng, fn, hw, window, stride, padding):
+    """max_pool2d / avg_pool2d with the JAX package's SAME (the extra pad on
+    the high side) on odd and even sizes."""
+    x = _arr(rng, 2, *hw, 3)
+    j = getattr(jl, fn)(jnp.asarray(x), window, stride, padding)
+    t = getattr(tl, fn)(torch.from_numpy(x), window, stride, padding)
+    return j, t, F32
+
+
+def _maxout(rng):
+    x = _arr(rng, 4, 10)
+    return jl.maxout2(jnp.asarray(x)), tl.maxout2(torch.from_numpy(x)), F32
+
+
 def _frozen_bn(rng):
     x, s, o = _arr(rng, 3, 7, 7, 5), _arr(rng, 5), _arr(rng, 5)
     j = jl.frozen_batch_norm(jnp.asarray(x), jnp.asarray(s), jnp.asarray(o))
@@ -100,6 +114,21 @@ CASES = {
     "deconv_k5_s2_valid": lambda r: _deconv(r, 5, 2, "VALID", 23),
     "deconv_k7_s1_same": lambda r: _deconv(r, 7, 1, "SAME", 11),
     "deconv_k5_s3_valid_bf16": _deconv_bf16,
+    # the cascade's upsample: 11x11 stride 7 SAME, 7 -> 49
+    "deconv_k11_s7_same": lambda r: _deconv(r, 11, 7, "SAME", 7),
+    "max_pool_same_odd": lambda r: _pool(r, "max_pool2d", (11, 9), 3, 2,
+                                         "SAME"),
+    "max_pool_same_shallownet": lambda r: _pool(r, "max_pool2d", (45, 45),
+                                                3, 2, "SAME"),
+    "max_pool_same_even": lambda r: _pool(r, "max_pool2d", (94, 94), 2, 2,
+                                          "SAME"),
+    "max_pool_valid": lambda r: _pool(r, "max_pool2d", (10, 9), 3, 2,
+                                      "VALID"),
+    "avg_pool_valid_7x7": lambda r: _pool(r, "avg_pool2d", (49, 49), 7, 7,
+                                          "VALID"),
+    "avg_pool_same_odd": lambda r: _pool(r, "avg_pool2d", (11, 9), 3, 2,
+                                         "SAME"),
+    "maxout2": _maxout,
     "frozen_batch_norm": _frozen_bn,
     "linear_f32": lambda r: _linear(r, None, None),
     "linear_bf16_f32acc": lambda r: _linear(r, "bfloat16", None),

@@ -165,8 +165,20 @@ def test_gaze_lstm_loss_and_grads_match_jax():
 
 
 def test_unported_family_raises():
-    with pytest.raises(KeyError, match="not yet ported"):
-        registry.create_model("gaze_rnn", device="cpu")
+    """Every family of the JAX registry is ported; an unknown name raises
+    KeyError, as in the JAX registry."""
+    with pytest.raises(KeyError, match="Unknown model 'gaze_deeprnn'"):
+        registry.create_model("gaze_deeprnn", device="cpu")
+    with pytest.raises(KeyError, match="Unknown model"):
+        registry.model_defaults("gaze_shallownet_rnn")
+
+
+def test_registry_lists_the_jax_families_with_their_defaults():
+    assert registry.available_models() == jregistry.available_models()
+    assert len(registry.available_models()) == 10
+    for name in jregistry.available_models():
+        assert registry.model_defaults(name) == \
+            jregistry.model_defaults(name), name
 
 
 def test_registry_precedence_matches_jax():

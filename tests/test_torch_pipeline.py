@@ -109,6 +109,42 @@ def test_extract_and_predict_matches_jax(tower, name, cube):
     np.testing.assert_allclose(t_maps, j_maps, rtol=1e-4, atol=1e-8)
 
 
+def test_extract_and_predict_feeds_frames_to_framewise_shallownet(tower):
+    """gaze_framewise_shallownet is the model whose forward reads `frames`:
+    the frame stream (every 5th frame from 15, antialiased resize from
+    128x171 to 98x98, scaled to [0, 1]) feeds its ShallowNet. Against the
+    JAX package's `extract_and_predict` (the two resizes differ by up to
+    ~4e-4 on 0..255, 1.6e-6 after the scaling, which ShallowNet carries to
+    the maps well inside the tolerance). Its forward reads no C3D
+    features, so the tower is skipped (as XLA drops it from the JAX
+    package's compiled program)."""
+    jc3d, tc3d = tower
+    b, f = 2, 32
+    t = pipeline.pipeline_timesteps(f)
+    jmodel = jregistry.create_model("gaze_framewise_shallownet",
+                                    n_lstm_steps=t, compute_dtype="float32")
+    jparams = jmodel.init(jax.random.PRNGKey(3))
+    tmodel = registry.create_model("gaze_framewise_shallownet", device="cpu",
+                                   n_lstm_steps=t, compute_dtype="float32")
+    tmodel.load_state_dict(params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jparams)))
+    assert tmodel.reads_frames
+    video = np.random.RandomState(4).randint(
+        0, 256, (b, f, 128, 171, 3)).astype(np.uint8)
+    want = np.asarray(jpipeline.extract_and_predict(
+        jc3d, jparams, jmodel, jnp.asarray(video, jnp.float32),
+        compute_dtype=jnp.float32))
+    got = pipeline.extract_and_predict(tc3d, tmodel, torch.from_numpy(video),
+                                       compute_dtype=None).numpy()
+    assert got.shape == (b, t, 49, 49)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    # the model reads no features, so the tower does not run for it
+    assert not tmodel.reads_c3d
+    np.testing.assert_array_equal(pipeline.extract_and_predict(
+        None, tmodel, torch.from_numpy(video), compute_dtype=None).numpy(),
+        got)
+
+
 def test_fused_predict_refuses_another_frame_count(tower):
     _, tc3d = tower
     _, _, tmodel = _pair("gaze_grcn", 1)

@@ -13,7 +13,8 @@ from recurrent_gaze_prediction_tpu_torch.config import ExperimentConfig
 from recurrent_gaze_prediction_tpu_torch.data import synthetic
 from recurrent_gaze_prediction_tpu_torch.data.prefetch import (
     device_put_batch, prefetch_batches, stream_casts)
-from recurrent_gaze_prediction_tpu_torch.train import create_train_state, fit
+from recurrent_gaze_prediction_tpu_torch.train import (
+    create_train_state, fit, flip_half_batch)
 
 CPU = torch.device("cpu")
 
@@ -119,3 +120,22 @@ def test_fit_with_prefetched_batches_equals_inline():
 def test_fit_stops_when_the_iterator_runs_dry():
     state = _fit(iter([]))
     assert state.step == 0
+
+
+def test_pupils_pass_the_copy_and_the_flip_unchanged():
+    """`batch["pupils"]` [B, T] (the pupil prototypes' loss target) goes
+    through the prefetch thread as it is, and the half-batch flip mirrors
+    frames, maps and features of exactly B//2 samples but leaves the pupils
+    (a scalar per frame) alone."""
+    raw = _clips(n=6).next_batch(6)
+    batch = next(prefetch_batches(_clips(n=6), 6, device="cpu",
+                                  max_batches=1))
+    assert torch.equal(batch["pupils"], torch.from_numpy(raw["pupils"]))
+    flipped = flip_half_batch(batch, torch.Generator().manual_seed(0))
+    assert torch.equal(flipped["pupils"], batch["pupils"])
+    mirrored = [not torch.equal(flipped["gazemaps"][i], batch["gazemaps"][i])
+                for i in range(6)]
+    assert sum(mirrored) == 3
+    for i, m in enumerate(mirrored):
+        want = batch["c3d"][i].flip(-1) if m else batch["c3d"][i]
+        assert torch.equal(flipped["c3d"][i], want)

@@ -11,6 +11,8 @@ import torch
 
 from recurrent_gaze_prediction_tpu_torch import registry
 from recurrent_gaze_prediction_tpu_torch.models import streaming
+from recurrent_gaze_prediction_tpu_torch.models.gaze_grcn import convgru_route
+from recurrent_gaze_prediction_tpu_torch.ops.cells import ConvGRU
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru as kconv
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp2 as v2
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convlstm as klstm
@@ -80,3 +82,47 @@ def test_both_routes_predict_and_stream_the_same_maps(name, units):
     np.testing.assert_allclose(torch.softmax(logits.reshape(2, 3, -1), -1)
                                .reshape(maps.shape).numpy(), maps.numpy(),
                                rtol=1e-4, atol=1e-8)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_route_checks_the_kernel_size(dtype):
+    """B1 and B2 are 3x3 kernels: a 5x5 cell is routed to the scan even at
+    a width they take (U=16), on any grid; the cascade's cells (U=256 3x3
+    at 7x7, U=3 5x5 at 49x49) take the scan; gaze_pupil_grcn's U=64 cell
+    takes the kernels, to predict and to train."""
+    tdt = getattr(torch, dtype)
+    for kernel, want in (((3, 3), True), ((5, 5), False), ((3, 5), False)):
+        assert kconv.kernel_takes(7, 7, 16, tdt, kernel) is want
+        assert v2.kernel_takes(7, 7, 16, tdt, kernel) is want
+        cell = ConvGRU.init(8, 16, kernel=kernel)
+        for train in (False, True):
+            assert convgru_route(cell, (7, 7), tdt, train) == (
+                "kernel" if want else "scan")
+    cascade = registry.create_model("gaze_grcn_cascade", device="cpu",
+                                    compute_dtype=dtype)
+    assert convgru_route(cascade.bottom_cell, (7, 7), tdt, False) == "scan"
+    assert convgru_route(cascade.top_cell, (49, 49), tdt, False) == "scan"
+    assert cascade.recurrence_route(train=True) == "scan"
+    pupil = registry.create_model("gaze_pupil_grcn", device="cpu",
+                                  compute_dtype=dtype)
+    assert pupil.cfg.rnn_state_size == 64 and kconv.cluster_size(64) == 4
+    assert pupil.recurrence_route(train=False) == "kernel"
+    assert pupil.recurrence_route(train=True) == "kernel"
+
+
+def test_pupil_grcn_predicts_and_trains_on_its_route():
+    """gaze_pupil_grcn records its route; on the CPU the kernel route runs
+    the wrappers' plain versions and gives the scan's maps."""
+    model = registry.create_model("gaze_pupil_grcn", device="cpu",
+                                  n_lstm_steps=3, compute_dtype="float32")
+    with torch.no_grad():
+        for p in model.cell.values():
+            p.copy_(torch.randn(p.shape, generator=torch.Generator()
+                                .manual_seed(1)) * 0.05)
+    c3d = torch.from_numpy(np.random.RandomState(0).randn(
+        2, 3, 1024, 7, 7).astype(np.float32))
+    maps = model.predict(None, c3d)
+    assert model.last_route == "kernel" and maps.shape == (2, 3, 7, 7)
+    model.recurrence_route = lambda train: "scan"
+    np.testing.assert_allclose(model.predict(None, c3d).numpy(),
+                               maps.numpy(), rtol=1e-5, atol=1e-6)

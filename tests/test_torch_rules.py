@@ -120,3 +120,23 @@ def test_raw_video_entry_points_raise_without_cuda(tmp_path):
     save_bundle(str(tmp_path), model, c3d_params=tower, num_frames=16)
     with pytest.raises(RuntimeError, match="cuda"):
         server_from_bundle(str(tmp_path), program="fused")
+
+
+def test_zoo_entry_points_raise_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from recurrent_gaze_prediction_tpu_torch import registry
+    from recurrent_gaze_prediction_tpu_torch.cli import pretrain_shallownet
+    from recurrent_gaze_prediction_tpu_torch.train.saliency import (
+        fit_shallownet)
+
+    for name in ("gaze_rnn", "gaze_c3d_conv", "gaze_framewise_shallownet",
+                 "gaze_grcn_cascade", "gaze_pupil_grcn", "gaze_pupil_gru2"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            registry.create_model(name)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pretrain_shallownet.main(["--out", str(tmp_path / "sn.pt")])
+    with pytest.raises(RuntimeError, match="cuda"):
+        fit_shallownet(pretrain_shallownet.SyntheticSaliency(n=16),
+                       max_steps=1)
+    assert not (tmp_path / "sn.pt").exists()

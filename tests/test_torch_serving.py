@@ -125,6 +125,52 @@ def test_port_serves_jax_gaze_lstm_bundle(tmp_path):
         np.testing.assert_allclose(maps, want[i], rtol=1e-4, atol=1e-8)
 
 
+@pytest.mark.parametrize("name,wire", [
+    ("gaze_framewise_shallownet", "float32"),
+    ("gaze_framewise_shallownet", "bfloat16"),
+    ("gaze_pupil_grcn", "float32")])
+def test_port_serves_jax_zoo_bundles(tmp_path, name, wire):
+    """A JAX-written bundle of gaze_framewise_shallownet (the model that
+    reads `frames`: they go to the device, rounded to the wire dtype) and
+    of gaze_pupil_grcn (its U=64 cell through kernel B1's wrapper, the
+    plain version on the CPU; 7x7 raw maps): concurrent POSTs get the JAX
+    model's maps back."""
+    model = jregistry.create_model(name, n_lstm_steps=2, dim_feature=16,
+                                   compute_dtype="float32")
+    params = model.init(jax.random.PRNGKey(4))
+    if "cell" in params:
+        rng = np.random.RandomState(4)
+        params["cell"] = {k: jnp.asarray(
+            (rng.randn(*v.shape) * 0.05).astype(np.float32))
+            for k, v in params["cell"].items()}
+    j_save_bundle(str(tmp_path), model, params, platforms=("cpu",),
+                  wire_dtype=wire)
+    rng = np.random.RandomState(5)
+    frames = rng.rand(3, 2, 98, 98, 3).astype(np.float32)
+    c3d = rng.randn(3, 2, 16, 7, 7).astype(np.float32)
+    fed = [jnp.asarray(a).astype(jnp.dtype(wire)).astype(jnp.float32)
+           for a in (frames, c3d)]
+    want = np.asarray(model.predict(params, *fed))
+    results = [None] * 3
+    with server_from_bundle(str(tmp_path), device="cpu", max_batch=4,
+                            max_wait_ms=200.0).start() as server:
+        url = "http://%s:%d/predict" % server.address
+
+        def one(i):
+            results[i] = _post(url, frames=frames[i], c3d=c3d[i])
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(3)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        assert not any(th.is_alive() for th in threads)
+    gh = model.cfg.gazemap_height
+    for i, (status, maps) in enumerate(results):
+        assert status == 200 and maps.shape == (2, gh, gh)
+        np.testing.assert_allclose(maps, want[i], rtol=1e-4, atol=1e-5)
+
+
 @pytest.mark.parametrize("program", ["fused", "fused_int8", "stream"])
 def test_unported_programs_raise(tmp_path, program):
     """`fused_int8` names the ROADMAP item that brings it; `stream` is no

@@ -252,10 +252,40 @@ def test_cli_train_fused_steps_checkpoints_and_resumes(tmp_path):
     assert [r["step"] for r in _records(run)] == [1, 2, 3]
 
 
+@pytest.mark.parametrize("freeze", [True, False])
+def test_cli_train_fused_grafts_a_pretrained_shallownet(tmp_path, freeze):
+    """`--shallownet_pretrain` grafts a params file into
+    gaze_framewise_shallownet before training from pixels (the frame
+    stream feeds it); with `--freeze_shallownet` it is still the file's
+    after a step, without it it trains (the JAX fused trainer's rule)."""
+    from recurrent_gaze_prediction_tpu_torch.models import shallownet
+    from recurrent_gaze_prediction_tpu_torch.train import save_params
+
+    pretrained = shallownet.init_params(
+        generator=torch.Generator().manual_seed(5))
+    path = str(tmp_path / "sn.pt")
+    save_params(path, pretrained)
+    run = str(tmp_path / "run")
+    argv = ["--device", "cpu", "--dataset", "synthetic", "--model",
+            "gaze_framewise_shallownet", "--num_frames", "16",
+            "--batch_size", "2", "--synthetic_clips", "2",
+            "--compute_dtype", "float32", "--max_steps", "1",
+            "--shallownet_pretrain", path, "--train_dir", run]
+    assert train_fused.main(argv + (["--freeze_shallownet"] if freeze
+                                    else [])) == 0
+    saved = torch.load(os.path.join(run, "model", "1", "state.pt"),
+                       weights_only=True)["params"]
+    same = [torch.equal(saved[f"shallownet/{k}"], v)
+            for k, v in pretrained.items()]
+    assert all(same) if freeze else not any(
+        same[i] for i, k in enumerate(pretrained) if k.endswith("_w"))
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--dataset", "videos"], "item 7"),
-    (["--dataset", "synthetic", "--shallownet_pretrain", "x"], "item 3"),
-    (["--dataset", "synthetic", "--freeze_shallownet"], "item 3"),
+    (["--dataset", "videos", "--videos_root", "v", "--gaze_root", "g"],
+     "item 7"),
+    (["--dataset", "synthetic", "--model_parallel", "2"], "item 6"),
     (["--dataset", "synthetic", "--data_parallel", "2"], "item 6"),
 ])
 def test_cli_train_fused_refuses_what_is_not_ported(capsys, flags, item):
