@@ -87,6 +87,24 @@ In order, failing (exit 1) on the first check that does not hold:
      beside their bounds, each family's predict at B=16 and train step at
      its registry batch, a ShallowNet pretraining step at B=128, the
      cascade's step without remat, and the two zoo HTTP latencies;
+  10. the reference's research loop, on the runs of phase 5: prints which
+     optional host packages import (h5py, Pillow, a video decoder) and
+     the stages that run; extract_features' window loop over 4 seeded
+     uint8 videos of 176 frames at 240x320 (11 windows each,
+     --batch_windows 16, bf16) against the f32 tower (corr >= 0.999),
+     windows/s, and, where a decoder imports, the CLI on an .avi;
+     `cli.extract_map` of the gaze_grcn and gaze_lstm CLI runs over 8
+     clips of 105..300 windows without frame files, batched at its
+     defaults (T=105, B=4: two launches of B1 / B3) and `--streaming`
+     (one launch per 42-window chunk), the maps against the plain scan
+     (corr >= 0.999, max_rel_delta <= 0.05; the batched ones summing to
+     1), ms per clip; `cli.create_records` (synthetic, one B1 launch) and
+     `cli.action_classification` (NN with the maps as attention, 200
+     steps, the loss falling; SVM, 50 steps; mAP finite), ms per step;
+     the attention re-extraction (the features move); where h5py and
+     Pillow import, `cli.process_gazemap`, `cli.train_gaze --dataset crc`
+     (4 steps, B1 and B2 per step) and `cli.evaluate_gaze --dataset crc`
+     (both protocols) on a fake CRC layout;
   7. times the kernels and their plain versions (B=8, B=16; B1 and B2 also
      at B=1 and 28, B3 also at B=1, in us per step beside the bound), the
      feature-fed predict of both models (B=16) with a breakdown, the HTTP
@@ -102,8 +120,9 @@ In order, failing (exit 1) on the first check that does not hold:
 
 from __future__ import annotations
 
-import contextlib
+import importlib
 import io
+import os
 import json
 import statistics
 import subprocess
@@ -117,11 +136,19 @@ import numpy as np
 import torch
 
 from recurrent_gaze_prediction_tpu_torch import registry
+from recurrent_gaze_prediction_tpu_torch.action import (
+    ActionClassifier, ActionHParams, iter_record_batches, read_record_shard)
+from recurrent_gaze_prediction_tpu_torch.action.classification import (
+    batch_to)
+from recurrent_gaze_prediction_tpu_torch.action.classification import (
+    make_train_step as action_train_step)
 from recurrent_gaze_prediction_tpu_torch.cli import (
-    evaluate_gaze, pretrain_shallownet, train_fused, train_gaze)
+    action_classification, create_records, evaluate_gaze, extract_features,
+    extract_map, pretrain_shallownet, process_gazemap, train_fused,
+    train_gaze)
 from recurrent_gaze_prediction_tpu_torch.config import (
     ExperimentConfig, OptimizerConfig)
-from recurrent_gaze_prediction_tpu_torch.data import synthetic
+from recurrent_gaze_prediction_tpu_torch.data import codec, synthetic, video
 from recurrent_gaze_prediction_tpu_torch.data.prefetch import (
     device_put_batch, stream_casts)
 from recurrent_gaze_prediction_tpu_torch.eval import (
@@ -148,7 +175,9 @@ from recurrent_gaze_prediction_tpu_torch.serving import (
 from recurrent_gaze_prediction_tpu_torch.train import (
     Checkpointer, create_train_state, fit, make_train_step)
 from recurrent_gaze_prediction_tpu_torch.train import fused as fused_data
-from recurrent_gaze_prediction_tpu_torch.train import load_params, saliency
+from recurrent_gaze_prediction_tpu_torch.train import (load_params,
+                                                       saliency, save_params)
+from recurrent_gaze_prediction_tpu_torch.utils import tf32_off
 
 SEED = 0
 T = 42
@@ -232,6 +261,19 @@ PRETRAIN_BATCH = 128
 REMAT_GRAD_MIN_CORR = 0.9999
 REMAT_LOSS_MAX_REL = 1e-6
 CELLS = ("cell", "bottom_cell", "top_cell")
+# the research loop: extract_features over 4 seeded videos of 176 uint8
+# frames (11 windows each) at 240x320; extract_map at its CLI defaults
+# (T=105, B=4) over 8 clips of 105..300 windows, streamed in chunks of 42;
+# the action classifier's NN head for 200 steps and SVM for 50; the CRC
+# stages on 6 clips of 120 frames, 4 train steps
+RESEARCH_VIDEOS, RESEARCH_FRAMES = 4, 176
+RESEARCH_VIDEO_HW = (240, 320)
+RESEARCH_BATCH_WINDOWS = 16
+MAP_CLIPS, MAP_WINDOWS = 8, (105, 300)
+MAP_T, MAP_BATCH = 105, 4
+MAP_MAX_REL_DELTA = 0.05   # the JAX package's gate (ops/pallas/parity.py)
+ACTION_NN_STEPS, ACTION_SVM_STEPS = 200, 50
+CRC_CLIPS, CRC_FRAMES, CRC_STEPS = 6, 120, 4
 
 
 def fail(msg: str) -> None:
@@ -250,20 +292,6 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0].strip()
-
-
-@contextlib.contextmanager
-def tf32_off():
-    """TF32 off for cuDNN and matmuls, so an f32 plain version is f32."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1968,6 +1996,485 @@ def zoo_timings(card: str, zoo: dict, timing_rng) -> tuple:
     return c4_timing, c4_bwd_timing
 
 
+# ------------------------------------------------ 10. the research loop
+
+def research_packages(card: str) -> dict:
+    """The optional host packages of the research loop: h5py and Pillow
+    (process_gazemap, the CRC loader, frame folders) and a video decoder
+    (cv2, or imageio with imageio_ffmpeg or av). Every stage on the
+    device runs without them; the host stages that need them run only
+    where they import."""
+    found = {}
+    for name in ("h5py", "PIL", "cv2", "imageio", "imageio_ffmpeg", "av"):
+        try:
+            importlib.import_module(name)
+            found[name] = True
+        except ImportError:
+            found[name] = False
+    found["decoder"] = found["cv2"] or (
+        found["imageio"] and (found["imageio_ffmpeg"] or found["av"]))
+    found["crc"] = found["h5py"] and found["PIL"]
+    stages = ["extract_features (window helper)", "extract_map (batched, "
+              "streamed)", "create_records (synthetic)",
+              "action_classification (NN, SVM)", "attention re-extraction"]
+    if found["decoder"]:
+        stages.insert(1, "extract_features CLI on an .avi")
+    if found["crc"]:
+        stages += ["process_gazemap", "train_gaze --dataset crc",
+                   "evaluate_gaze --dataset crc"]
+    print(f"research loop packages: {json.dumps(found)} [{card}]",
+          flush=True)
+    print(f"research loop stages run: {stages}", flush=True)
+    return found
+
+
+def write_video(path: str, frames: np.ndarray) -> None:
+    """RGB uint8 frames -> a video file (cv2's MJPG, else imageio's
+    ffmpeg or pyav writer)."""
+    try:
+        import cv2
+    except ImportError:
+        import imageio
+
+        imageio.mimwrite(path, list(frames), fps=10)
+        return
+    h, w = frames.shape[1:3]
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 10,
+                             (w, h))
+    check(writer.isOpened(), f"cv2.VideoWriter could not open {path}")
+    for frame in frames:
+        writer.write(np.ascontiguousarray(frame[:, :, ::-1]))
+    writer.release()
+
+
+def research_features(card: str, tower: dict, packages: dict,
+                      work: str) -> dict:
+    """extract_features' window loop (`extract_windows`) over RESEARCH_VIDEOS
+    seeded uint8 videos of RESEARCH_FRAMES frames (11 windows each), bf16
+    at --batch_windows 16, held against the f32 tower (TF32 off); then,
+    where a decoder imports, the CLI end to end on an .avi of the first
+    video against the helper on the frames it decodes."""
+    videos = np.random.RandomState(SEED + 30).randint(
+        0, 256, (RESEARCH_VIDEOS, RESEARCH_FRAMES, *RESEARCH_VIDEO_HW, 3),
+        dtype=np.uint8)
+    bf16 = {k: v.to(torch.bfloat16) for k, v in tower.items()}
+
+    def run(params, dtype, frames, att=None):
+        return np.stack(extract_features.extract_windows(
+            params, frames, batch_windows=RESEARCH_BATCH_WINDOWS,
+            compute_dtype=dtype, attention_maps=att, device="cuda"))
+
+    run(bf16, "bfloat16", videos[0])  # warm-up: cuDNN picks its algorithms
+    start = time.perf_counter()
+    feats = [run(bf16, "bfloat16", v) for v in videos]
+    seconds = time.perf_counter() - start
+    f32 = [run(tower, "float32", v) for v in videos]
+    n_windows = sum(len(f) for f in feats)
+    a, b = np.concatenate(feats), np.concatenate(f32)
+    c = corr(a, b)
+    rate = n_windows / seconds
+    print(f"research extract_features (extract_windows, {RESEARCH_VIDEOS} "
+          f"videos x {RESEARCH_FRAMES} uint8 frames of {RESEARCH_VIDEO_HW[0]}x"
+          f"{RESEARCH_VIDEO_HW[1]}, --batch_windows {RESEARCH_BATCH_WINDOWS}, "
+          f"bf16): {n_windows} windows in {seconds:.3f} s host clock = "
+          f"{rate:.1f} windows/s (copy, preprocess, tower, read-back); conv5b "
+          f"vs the f32 tower (TF32 off): corr {c:.6f} [{card}]", flush=True)
+    want = (-(-RESEARCH_FRAMES // 16), 512, 2, 7, 7)
+    check(all(f.shape == want for f in feats) and bool(np.isfinite(a).all()),
+          f"extract_windows shapes {[f.shape for f in feats]}")
+    check(c >= MAP_MIN_CORR, f"extract_windows bf16 vs f32 corr {c}")
+    out = {"feats": feats, "videos": videos, "bf16": bf16,
+           "windows_per_s": rate, "corr": c}
+    if packages["decoder"]:
+        out["cli"] = research_features_cli(card, tower, videos[0], work, run)
+    return out
+
+
+def research_features_cli(card: str, tower: dict, frames: np.ndarray,
+                          work: str, run) -> dict:
+    """`cli.extract_features` on an .avi of `frames`, the tower from a
+    params file of this package: the `.c3d` against the window helper on
+    the frames the decoder gives back (MJPG is lossy)."""
+    videos = f"{work}/videos"
+    os.makedirs(videos)
+    write_video(f"{videos}/video0.avi", frames)
+    params_file = f"{work}/c3d_params.pt"
+    save_params(params_file, tower)
+    start = time.perf_counter()
+    rc = extract_features.main(["--videos_root", videos, "--out_dir",
+                                f"{work}/vid_c3d", "--params", params_file])
+    seconds = time.perf_counter() - start
+    check(rc == 0, f"cli.extract_features returned {rc}")
+    got = codec.read_c3d_file(f"{work}/vid_c3d/video0.c3d")
+    decoded = np.stack(list(video.decode_video(f"{videos}/video0.avi")))
+    want = run({k: v.to(torch.bfloat16) for k, v in tower.items()},
+               "bfloat16", decoded)
+    c = corr(got, want)
+    print(f"research cli.extract_features on an .avi ({len(decoded)} "
+          f"frames decoded): .c3d {got.shape} in {seconds:.2f} s wall with "
+          f"the decode and weight load; vs the helper on the decoded frames "
+          f"corr {c:.6f} [{card}]", flush=True)
+    check(got.shape == want.shape and c >= MAP_MIN_CORR,
+          f"extract_features CLI .c3d {got.shape} vs {want.shape}, corr {c}")
+    return {"seconds": seconds, "corr": c}
+
+
+def map_clips(work: str) -> tuple:
+    """MAP_CLIPS clip folders without frame files, whose `.c3d` files hold
+    MAP_WINDOWS[0]..MAP_WINDOWS[1] windows of seeded features."""
+    root = f"{work}/clips"
+    rng = np.random.RandomState(SEED + 31)
+    lengths = [int(n) for n in np.linspace(*MAP_WINDOWS, MAP_CLIPS)]
+    for i, n in enumerate(lengths):
+        os.makedirs(f"{root}/clip{i:02d}")
+        codec.write_c3d_file(f"{root}/clip{i:02d}.c3d", list(
+            rng.randn(n, 512, 2, 7, 7).astype(np.float32)))
+    return root, lengths
+
+
+def restore_for_maps(run: str):
+    """The run's model as `cli.extract_map` restores it (T=MAP_T,
+    B=MAP_BATCH)."""
+    exp = Checkpointer.load_config(run)
+    model = registry.create_model(exp.model.name, exp.model, device="cuda",
+                                  n_lstm_steps=MAP_T, batch_size=MAP_BATCH)
+    state, _ = create_train_state(model, exp.optimizer)
+    check(Checkpointer(run).restore_latest(state) is not None,
+          f"no checkpoint under {run}")
+    return model
+
+
+def max_rel(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def research_maps(card: str, run: str, clips: str, lengths: list,
+                  work: str) -> dict:
+    """`cli.extract_map` on a run of `cli.train_gaze`, batched (T=105,
+    B=4: two predict calls, the model's forward kernel once each) and
+    `--streaming` (chunks of 42: one launch per chunk); the maps against
+    the plain path, the batched ones summing to 1; times per clip."""
+    name = Checkpointer.load_config(run).model.name
+    kernel = FORWARD_KERNEL[name]
+    result = {}
+    for mode, extra, want in (
+            ("batched", [], -(-MAP_CLIPS // MAP_BATCH)),
+            ("streamed", ["--streaming"],
+             sum(-(-n // STREAM_CHUNK) for n in lengths))):
+        out = f"{work}/maps_{name}_{mode}"
+        reset_launches()
+        start = time.perf_counter()
+        rc = extract_map.main(["--train_dir", run, "--clips_root", clips,
+                               "--out_dir", out] + extra)
+        launches = read_launches()
+        seconds = time.perf_counter() - start
+        check(rc == 0, f"cli.extract_map {name} {mode} returned {rc}")
+        print(f"research cli.extract_map {name} {mode}: {MAP_CLIPS} clips "
+              f"of {lengths} windows in {seconds:.2f} s wall with the "
+              f"restore and .c3d reads = {seconds / MAP_CLIPS * 1e3:.1f} ms "
+              f"per clip; launches {launches} [{card}]", flush=True)
+        check(launches[kernel] == want and sum(launches.values()) == want,
+              f"extract_map {name} {mode}: launches {launches}, want {want} "
+              f"of {kernel}")
+        result[mode] = {"out": out, "launches": launches,
+                        "ms_per_clip": seconds / MAP_CLIPS * 1e3}
+
+    model = restore_for_maps(run)
+    inputs = [extract_map.load_clip_inputs(f"{clips}/clip{i:02d}",
+                                           f"{clips}/clip{i:02d}.c3d", MAP_T)
+              for i in range(MAP_BATCH)]
+    batch = device_put_batch(
+        {k: np.stack([x[k] for x in inputs]) for k in ("frames", "c3d")},
+        torch.device("cuda"), stream_casts(torch.bfloat16))
+    with torch.inference_mode():
+        maps = model.predict(batch["frames"], batch["c3d"]).float()
+        route = model.last_route
+        plain = plain_predict(model, batch["c3d"]).float()
+    a, b = maps.cpu().numpy(), plain.cpu().numpy()
+    sums = a.reshape(MAP_BATCH, MAP_T, -1).sum(-1)
+    saved = np.stack([np.load(f"{result['batched']['out']}/clip{i:02d}"
+                              f".gazemap.npy")[0] for i in range(MAP_BATCH)])
+    predict_ms = cuda_ms(lambda: model.predict(batch["frames"],
+                                               batch["c3d"]), 5)
+    c, rel = corr(a, b), max_rel(a, b)
+    print(f"research extract_map {name} batched gate (B={MAP_BATCH}, "
+          f"T={MAP_T}, route {route}): corr {c:.6f}, max_rel_delta "
+          f"{rel:.4g} vs the plain scan; map sums in [{sums.min():.6f}, "
+          f"{sums.max():.6f}]; predict {predict_ms:.3f} ms per call = "
+          f"{predict_ms / MAP_BATCH:.3f} ms per clip (CUDA events) [{card}]",
+          flush=True)
+    check(route == "kernel", f"extract_map {name}: route {route}")
+    check(a.shape == (MAP_BATCH, MAP_T, 49, 49) and bool(np.isfinite(a).all())
+          and c >= MAP_MIN_CORR and rel <= MAP_MAX_REL_DELTA,
+          f"extract_map {name} batched: corr {c}, max_rel_delta {rel}")
+    check(bool(np.abs(sums - 1.0).max() <= 1e-3), f"extract_map {name}: "
+          f"map sums {sums.min()}..{sums.max()}")
+    saved_delta = float(np.abs(saved.astype(np.float32) - a[:, 0]).max())
+    check(np.allclose(saved.astype(np.float32), a[:, 0], rtol=1e-3,
+                      atol=1e-6),
+          f"extract_map {name}: saved float16 maps differ from the predict "
+          f"by up to {saved_delta} (max map value {np.abs(a[:, 0]).max()})")
+
+    streamed = {}
+    for i in (0, MAP_CLIPS - 1):
+        feats = codec.load_c3d_for_model(f"{clips}/clip{i:02d}.c3d")
+        got = np.load(f"{result['streamed']['out']}/clip{i:02d}.gazemap.npy"
+                      ).astype(np.float32)
+        full = plain_logits(model, torch.from_numpy(feats[None]).cuda())
+        full = full[0].float().cpu().numpy()
+        streamed[i] = (corr(got, full), max_rel(got, full))
+        check(got.shape == full.shape == (lengths[i], 49, 49)
+              and streamed[i][0] >= MAP_MIN_CORR
+              and streamed[i][1] <= MAP_MAX_REL_DELTA,
+              f"extract_map {name} streamed clip {i}: {got.shape}, corr / "
+              f"max_rel_delta {streamed[i]}")
+    feats = codec.load_c3d_for_model(f"{clips}/clip{MAP_CLIPS - 1:02d}.c3d")
+    extract_map.stream_clip(model, feats, STREAM_CHUNK)  # warm
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    extract_map.stream_clip(model, feats, STREAM_CHUNK)
+    stream_ms = (time.perf_counter() - start) * 1e3
+    print(f"research extract_map {name} streamed gate (whole clips against "
+          f"one plain pass): clip 0 ({lengths[0]} windows) and clip "
+          f"{MAP_CLIPS - 1} ({lengths[-1]}) corr / max_rel_delta "
+          f"{json.dumps(streamed)}; {lengths[-1]} windows streamed in "
+          f"{stream_ms:.2f} ms host clock ({-(-lengths[-1] // STREAM_CHUNK)} "
+          f"chunks) [{card}]", flush=True)
+    result.update(gate={"corr": c, "max_rel_delta": rel}, route=route,
+                  predict_ms=predict_ms, stream_ms=stream_ms)
+    return result
+
+
+def research_records(card: str, run: str, work: str) -> dict:
+    """`cli.create_records` on the gaze_grcn CLI run (synthetic corpus,
+    the run's T=42 and B=28: one predict call, one B1 launch) with
+    Hollywood2 ClipSets labels, then `cli.action_classification`: NN with
+    the predicted maps as attention for ACTION_NN_STEPS steps and SVM
+    for ACTION_SVM_STEPS; the losses and ms per step from the classifier
+    driven as the CLI drives it."""
+    clipsets = f"{work}/ClipSets"
+    os.makedirs(clipsets)
+    for k in range(13):  # clip i has classes i % 13 and (3i + 1) % 13
+        for split in ("train", "test"):
+            with open(f"{clipsets}/class{k:02d}_{split}.txt", "w") as f:
+                for s in range(3):
+                    for i in range(8):
+                        label = 1 if k in (i % 13, (3 * i + 1) % 13) else -1
+                        f.write(f"synthetic_{s}_{i:04d} {label}\n")
+    records = f"{work}/records"
+    reset_launches()
+    start = time.perf_counter()
+    rc = create_records.main(["--train_dir", run, "--out_dir", records,
+                              "--clipsets_dir", clipsets])
+    launches = read_launches()
+    seconds = time.perf_counter() - start
+    check(rc == 0, f"cli.create_records returned {rc}")
+    shards = sorted(os.listdir(records))
+    shard = read_record_shard(f"{records}/{shards[0]}")
+    n = len(shard["c3d"])
+    sums = shard["gaze_pred"].reshape(n, -1).sum(-1)
+    print(f"research cli.create_records (synthetic train split, 8 clips of "
+          f"T={T}, B={TRAIN_BATCH}): {len(shards)} shard(s), {n} frames, "
+          f"{seconds:.2f} s wall per batch with the restore and the "
+          f"compressed shard write; launches {launches}; gaze_pred sums in "
+          f"[{sums.min():.5f}, {sums.max():.5f}] [{card}]", flush=True)
+    check(launches["convgru_fwd"] == 1 and sum(launches.values()) == 1,
+          f"create_records launches {launches}")
+    check(n == 8 * T and shard["c3d"].shape == (n, 1024, 7, 7)
+          and shard["gaze_pred"].shape == (n, 49, 49)
+          and shard["labels"].shape == (n, 13)
+          and bool((shard["labels"].sum(-1) >= 1).all())
+          and bool(np.abs(sums - 1).max() <= 1e-3),
+          f"record shard {[(k, v.shape) for k, v in shard.items()]}")
+
+    scores = {}
+    for head, steps, extra in (("NN", ACTION_NN_STEPS, ["--use_gazemap"]),
+                               ("SVM", ACTION_SVM_STEPS, [])):
+        out = f"{work}/action_{head}.json"
+        start = time.perf_counter()
+        rc = action_classification.main(
+            ["--records_glob", f"{records}/train-*.npz", "--head", head,
+             "--max_iter", str(steps), "--out", out] + extra)
+        cli_s = time.perf_counter() - start
+        check(rc == 0, f"cli.action_classification {head} returned {rc}")
+        with open(out) as f:
+            scores[head] = json.load(f)
+        hp = ActionHParams(head=head, use_gazemap=head == "NN",
+                           max_iter=steps)
+        clf = ActionClassifier(hp, device="cuda")
+
+        def endless():
+            epoch = 0
+            while True:
+                yield from iter_record_batches(
+                    [f"{records}/{s}" for s in shards], hp.batch_size,
+                    shuffle_seed=epoch)
+                epoch += 1
+
+        start = time.perf_counter()
+        losses = clf.fit(endless())
+        fit_ms = (time.perf_counter() - start) / steps * 1e3
+        batch = batch_to(next(iter_record_batches(
+            [f"{records}/{shards[0]}"], hp.batch_size)),
+            torch.device("cuda"))
+        step = action_train_step(hp, clf.tx)
+        step_ms = cuda_ms(lambda: step(clf.params, clf.opt_state, batch), 20)
+        first, last = statistics.mean(losses[:10]), statistics.mean(
+            losses[-10:])
+        summary = {k: v for k, v in scores[head].items()
+                   if k != "per_class_ap"}
+        print(f"research action_classification {head}"
+              f"{' --use_gazemap' if extra else ''} ({steps} steps, B="
+              f"{hp.batch_size}): CLI {cli_s:.2f} s wall, scores "
+              f"{json.dumps(summary)}; "
+              f"the classifier's losses mean of the first 10 {first:.5f} -> "
+              f"last 10 {last:.5f}; {fit_ms:.3f} ms per step with the shard "
+              f"reads (host clock), {step_ms:.3f} ms per step on a resident "
+              f"batch (CUDA events) [{card}]", flush=True)
+        # the NN head must learn; the SVM's hinge at C=50 and SGD 0.01 (the
+        # reference's settings) takes steps far larger than its margins, so
+        # its loss need only stay finite
+        check(all(np.isfinite(losses)) and (head == "SVM" or last < first),
+              f"action {head} losses: {first} -> {last}")
+        check(np.isfinite(scores[head]["mean_average_precision"]),
+              f"action {head} mAP {scores[head]}")
+        scores[head]["step_ms"] = step_ms
+    return {"launches": launches, "seconds": seconds, "scores": scores}
+
+
+def research_attention(card: str, features: dict, maps_dir: str) -> dict:
+    """The attention variant: the first video re-extracted with an exported
+    `.gazemap.npy` as its attention maps; the features differ from the
+    plain ones."""
+    maps = np.load(f"{maps_dir}/clip00.gazemap.npy")
+    att = extract_features.normalize_attention(maps)
+    got = np.stack(extract_features.extract_windows(
+        features["bf16"], features["videos"][0],
+        batch_windows=RESEARCH_BATCH_WINDOWS, attention_maps=att,
+        device="cuda"))
+    plain = features["feats"][0]
+    rel = max_rel(got, plain)
+    print(f"research attention re-extraction ({len(maps)} exported map(s) "
+          f"of clip00): conv5b {got.shape}, max rel delta vs the plain "
+          f"features {rel:.4g} [{card}]", flush=True)
+    check(got.shape == plain.shape and bool(np.isfinite(got).all())
+          and rel > 1e-3, f"attention features {got.shape}, rel {rel}")
+    return {"max_rel_delta": rel}
+
+
+def crc_layout(root: str) -> None:
+    """CRC_CLIPS clip folders in the reference's layout: CRC_FRAMES frame
+    JPEGs (98x98), a raw gaze .mat (3 users' one-hot maps at 36x48 and
+    pupil traces) and a `.c3d` of seeded features."""
+    import h5py
+    from PIL import Image
+
+    rng = np.random.RandomState(SEED + 32)
+    for sub in ("vid_frm", "gazemap", "vid_c3d"):
+        os.makedirs(f"{root}/{sub}")
+    for ci in range(CRC_CLIPS):
+        clip = f"clip{ci:05d}"
+        os.makedirs(f"{root}/vid_frm/{clip}")
+        for fi in range(CRC_FRAMES):
+            Image.fromarray(rng.randint(0, 256, (98, 98, 3)).astype(
+                np.uint8)).save(f"{root}/vid_frm/{clip}/{fi:06d}.jpg")
+        with h5py.File(f"{root}/gazemap/{clip}.mat", "w") as mat:
+            grp = mat.create_group("data")
+            for ui in range(3):
+                user = grp.create_group(f"user{ui:02d}")
+                raw = np.zeros((CRC_FRAMES, 36, 48), np.uint8)
+                raw[np.arange(CRC_FRAMES), rng.randint(0, 36, CRC_FRAMES),
+                    rng.randint(0, 48, CRC_FRAMES)] = 1
+                user["gazemap"] = raw
+                user["pupilsize"] = rng.rand(CRC_FRAMES)
+        codec.write_c3d_file(f"{root}/vid_c3d/{clip}.c3d", list(
+            rng.randn(CRC_FRAMES // 16, 512, 2, 7, 7).astype(np.float32)))
+
+
+def research_crc(card: str, work: str) -> dict:
+    """Where h5py and Pillow import: `cli.process_gazemap` on raw .mat files,
+    `cli.train_gaze --dataset crc` (full width, T=42, B=2, CRC_STEPS
+    steps: B1 and B2 once per step), and `cli.evaluate_gaze` on the valid
+    split (device metrics, then the NumPy protocol with the fixation maps
+    at their original 36x48)."""
+    import h5py
+
+    root = f"{work}/crc"
+    crc_layout(root)
+    rc = process_gazemap.main(["--glob", f"{root}/gazemap/*.mat",
+                               "--num_agents", "1"])
+    check(rc == 0, f"cli.process_gazemap returned {rc}")
+    with h5py.File(f"{root}/gazemap/clip00000.mat", "r") as mat:
+        keys = sorted(mat["data"]["user00"].keys())
+    check({"gazemap49x49", "gazemap7x7", "fixation_t"} <= set(keys),
+          f"process_gazemap keys {keys}")
+    run = f"{work}/crc_run"
+    reset_launches()
+    start = time.perf_counter()
+    rc = train_gaze.main(["--dataset", "crc", "--data_root", root,
+                          "--batch_size", "2", "--n_lstm_steps", str(T),
+                          "--compute_dtype", "bfloat16",
+                          "--max_steps", str(CRC_STEPS),
+                          "--steps_per_logprint", "1", "--train_dir", run])
+    launches = read_launches()
+    seconds = time.perf_counter() - start
+    check(rc == 0, f"cli.train_gaze --dataset crc returned {rc}")
+    with open(f"{run}/metrics.jsonl") as f:
+        losses = [json.loads(line)["loss/train"] for line in f
+                  if "loss/train" in line]
+    print(f"research cli.train_gaze --dataset crc ({CRC_CLIPS} clips, B=2, "
+          f"T={T}, bf16, {CRC_STEPS} steps, {seconds:.1f} s wall with the "
+          f"loader): losses {[round(x, 4) for x in losses]}, launches "
+          f"{launches} [{card}]", flush=True)
+    check(len(losses) == CRC_STEPS and all(np.isfinite(losses)),
+          f"crc losses {losses}")
+    # B2 once per step; B1 once per step and per batch of any evaluation
+    # the cadences run
+    check(launches["convgru_bwd"] == CRC_STEPS
+          and launches["convgru_fwd"] >= CRC_STEPS
+          and launches["convgru_bwd_mono"] == launches["convlstm_fwd"] == 0,
+          f"crc train launches {launches}")
+    overall = {}
+    for tag, extra in (("device", []), ("numpy", ["--numpy_protocol"])):
+        reset_launches()
+        rc = evaluate_gaze.main(["--train_dir", run, "--data_root", root,
+                                 "--out_dir", f"{run}/eval_{tag}",
+                                 "--metrics", "cc", "sim", "nss", "AUC_Judd"]
+                                + extra)
+        eval_launches = read_launches()
+        check(rc == 0, f"cli.evaluate_gaze crc {tag} returned {rc}")
+        with open(f"{run}/eval_{tag}/overall.txt") as f:
+            overall[tag] = {k: float(v) for k, v in
+                            (line.strip().split(": ") for line in f)}
+        print(f"research cli.evaluate_gaze --dataset crc ({tag} protocol): "
+              f"{json.dumps(overall[tag])}, launches {eval_launches} "
+              f"[{card}]", flush=True)
+        check(all(np.isfinite(v) for v in overall[tag].values())
+              and eval_launches["convgru_fwd"] >= 1,
+              f"evaluate_gaze crc {tag}: {overall[tag]}, {eval_launches}")
+    return {"launches": launches, "losses": losses, "overall": overall}
+
+
+def research_loop_phases(card: str, tower: dict, runs: str) -> dict:
+    """Phase 10, the reference's research loop on the card: C3D feature
+    extraction, gaze-map export of both models' CLI runs (batched and
+    streamed), record shards, the action classifier, the attention
+    re-extraction, and, where h5py and Pillow import, the CRC stages."""
+    packages = research_packages(card)
+    work = f"{runs}/research"
+    os.makedirs(work)
+    features = research_features(card, tower, packages, work)
+    clips, lengths = map_clips(work)
+    maps = {name: research_maps(card, f"{runs}/{run}", clips, lengths, work)
+            for name, run in (("gaze_grcn", "grcn"), ("gaze_lstm", "lstm"))}
+    records = research_records(card, f"{runs}/grcn", work)
+    attention = research_attention(card, features,
+                                   maps["gaze_grcn"]["batched"]["out"])
+    crc = research_crc(card, work) if packages["crc"] else None
+    return {"packages": packages, "features": features, "maps": maps,
+            "records": records, "attention": attention, "crc": crc}
+
+
 def main() -> int:
     # 1. the card
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
@@ -2089,6 +2596,7 @@ def main() -> int:
     evaluation_cadence(card)
     for run in ("grcn", "lstm"):
         evaluate_through_cli(card, f"{runs}/{run}")
+    research_loop_phases(card, tower, runs)  # 10.
 
     zoo = zoo_phases(card, tower, runs)  # 9.
     runs_dir.cleanup()

@@ -18,15 +18,21 @@ entry points on the card unless the caller passes device="cpu".
               pipeline, and the carried-state streaming steps
   registry  — name -> model
   bridge    — weights and optimizer moments from the JAX package's trees
-  data      — clip datasets and the synthetic corpus (numpy copies), and
-              the host-to-device batch copy and its prefetch thread
+  data      — clip datasets, the synthetic corpus, the CRC / Hollywood2
+              loader, gazemap preprocessing, seq chunking and the `.c3d`
+              codec (numpy copies), video frames and the attention frames
+              (torch), and the host-to-device batch copy and its prefetch
+              thread
+  action    — the Hollywood2 action classifier over gaze-attended C3D
+              features and its record shards
   train     — optimizer, train/eval steps, fit loops, checkpoints, metrics,
               ShallowNet pretraining
   eval      — the saliency metrics batched on the device, the NumPy
               protocol, the evaluator, the checkpoint sweep, visualization
   serving   — bundles, the dynamic batcher and the HTTP server
   cli       — serve, train_gaze, train_fused, evaluate_gaze,
-              pretrain_shallownet
+              pretrain_shallownet, process_gazemap, extract_features,
+              extract_map, create_records, action_classification
 """
 
 __version__ = "0.1.0"

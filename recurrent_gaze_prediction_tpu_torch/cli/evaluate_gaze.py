@@ -6,16 +6,18 @@ JAX package's `cli/evaluate_gaze.py` (the reference's
         --train_dir /tmp/rgp [--metrics cc sim] [--device cpu]
 
 Loads a run written by `cli.train_gaze` (config.json and the latest
-checkpoint), predicts the synthetic valid split, scores every frame with
+checkpoint), predicts the valid split (synthetic, or up to 500 clip
+folders of `--dataset crc|hollywood2|crcxh2` under `--data_root`), scores
+every frame with
 the saliency metrics (batched on the device, or the NumPy protocol with
 `--numpy_protocol`), and writes `overall.txt` (the mean of each metric)
 and `scores.txt` (one row per frame) under `--out_dir` (default
 `{train_dir}/evaluation`); `--dump_images` also writes each frame's
-input, gt and predicted map as PNG.
+input, gt and predicted map as PNG. Under `--numpy_protocol` the real-data
+fixation maps load at their original scale, as the reference scores them.
 
-Not ported yet: the real-data loaders (`--dataset crc|hollywood2|crcxh2`,
-ROADMAP.md queue A item 7) and sharded scoring (`--data_parallel`, item
-6); both exit with code 2.
+Not ported yet: sharded scoring (`--data_parallel`, ROADMAP.md queue A
+item 6) exits with code 2.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..data import crc as crc_data
 from ..data import synthetic
 from ..eval import evaluator, metrics_np, metrics_torch
 from ..registry import create_model
@@ -45,6 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=[None, "crc", "hollywood2", "crcxh2",
                                  "synthetic"],
                         help="override the dataset recorded in config.json")
+    parser.add_argument("--data_root", default=None)
     parser.add_argument("--num_frames", default=None, type=int,
                         help="cap on evaluated frames (reference "
                              "--num_frames)")
@@ -97,9 +101,9 @@ def main(argv: Optional[list[str]] = None) -> int:
     exp = Checkpointer.load_config(args.train_dir)
     if args.dataset:
         exp.dataset = args.dataset
-    if exp.dataset != "synthetic":
-        parser.error(f"--dataset {exp.dataset}: the real-data loaders are "
-                     f"not ported yet (ROADMAP.md queue A item 7)")
+    if exp.dataset != "synthetic" and not args.data_root:
+        log.error("--data_root is required for dataset %s", exp.dataset)
+        return 1
     device = resolve_device(args.device)
 
     model = create_model(exp.model.name, exp.model, device=device)
@@ -109,10 +113,19 @@ def main(argv: Optional[list[str]] = None) -> int:
         return 1
 
     cfg = model.cfg
-    dataset = synthetic.make_splits(
-        n_train=2, n_valid=8, n_test=2, t=cfg.n_lstm_steps,
-        gazemap_hw=(cfg.gazemap_height, cfg.gazemap_width),
-        seed=exp.seed).valid
+    gh, gw = cfg.gazemap_height, cfg.gazemap_width
+    if exp.dataset == "synthetic":
+        dataset = synthetic.make_splits(
+            n_train=2, n_valid=8, n_test=2, t=cfg.n_lstm_steps,
+            gazemap_hw=(gh, gw), seed=exp.seed).valid
+    else:
+        dataset = crc_data.read_crc_data_sets(
+            cfg.image_height, cfg.image_width, gh, gw,
+            dataset=exp.dataset,
+            layouts=crc_data.layouts_for(exp.dataset, args.data_root),
+            split_modes="valid", seq_len=cfg.n_lstm_steps,
+            fixation_original_scale=not args.on_device,
+            max_folders=500).valid
     max_instances = None
     if args.num_frames is not None:
         max_instances = args.num_frames // cfg.n_lstm_steps + 1

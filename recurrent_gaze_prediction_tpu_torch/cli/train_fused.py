@@ -16,7 +16,7 @@ an `.npz` of the JAX package's flat C3D layout (a bundle's
 trainer, it trains unless this flag is given).
 
 Not ported yet, and refused with exit code 2: `--dataset videos` (its
-loader needs `data/gazemap.py`, ROADMAP.md queue A item 7) and
+loader, `train/fused.load_fused_corpus`, ROADMAP.md queue A item 7) and
 `--data_parallel` / `--model_parallel` (item 6).
 """
 

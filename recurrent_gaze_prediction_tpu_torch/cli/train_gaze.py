@@ -5,16 +5,18 @@ JAX package's `cli/train_gaze.py`.
         --dataset synthetic --max_steps 200 --train_dir /tmp/rgp
 
 Model registry selection (all ten families), config overrides (CLI wins),
-the synthetic corpus, an optional pretrained ShallowNet grafted into the
-model (`--shallownet_pretrain`, a file of `cli.pretrain_shallownet`), fit
-with auto-resume from `--train_dir`, then the saliency metrics on the
-whole test split (written as `test/<metric>`). The train step runs a
-ConvGRU the kernels take through them (forward B1, backward B2) on the
-card. Training batches are prefetched by a worker thread (cast on the
-host, copied on a side stream) unless `--no_prefetch`.
+the synthetic corpus or the CRC / Hollywood2 loaders (`--dataset
+crc|hollywood2|crcxh2 --data_root DIR`, h5py and Pillow on the host; the
+reference's real-data defaults of batch 28 and lr 1e-4), an optional
+pretrained ShallowNet grafted into the model (`--shallownet_pretrain`, a
+file of `cli.pretrain_shallownet`), fit with auto-resume from
+`--train_dir`, then the saliency metrics on the whole test split (written
+as `test/<metric>`). The train step runs a ConvGRU the kernels take
+through them (forward B1, backward B2) on the card. Training batches are
+prefetched by a worker thread (cast on the host, copied on a side stream)
+unless `--no_prefetch`.
 
-Not ported yet: the real-data loaders (`--dataset crc|hollywood2|crcxh2`
-stop with an error), profiling and the mesh flags.
+Not ported yet: profiling and the mesh flags.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Optional
 import torch
 
 from ..config import ExperimentConfig
+from ..data import crc as crc_data
 from ..data import synthetic
 from ..data.datasets import DataSplits
 from ..data.prefetch import prefetch_batches, stream_casts
@@ -40,11 +43,21 @@ from ..utils import log, resolve_device
 
 def load_datasets(exp: ExperimentConfig, args) -> DataSplits:
     gh, gw = exp.model.gazemap_height, exp.model.gazemap_width
-    return synthetic.make_splits(
-        n_train=args.synthetic_clips,
-        n_valid=max(args.synthetic_clips // 2, 2),
-        n_test=max(args.synthetic_clips // 2, 2),
-        t=exp.model.n_lstm_steps, gazemap_hw=(gh, gw), seed=exp.seed)
+    if exp.dataset == "synthetic":
+        return synthetic.make_splits(
+            n_train=args.synthetic_clips,
+            n_valid=max(args.synthetic_clips // 2, 2),
+            n_test=max(args.synthetic_clips // 2, 2),
+            t=exp.model.n_lstm_steps, gazemap_hw=(gh, gw), seed=exp.seed)
+    layouts = crc_data.layouts_for(exp.dataset, args.data_root)
+    # the window length follows the model's unroll length (the reference
+    # keeps both at 42: SEQ_LEN `crc_input_data_seq.py:486`, n_lstm_steps
+    # `models/gaze_rnn.py:50`)
+    return crc_data.read_crc_data_sets(
+        exp.model.image_height, exp.model.image_width, gh, gw,
+        dataset=exp.dataset, layouts=layouts,
+        seq_len=exp.model.n_lstm_steps, cache_dir=args.cache_dir,
+        max_folders=args.max_folders)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -54,6 +67,13 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=available_models())
     parser.add_argument("--dataset", default="synthetic",
                         choices=["crc", "hollywood2", "crcxh2", "synthetic"])
+    parser.add_argument("--data_root", default=None,
+                        help="dataset root (crcxh2: the parent of crc/ and "
+                             "hollywood2/)")
+    parser.add_argument("--cache_dir", default=None,
+                        help="npz cache of the loaded splits")
+    parser.add_argument("--max_folders", default=None, type=int,
+                        help="clip folders per split (disables the cache)")
     parser.add_argument("--synthetic_clips", default=16, type=int)
     parser.add_argument("--batch_size", default=None, type=int)
     parser.add_argument("--learning_rate", default=None, type=float)
@@ -89,10 +109,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[list[str]] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.dataset != "synthetic":
-        parser.error(f"--dataset {args.dataset}: the real-data loaders are "
-                     f"not ported yet (ROADMAP.md queue A item 7); use "
-                     f"--dataset synthetic")
+    if args.dataset != "synthetic" and not args.data_root:
+        log.error("--data_root is required for dataset %s", args.dataset)
+        return 1
     device = resolve_device(args.device)
 
     exp = ExperimentConfig()
@@ -101,6 +120,15 @@ def main(argv: Optional[list[str]] = None) -> int:
     exp.train_dir = args.train_dir
     exp.train_tag = args.train_tag
     exp.model.name = args.model
+    if args.dataset != "synthetic":
+        # the reference's training entry overrides the model-class defaults
+        # for real data: batch 28 ("CRC likes 28"), lr 1e-4, cadences
+        # 100/20/100 (`models/train_gaze.py:74-97`); the flags below win
+        exp.model.batch_size = 28
+        exp.optimizer.initial_learning_rate = 1e-4
+        exp.schedule.steps_per_evaluation = 100
+        exp.schedule.steps_per_validation = 20
+        exp.schedule.steps_per_checkpoint = 100
     exp.apply_overrides({
         "model.batch_size": args.batch_size,
         "model.loss_type": args.loss_type,

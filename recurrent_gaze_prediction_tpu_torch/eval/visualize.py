@@ -25,6 +25,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..data import crc as crc_data
 from ..data import synthetic
 from ..registry import create_model
 from ..train import Checkpointer, create_train_state, make_predict_fn
@@ -71,14 +72,16 @@ def save_grid(path: str, maps: np.ndarray, ncols: int = 8) -> None:
 
 def visualize_outputs(train_dir: str, out_dir: Optional[str] = None,
                       max_instances: int = 8,
+                      data_root: Optional[str] = None,
                       device: Optional[Union[str, torch.device]] = None
                       ) -> dict:
     """Resurrect a run (config.json + latest checkpoint) on `device` (None
-    = the card), predict synthetic validation clips and write frames.png,
+    = the card), predict its validation clips and write frames.png,
     gt.png and pred.png grids under `out_dir` (default
-    `{train_dir}/visualization`). A run on a real dataset is shown on
-    synthetic clips, with a warning: the real-data loaders are not ported
-    yet (ROADMAP.md queue A item 7)."""
+    `{train_dir}/visualization`). A run on a real dataset reads its valid
+    split under `data_root`, as the CLIs do; without one it is shown on
+    synthetic clips, with a warning (the reference resurrects the real
+    split, `visualize_output.py:98-150`)."""
     dev = resolve_device(device)
     exp = Checkpointer.load_config(train_dir)
     model = create_model(exp.model.name, exp.model, device=dev)
@@ -86,14 +89,20 @@ def visualize_outputs(train_dir: str, out_dir: Optional[str] = None,
     Checkpointer(train_dir).restore_latest(state)
 
     cfg = model.cfg
-    if exp.dataset != "synthetic":
-        log.warn("run trained on %s: grids show inference on SYNTHETIC "
-                 "clips", exp.dataset)
-    dataset = synthetic.make_splits(
-        n_train=2, n_valid=max(max_instances, cfg.batch_size), n_test=2,
-        t=cfg.n_lstm_steps, gazemap_hw=(cfg.gazemap_height,
-                                        cfg.gazemap_width),
-        seed=exp.seed).valid
+    gh, gw = cfg.gazemap_height, cfg.gazemap_width
+    if exp.dataset != "synthetic" and data_root:
+        dataset = crc_data.read_crc_data_sets(
+            cfg.image_height, cfg.image_width, gh, gw, dataset=exp.dataset,
+            layouts=crc_data.layouts_for(exp.dataset, data_root),
+            split_modes="valid", seq_len=cfg.n_lstm_steps, use_cache=False,
+            max_folders=max(max_instances, cfg.batch_size)).valid
+    else:
+        if exp.dataset != "synthetic":
+            log.warn("run trained on %s but no data_root given: grids show "
+                     "inference on SYNTHETIC clips", exp.dataset)
+        dataset = synthetic.make_splits(
+            n_train=2, n_valid=max(max_instances, cfg.batch_size), n_test=2,
+            t=cfg.n_lstm_steps, gazemap_hw=(gh, gw), seed=exp.seed).valid
     ret = evaluator.generate(make_predict_fn(model), dataset, cfg.batch_size,
                              max_instances, device=dev)
 

@@ -29,14 +29,13 @@ TF32 off, so it computes what the JAX package's f32 tower does.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..ops.layers import conv3d, linear, max_pool3d, resize_bilinear
-from ..utils import resolve_device
+from ..utils import resolve_device, tf32_off
 
 # (name, out_channels) per conv layer, prototxt order
 CONV_LAYERS = (
@@ -85,21 +84,6 @@ def init_params(generator: Optional[torch.Generator] = None, *,
     return {k: v.to(dev) for k, v in params.items()}
 
 
-@contextlib.contextmanager
-def _tf32_off():
-    """TF32 off for cuDNN and matmuls (process-wide flags, restored on
-    exit), so an f32 tower is f32."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
-
-
 def apply(params: dict, clips: torch.Tensor, *,
           feature_layer: str = "conv5b", compute_dtype=None) -> torch.Tensor:
     """clips [N, 3, 16, 112, 112] (mean-subtracted) -> features in f32.
@@ -110,7 +94,7 @@ def apply(params: dict, clips: torch.Tensor, *,
     if feature_layer not in FEATURE_LAYERS:
         raise ValueError(f"feature_layer must be one of {FEATURE_LAYERS}")
     if compute_dtype is None:
-        with _tf32_off():
+        with tf32_off():
             return _apply(params, clips, feature_layer, None)
     return _apply(params, clips, feature_layer, compute_dtype)
 

@@ -11,9 +11,9 @@ and the tower can be fine-tuned jointly. This module holds what the CLI
     JAX package's numpy draws (the same seed gives the same arrays);
   * `FusedTrainState` and `fit_fused`: the checkpointed, resumable loop.
 
-Not ported yet: `load_fused_corpus` (decoding a directory of videos with
-their gaze records needs `data/gazemap.py`, ROADMAP.md queue A item 7) and
-the mesh branch of `fit_fused` (item 6).
+Not ported yet: `load_fused_corpus` (a directory of videos with their
+gaze records, ROADMAP.md queue A item 7) and the mesh branch of
+`fit_fused` (item 6).
 """
 
 from __future__ import annotations

@@ -6,6 +6,7 @@ the CPU unless the caller asks for it (the CPU tests pass "cpu").
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -21,3 +22,18 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             f"device {str(dev)!r} requested but torch.cuda.is_available() "
             f"is False; pass device='cpu' to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """TF32 off for cuDNN and matmuls (process-wide flags, restored on
+    exit), so f32 work on the card is f32."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved

@@ -533,3 +533,87 @@ def test_prefetched_trainer_losses_equal_the_inline_trainer(cuda_no_tf32):
     inline, fed = losses(False), losses(True)
     assert len(inline) == len(fed) == 3
     np.testing.assert_allclose(fed, inline, rtol=1e-6)
+
+
+def test_apply_attention_on_the_card_matches_the_cpu(cuda_no_tf32):
+    """The attention frames on the card against the CPU: the f32 product
+    at rtol 1e-6, the uint8 frames at most one level apart."""
+    from recurrent_gaze_prediction_tpu_torch.data import video
+
+    rng = np.random.RandomState(0)
+    for hw in ((48, 64), (240, 320)):
+        frames = torch.from_numpy(rng.randint(0, 256, (16, *hw, 3)).astype(
+            np.uint8))
+        maps = torch.from_numpy(rng.rand(16, 49, 49).astype(np.float32))
+        cpu = video.apply_attention(frames.float(), maps)
+        card = video.apply_attention(frames.float().to(cuda_no_tf32),
+                                     maps.to(cuda_no_tf32))
+        torch.testing.assert_close(card.cpu(), cpu, rtol=1e-6, atol=1e-4)
+        delta = (video.apply_attention(frames.to(cuda_no_tf32),
+                                       maps.to(cuda_no_tf32)).cpu().int()
+                 - video.apply_attention(frames, maps).int()).abs()
+        assert int(delta.max()) <= 1
+
+
+def _map_run(tmp_path, name):
+    """A port run dir of `name` at a width the kernels take (U=16), f32,
+    and three clip folders without frame files whose `.c3d` files hold
+    11, 3 and 1 windows."""
+    from recurrent_gaze_prediction_tpu_torch import registry
+    from recurrent_gaze_prediction_tpu_torch.config import ExperimentConfig
+    from recurrent_gaze_prediction_tpu_torch.data import codec
+    from recurrent_gaze_prediction_tpu_torch.train import (
+        Checkpointer, create_train_state)
+
+    model = registry.create_model(
+        name, device="cpu", generator=torch.Generator().manual_seed(0),
+        dim_cnn_proj=16, rnn_state_size=16, compute_dtype="float32")
+    exp = ExperimentConfig()
+    exp.model = model.cfg
+    with torch.no_grad():
+        for p in model.cell.values():
+            p.normal_(0.0, 0.2, generator=torch.Generator().manual_seed(1))
+    state, _ = create_train_state(model, exp.optimizer)
+    run = str(tmp_path / "run")
+    ckpt = Checkpointer(run)
+    ckpt.save(state)
+    ckpt.save_config(exp)
+    clips = tmp_path / "clips"
+    rng = np.random.RandomState(2)
+    for clip, n in (("a", 11), ("b", 3), ("c", 1)):
+        (clips / clip).mkdir(parents=True)
+        codec.write_c3d_file(str(clips / f"{clip}.c3d"), list(
+            rng.rand(n, 512, 2, 7, 7).astype(np.float32)))
+    return run, str(clips)
+
+
+@pytest.mark.parametrize("name", ["gaze_grcn", "gaze_lstm"])
+@pytest.mark.parametrize("streaming", [False, True])
+def test_extract_map_on_the_card(cuda_no_tf32, tmp_path, name, streaming):
+    """cli.extract_map on the card against --device cpu: the float16 maps
+    within 1e-3 (f32 kernels against the plain scans), and the model's
+    forward kernel launched once per predicted batch (3 clips at B=2: 2)
+    or per streamed chunk (11, 3 and 1 windows in chunks of 4: 3 + 1 +
+    1)."""
+    from recurrent_gaze_prediction_tpu_torch.cli import extract_map
+
+    run, clips = _map_run(tmp_path, name)
+    args = ["--train_dir", run, "--clips_root", clips, "--n_lstm_steps",
+            "8", "--batch_size", "2"]
+    if streaming:
+        args += ["--streaming", "--chunk_len", "4"]
+    counter = kconv if name == "gaze_grcn" else klstm
+    before = counter.launches
+    assert extract_map.main(args + ["--out_dir", str(tmp_path / "card")]) \
+        == 0
+    torch.cuda.synchronize()
+    assert counter.launches - before == (5 if streaming else 2)
+    assert extract_map.main(args + ["--out_dir", str(tmp_path / "cpu"),
+                                    "--device", "cpu"]) == 0
+    for clip in ("a", "b", "c"):
+        card = np.load(tmp_path / "card" / f"{clip}.gazemap.npy")
+        cpu = np.load(tmp_path / "cpu" / f"{clip}.gazemap.npy")
+        assert card.shape == cpu.shape
+        np.testing.assert_allclose(card.astype(np.float32),
+                                   cpu.astype(np.float32), rtol=1e-3,
+                                   atol=1e-3)

@@ -140,3 +140,62 @@ def test_zoo_entry_points_raise_without_cuda(tmp_path):
         fit_shallownet(pretrain_shallownet.SyntheticSaliency(n=16),
                        max_steps=1)
     assert not (tmp_path / "sn.pt").exists()
+
+
+def test_research_loop_entry_points_raise_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    import numpy as np
+
+    from recurrent_gaze_prediction_tpu_torch.action import (ActionClassifier,
+                                                            ActionHParams)
+    from recurrent_gaze_prediction_tpu_torch.action import classification
+    from recurrent_gaze_prediction_tpu_torch.cli import (
+        action_classification, create_records, evaluate_gaze,
+        extract_features, extract_map, train_gaze)
+    from recurrent_gaze_prediction_tpu_torch.config import ExperimentConfig
+
+    d = str(tmp_path)
+    ExperimentConfig().dump(str(tmp_path / "config.json"))
+    for main, argv in (
+            (extract_features.main, ["--videos", "v.avi", "--out_dir", d]),
+            (extract_map.main, ["--train_dir", d, "--clips_root", d,
+                                "--out_dir", d]),
+            (extract_map.main, ["--train_dir", d, "--clips_root", d,
+                                "--out_dir", d, "--streaming"]),
+            (create_records.main, ["--train_dir", d, "--out_dir", d]),
+            (action_classification.main, ["--records_glob", "x-*.npz"]),
+            (train_gaze.main, ["--dataset", "crc", "--data_root", d]),
+            (evaluate_gaze.main, ["--train_dir", d, "--dataset",
+                                  "hollywood2", "--data_root", d])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(argv)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ActionClassifier(ActionHParams())
+    with pytest.raises(RuntimeError, match="cuda"):
+        classification.init_params(ActionHParams())
+    with pytest.raises(RuntimeError, match="cuda"):
+        extract_features.extract_windows({}, np.zeros((16, 8, 8, 3),
+                                                      np.uint8))
+    assert not (tmp_path / "model").exists()
+
+
+def test_research_loop_refusals(tmp_path):
+    """What the port leaves out exits with code 2 and names its ROADMAP
+    item, before any device is touched; real data needs --data_root."""
+    from recurrent_gaze_prediction_tpu_torch.cli import (evaluate_gaze,
+                                                         extract_map,
+                                                         train_gaze)
+    from recurrent_gaze_prediction_tpu_torch.config import ExperimentConfig
+    from recurrent_gaze_prediction_tpu_torch.data import video
+
+    with pytest.raises(SystemExit) as info:
+        extract_map.main(["--train_dir", ".", "--clips_root", ".",
+                          "--out_dir", ".", "--data_parallel", "2"])
+    assert info.value.code == 2
+    with pytest.raises(NotImplementedError, match="queue A item 7"):
+        video.load_frame_folder(".", backend="native")
+    assert train_gaze.main(["--dataset", "crc", "--device", "cpu"]) == 1
+    ExperimentConfig().dump(str(tmp_path / "config.json"))
+    assert evaluate_gaze.main(["--train_dir", str(tmp_path), "--dataset",
+                               "crc", "--device", "cpu"]) == 1

@@ -123,9 +123,9 @@ def test_cli_trains_writes_and_resumes(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(monkeypatch):
-    with pytest.raises(SystemExit) as err:
-        train_gaze.main(["--device", "cpu", "--dataset", "crc"])
-    assert err.value.code == 2
+    # the real-data loaders are ported: without --data_root the CLI
+    # returns 1, as the JAX package's does
+    assert train_gaze.main(["--device", "cpu", "--dataset", "crc"]) == 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         train_gaze.main(["--max_steps", "1"])
