@@ -15,12 +15,14 @@ In order, failing (exit 1) on the first check that does not hold:
   3. holds each kernel against its plain PyTorch version in bf16 under the
      JAX package's gate, and in f32 with TF32 off: the forward recurrence
      B1 (`convgru_parity`, T=42, 512->128), the backward kernels
-     B2 `convgru_bwd` and B4 `convgru_bwd_mono` (`backward_parity`, the
-     same shapes, on inputs from a real forward), all at B=8, and B1 and B2
-     also at B=1 (one cluster: the streaming shape) and B=28 (two waves of
-     clusters: the train batch); then the peephole ConvLSTM forward B3
-     (`convlstm_parity`, nonzero carries, the final c checked too) at B=8,
-     1 and 16 (two waves of clusters: the serving batch);
+     B2 `convgru_bwd` (`backward_parity`, the same shapes, on inputs from a
+     real forward) at B=8, and B1 and B2 also at B=1 (one cluster: the
+     streaming shape) and B=28 (two waves of clusters: the train batch);
+     B4 `convgru_bwd_mono` (G + B2 + W) and its phases G
+     `convgru_bwd_gates` (against `recompute_gates`) and W `convgru_wgrad`
+     (against `wgrad_plain`) at B=8 and 16; then the peephole ConvLSTM
+     forward B3 (`convlstm_parity`, nonzero carries, the final c checked
+     too) at B=8, 1 and 16 (two waves of clusters: the serving batch);
   4. serves full-width gaze_grcn, then gaze_lstm (1024->512->128, T=42,
      49x49 maps, bf16, seeded random weights) over HTTP from a bundle:
      concurrent single-clip POSTs, each reply checked against a plain-scan
@@ -39,8 +41,8 @@ In order, failing (exit 1) on the first check that does not hold:
      more B1 launch) writes finite `test/<metric>` rows; then the same 20
      steps with `--no_prefetch`, whose per-step losses must equal the
      prefetched run's (rel 1e-6), and both runs' CLI sec/batch; then takes
-     train steps through `convgru_scan_trainable` (B4 backward), counting
-     its launches;
+     train steps through `convgru_scan_trainable` (B4 backward: G, B2 and
+     W once per step), counting their launches;
   4c. the raw-video front: the C3D tower in bf16 against f32 (TF32 off) on
      16 clips; then the bundle's `fused` program of gaze_grcn and gaze_lstm
      served over HTTP at the JAX package's fused benchmark shape (F=160
@@ -106,7 +108,10 @@ In order, failing (exit 1) on the first check that does not hold:
      (4 steps, B1 and B2 per step) and `cli.evaluate_gaze --dataset crc`
      (both protocols) on a fake CRC layout;
   7. times the kernels and their plain versions (B=8, B=16; B1 and B2 also
-     at B=1 and 28, B3 also at B=1, in us per step beside the bound), the
+     at B=1 and 28, B3 also at B=1, in us per step beside the bound; B4's
+     phases G and W beside the cuDNN calls that compute the same functions,
+     B4 beside its B2 launch and V2's backward, and B4's device time by
+     kernel from torch.profiler), the
      feature-fed predict of both models (B=16) with a breakdown, the HTTP
      requests, the streaming chunk steps (B=1), and the train step (B=28)
      through the kernels and through plain autograd with a breakdown; the
@@ -114,7 +119,8 @@ In order, failing (exit 1) on the first check that does not hold:
      the fused predict at B=8 and 16 with its stages, the fused train step
      (frozen, fine-tuned) and the fused HTTP latency; with CUDA events or
      the host clock after warm-up;
-  8. prints the kernels' JSON line (B1-B4, and B1 and B2 at U=64), then,
+  8. prints the kernels' JSON line (B1-B4, B4's phases G and W, and B1 and
+     B2 at U=64), then,
      last, the device JSON line.
 """
 
@@ -185,6 +191,12 @@ N_REQUESTS = 8
 TRAIN_BATCH = 28  # the reference's training batch (cli/train_gaze.py:135)
 TRAIN_STEPS = 20
 MONO_STEPS = 3    # train steps through the B4 backward
+# B4 and its phases G and W: gated and timed at the flagship B=8 and the
+# serving batch B=16
+B4_BATCHES = (8, 16)
+# what B4's timing lines print beside the kernel: the library calls that
+# compute the same functions, and B4's share of B2
+B4_EXTRA_TIMES = ("library_ms", "b2_in_b4_ms", "v2_backward_ms")
 STREAM_FRAMES = 100  # a feature stream longer than two chunks
 STREAM_CHUNK = 42    # the tail chunk (16 frames) is padded and trimmed
 UNITS = 128
@@ -437,29 +449,124 @@ def per_step(k: dict, t: int = T) -> str:
             f"{k['gflop']:.2f} GFLOP, {k['mbytes']:.1f} MB)")
 
 
+def library_b4_calls(x: dict) -> dict:
+    """The PyTorch calls that compute B4's phases, on B4's inputs `x`
+    (`backward_inputs`, bf16), as zero-argument functions: the two cuDNN
+    convs of phase G and the two cuDNN weight-gradient convs of phase W
+    (bf16, NCHW views of the channels-last streams), and V2's backward
+    (library stage 1, B2, library stage 3): yardsticks, used nowhere in
+    the port."""
+    cdt = torch.bfloat16
+    t, b, _, _, units = x["ys"].shape
+    frames = t * b
+
+    def nchw(a):  # [T,B,H,W,C] -> [T*B,C,H,W] (channels-last strides)
+        return a.reshape(frames, *a.shape[2:]).to(cdt).permute(0, 3, 1, 2)
+
+    def oihw(w):  # [3,3,I,O] -> [O,I,3,3]
+        return w.to(cdt).permute(3, 2, 0, 1).contiguous()
+
+    h, rh = nchw(x["hprev"]), nchw(x["rh"])
+    uzr, uc = oihw(x["uzr"]), oihw(x["uc"])
+    dzr, da, _ = v2.dh_bwd(x["u"], x["r"], x["c"], x["hprev"], x["g"],
+                           x["uzr"], x["uc"], cdt)
+    dzr, da = nchw(dzr), nchw(da)
+    conv, wgrad = torch.nn.functional.conv2d, torch.nn.grad.conv2d_weight
+
+    def v2_backward():
+        return v1.convgru_bwd_phased(
+            x["uzr"], x["uc"], x["wx"], x["ys"], x["h0"], x["g"],
+            gates=v2.recompute_gates, recursion=v2.dh_bwd,
+            tail=v1.wgrad_plain)
+
+    return {
+        "convgru_bwd_gates": lambda: (conv(h, uzr, padding=1),
+                                      conv(rh, uc, padding=1)),
+        "convgru_wgrad": lambda: (wgrad(h, uzr.shape, dzr, padding=1),
+                                  wgrad(rh, uc.shape, da, padding=1)),
+        "v2_backward": v2_backward,
+    }
+
+
 def backward_timing(kernel: str, b: int, seed: int, t: int = T,
                     c: int = 512, units: int = UNITS) -> dict:
     """A backward kernel and its plain version on the same inputs from a
-    real forward (bf16; T=42, 512->128 unless given)."""
+    real forward (bf16; T=42, 512->128 unless given); for B4's phases also
+    the library calls that compute the same function (`library_ms`), for
+    B4 its B2 launch on phase G's outputs (`b2_in_b4_ms`) and V2's
+    backward (`v2_backward_ms`)."""
     x = backward_inputs(t, b, c, units, torch.bfloat16, seed, "cuda")
     run_kernel, run_plain, _ = backward_kernel_and_plain(kernel, x)
+    extra = {}
     with torch.no_grad():
         ms = cuda_ms(run_kernel, 10)
         plain_ms = cuda_ms(run_plain, 3)
+        library = library_b4_calls(x) if kernel != "convgru_bwd" else {}
+        if kernel in library:
+            extra["library_ms"] = cuda_ms(library[kernel], 10)
+        if kernel == "convgru_bwd_mono":
+            u, r, cand, hprev, _ = v1.bwd_gates(x["uzr"], x["uc"], x["wx"],
+                                                x["h0"], x["ys"])
+            extra["b2_in_b4_ms"] = cuda_ms(lambda: v2.dh_bwd(
+                u, r, cand, hprev, x["g"], x["uzr"], x["uc"],
+                torch.bfloat16), 10)
+            extra["v2_backward_ms"] = cuda_ms(library["v2_backward"], 10)
     convs = t * b * 49 * 9 * 3 * units * units * 2  # one set of state convs
     stream = t * b * 49 * units * 4                 # one f32 [T,B,7,7,U]
     state = b * 49 * units * 4                      # h0 or dh0
     weights = (x["uzr"].numel() + x["uc"].numel()) * 2
+    dweights = 9 * units * 3 * units * 4            # dU_zr, dU_c in f32
     if kernel == "convgru_bwd":
         # two transposed convs; u, r, c, h_prev, g in, dzr (2U), da out
         flops, nbytes = convs, 8 * stream + weights + state
+    elif kernel == "convgru_bwd_gates":
+        # both gate convs; wx (bf16), ys, h0 in; u, r, c, h_prev, r*h out
+        flops = convs
+        nbytes = x["wx"].numel() * 2 + stream + state + weights + 5 * stream
+    elif kernel == "convgru_wgrad":
+        # both weight gradients; h_prev, r*h, da, dzr (2U) in
+        flops, nbytes = convs, 5 * stream + dweights
     else:
         # recompute, transposed convs and weight grads; wx (bf16), ys, g,
         # h0 in, dwx (3U), dh0, dU_zr, dU_c out
         flops = 3 * convs
         nbytes = (x["wx"].numel() * 2 + 2 * stream + 3 * stream + 2 * state
-                  + weights + 9 * units * 3 * units * 4)
-    return {"ms": ms, "plain_ms": plain_ms, **bound(flops, nbytes)}
+                  + weights + dweights)
+    return {"ms": ms, "plain_ms": plain_ms, **extra, **bound(flops, nbytes)}
+
+
+# kernels of a B4 call by the name the profiler gives them
+B4_PARTS = (("gates_kernel", "G"), ("convgru_bwd_kernel", "B2"),
+            ("wgrad_kernel", "W"), ("wgrad_reduce", "W slice sum"))
+
+
+def b4_breakdown(b: int, calls: int = 5) -> dict:
+    """Device time of one B4 call by kernel (torch.profiler over `calls`
+    calls after warm-up, ms per call): G, B2, W, W's slice sum, and the
+    rest (weight packing, the dwx concatenation)."""
+    x = backward_inputs(T, b, 512, UNITS, torch.bfloat16, SEED + b, "cuda")
+    args = (x["uzr"], x["uc"], x["wx"], x["ys"], x["h0"], x["g"])
+    with torch.no_grad():
+        for _ in range(2):
+            v1.convgru_bwd(*args)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                v1.convgru_bwd(*args)
+            torch.cuda.synchronize()
+    out = {label: 0.0 for _, label in B4_PARTS}
+    out["other"] = 0.0
+    for event in prof.key_averages():
+        us = getattr(event, "self_device_time_total", None)
+        if us is None:
+            us = event.self_cuda_time_total
+        label = next((lbl for key, lbl in B4_PARTS if key in event.key),
+                     "other")
+        out[label] += us / 1e3 / calls
+    check(all(out[label] > 0 for _, label in B4_PARTS),
+          f"B4's profile at B={b} misses a kernel: {out}")
+    return out
 
 
 def plain_logits(model, c3d: torch.Tensor) -> torch.Tensor:
@@ -504,12 +611,20 @@ def full_width_model(name: str = "gaze_grcn"):
 
 def reset_launches() -> None:
     kconv.launches = v2.launches = v1.launches = klstm.launches = 0
+    v1.gates_launches = v1.wgrad_launches = 0
 
 
 def read_launches() -> dict:
     torch.cuda.synchronize()
     return {"convgru_fwd": kconv.launches, "convgru_bwd": v2.launches,
-            "convgru_bwd_mono": v1.launches, "convlstm_fwd": klstm.launches}
+            "convgru_bwd_mono": v1.launches,
+            "convgru_bwd_gates": v1.gates_launches,
+            "convgru_wgrad": v1.wgrad_launches,
+            "convlstm_fwd": klstm.launches}
+
+
+# B4's phases G and W, launched only inside B4: none on the other paths
+NO_PHASES = {"convgru_bwd_gates": 0, "convgru_wgrad": 0}
 
 
 # the forward kernel each served or streamed model runs
@@ -698,7 +813,7 @@ def train_through_cli(card: str, run: str, prefetch: bool = True) -> dict:
     # B1 once per step and once for the test split's batch, B2 per step
     check(launches == {"convgru_fwd": TRAIN_STEPS + 1,
                        "convgru_bwd": TRAIN_STEPS, "convgru_bwd_mono": 0,
-                       "convlstm_fwd": 0},
+                       **NO_PHASES, "convlstm_fwd": 0},
           f"launches over {TRAIN_STEPS} train steps and the test split: "
           f"{launches}")
     check(saved == [TRAIN_STEPS], f"checkpoints written: {saved}")
@@ -866,7 +981,7 @@ def evaluation_cadence(card: str) -> dict:
               f"evaluation scores at step {step}: {scores}")
     check(launches == {"convgru_fwd": TRAIN_STEPS + n_evals,
                        "convgru_bwd": TRAIN_STEPS, "convgru_bwd_mono": 0,
-                       "convlstm_fwd": 0},
+                       **NO_PHASES, "convlstm_fwd": 0},
           f"launches over {TRAIN_STEPS} steps and {n_evals} evaluations: "
           f"{launches}")
     return {"evals": evals, "launches": launches}
@@ -921,7 +1036,8 @@ def evaluate_through_cli(card: str, run: str) -> dict:
 
 def train_through_mono(model, batch: dict) -> dict:
     """Train steps with `convgru_scan_trainable` (forward B1, backward
-    B4), the JAX package's v1 entry point, through `make_train_step`."""
+    B4), the JAX package's v1 entry point, through `make_train_step`. Each
+    B4 backward launches phase G, B2 and phase W once."""
     model.train_scan = v1.convgru_scan_trainable
     try:
         state, tx = create_train_state(model, OptimizerConfig())
@@ -934,12 +1050,15 @@ def train_through_mono(model, batch: dict) -> dict:
     finally:
         del model.train_scan
     losses = [float(x) for x in losses]
-    print(f"train (make_train_step + convgru_scan_trainable, B4 backward, "
+    print(f"train (make_train_step + convgru_scan_trainable, B4 backward "
+          f"= G + B2 + W, "
           f"B={TRAIN_BATCH}): losses {losses}, launches {launches}",
           flush=True)
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
-    check(launches == {"convgru_fwd": MONO_STEPS, "convgru_bwd": 0,
-                       "convgru_bwd_mono": MONO_STEPS, "convlstm_fwd": 0},
+    check(launches == {"convgru_fwd": MONO_STEPS, "convgru_bwd": MONO_STEPS,
+                       "convgru_bwd_mono": MONO_STEPS,
+                       "convgru_bwd_gates": MONO_STEPS,
+                       "convgru_wgrad": MONO_STEPS, "convlstm_fwd": 0},
           f"launches over {MONO_STEPS} train steps: {launches}")
     return {"launches": launches, "losses": losses}
 
@@ -1312,7 +1431,8 @@ def train_fused_through_cli(card: str) -> dict:
             check(all(np.isfinite(losses)), f"{label}: non-finite loss "
                                             f"{losses}")
             check(launches == {"convgru_fwd": steps, "convgru_bwd": steps,
-                               "convgru_bwd_mono": 0, "convlstm_fwd": 0},
+                               "convgru_bwd_mono": 0, **NO_PHASES,
+                               "convlstm_fwd": 0},
                   f"{label}: launches over {steps} steps: {launches}")
             check(saved == [steps], f"{label}: checkpoints {saved}")
             if label == "frozen":
@@ -1514,7 +1634,7 @@ def zoo_kernel_launches(name: str, calls: int = 1) -> dict:
     the other families of the zoo."""
     fwd = calls if name == "gaze_pupil_grcn" else 0
     return {"convgru_fwd": fwd, "convgru_bwd": 0, "convgru_bwd_mono": 0,
-            "convlstm_fwd": 0}
+            **NO_PHASES, "convlstm_fwd": 0}
 
 
 def c4_kernel_gates(card: str) -> dict:
@@ -1749,7 +1869,8 @@ def zoo_train_through_cli(card: str, run: str, name: str,
         test_batches = -(-ZOO_TEST_CLIPS // 7)
         want = {"convgru_fwd": TRAIN_STEPS + test_batches,
                 "convgru_bwd": TRAIN_STEPS,
-                "convgru_bwd_mono": 0, "convlstm_fwd": 0}
+                "convgru_bwd_mono": 0, **NO_PHASES,
+                "convlstm_fwd": 0}
     else:
         want = zoo_kernel_launches(name, 0)
     check(launches == want, f"{name}: launches {launches}, want {want}")
@@ -1801,7 +1922,8 @@ def pupil_gradient_check(card: str) -> dict:
     for n, c in corrs.items():
         check(c >= GRAD_MIN_CORR, f"pupil grcn grad {n} corr {c}")
     check(launches == {"convgru_fwd": 1, "convgru_bwd": 1,
-                       "convgru_bwd_mono": 0, "convlstm_fwd": 0}
+                       "convgru_bwd_mono": 0, **NO_PHASES,
+                "convlstm_fwd": 0}
           and sum(plain_launches.values()) == 0,
           f"pupil grcn launches {launches}, plain {plain_launches}")
     check(parts["pupil_loss"] > 0 and abs(loss - joint) <= 1e-5 * abs(loss),
@@ -2512,7 +2634,9 @@ def main() -> int:
         fwd_parity[b] = bf16
     bwd_parity = {}
     for kernel, batches in (("convgru_bwd", CLUSTER_BATCHES),
-                            ("convgru_bwd_mono", (8,))):
+                            ("convgru_bwd_gates", B4_BATCHES),
+                            ("convgru_wgrad", B4_BATCHES),
+                            ("convgru_bwd_mono", B4_BATCHES)):
         for b in batches:
             stats = backward_parity(kernel, t=T, b=b, device="cuda")
             print(f"parity {kernel} bf16 B={b}: "
@@ -2611,11 +2735,21 @@ def main() -> int:
               f"[{card}]", flush=True)
     bwd_timing = {}
     for kernel, batches in (("convgru_bwd", CLUSTER_TIMED),
-                            ("convgru_bwd_mono", (8, 16))):
+                            ("convgru_bwd_gates", B4_BATCHES),
+                            ("convgru_wgrad", B4_BATCHES),
+                            ("convgru_bwd_mono", B4_BATCHES)):
         for b in batches:
             k = bwd_timing[kernel, b] = backward_timing(kernel, b, SEED + b)
-            print(f"timing: {kernel} T={T} B={b} U=128 bf16: {per_step(k)} "
-                  f"[{card}]", flush=True)
+            print(f"timing: {kernel} T={T} B={b} U=128 bf16: {per_step(k)}"
+                  + "".join(f", {name} {k[name]:.4f} ms"
+                            for name in B4_EXTRA_TIMES if name in k)
+                  + f" [{card}]", flush=True)
+    for b in B4_BATCHES:
+        parts = b4_breakdown(b)
+        print(f"timing: convgru_bwd_mono T={T} B={b} U=128 bf16, device time "
+              f"per call by kernel (torch.profiler, ms): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in parts.items()) + f" [{card}]",
+              flush=True)
     lstm_fused = ConvLSTM.fuse({k: v.detach()
                                 for k, v in lstm_model.cell.items()})
     lstm_timing = {}
@@ -2697,40 +2831,52 @@ def main() -> int:
     c4_timing, c4_bwd_timing = zoo_timings(card, zoo, timing_rng)
 
     # 8. result lines
-    def entry(name, source, replaces, launches, err, t):
+    def entry(name, source, replaces, launches, err, t, **more):
         return {"name": name, "route": "cuda",
-                "source": f"recurrent_gaze_prediction_tpu_torch/csrc/{source}",
+                "source": f"recurrent_gaze_prediction_tpu_torch/{source}",
                 "replaces": f"recurrent_gaze_prediction_tpu/ops/pallas/"
                             f"{replaces}",
                 "launches": launches, "max_abs_err": err, "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": None}
+                "bound_by": t["bound_by"],
+                "library_ms": t.get("library_ms"), **more}
 
     def max_err(stats):
         return max(o["max_delta"] for o in stats["outputs"].values())
 
     print(json.dumps({"kernels": [
-        entry("convgru_fwd", "convgru_fwd.cu", "convgru.py:45",
+        entry("convgru_fwd", "csrc/convgru_fwd.cu", "convgru.py:45",
               grcn_served["launches"]["convgru_fwd"],
               fwd_parity[8]["max_delta"], fwd_timing[8]),
-        entry("convgru_bwd", "convgru_bwd.cu", "convgru_vjp2.py:56",
+        entry("convgru_bwd", "csrc/convgru_bwd.cu", "convgru_vjp2.py:56",
               trained["launches"]["convgru_bwd"],
               max_err(bwd_parity["convgru_bwd", 8]),
               bwd_timing["convgru_bwd", 8]),
-        entry("convgru_bwd_mono", "convgru_bwd_mono.cu", "convgru_vjp.py:85",
-              mono["launches"]["convgru_bwd_mono"],
+        # B4 is G + B2 + W, composed in its wrapper: its entry is the whole
+        # backward, then one entry for each new phase
+        entry("convgru_bwd_mono", "ops/kernels/convgru_vjp.py",
+              "convgru_vjp.py:85", mono["launches"]["convgru_bwd_mono"],
               max_err(bwd_parity["convgru_bwd_mono", 8]),
-              bwd_timing["convgru_bwd_mono", 8]),
-        entry("convlstm_fwd", "convlstm_fwd.cu", "convlstm.py:23",
+              bwd_timing["convgru_bwd_mono", 8],
+              phases=["convgru_bwd_gates", "convgru_bwd", "convgru_wgrad"]),
+        entry("convgru_bwd_gates", "csrc/convgru_bwd_gates.cu",
+              "convgru_vjp.py:102", mono["launches"]["convgru_bwd_gates"],
+              max_err(bwd_parity["convgru_bwd_gates", 8]),
+              bwd_timing["convgru_bwd_gates", 8]),
+        entry("convgru_wgrad", "csrc/convgru_wgrad.cu", "convgru_vjp.py:113",
+              mono["launches"]["convgru_wgrad"],
+              max_err(bwd_parity["convgru_wgrad", 8]),
+              bwd_timing["convgru_wgrad", 8]),
+        entry("convlstm_fwd", "csrc/convlstm_fwd.cu", "convlstm.py:23",
               lstm_served["launches"]["convlstm_fwd"],
               max(lstm_parity[8]["max_delta"],
                   lstm_parity[8]["final_c"]["max_delta"]),
               lstm_timing[8]),
         # gaze_pupil_grcn's cell: U=64, clusters of 4, T=35, B=7
-        entry("convgru_fwd_u64", "convgru_fwd.cu", "convgru.py:45",
+        entry("convgru_fwd_u64", "csrc/convgru_fwd.cu", "convgru.py:45",
               zoo["pupil_served"]["launches"]["convgru_fwd"],
               zoo["c4_parity"][7]["fwd"]["max_delta"], c4_timing[7]),
-        entry("convgru_bwd_u64", "convgru_bwd.cu", "convgru_vjp2.py:56",
+        entry("convgru_bwd_u64", "csrc/convgru_bwd.cu", "convgru_vjp2.py:56",
               zoo["trained"]["gaze_pupil_grcn"]["launches"]["convgru_bwd"],
               max_err(zoo["c4_parity"][7]["bwd"]), c4_bwd_timing[7]),
     ]}))

@@ -53,6 +53,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="cap on evaluated frames (reference "
                              "--num_frames)")
     parser.add_argument("--dump_images", action="store_true")
+    parser.add_argument("--on_device", action="store_true", default=True,
+                        help="score on the device (the default; accepted "
+                             "for the JAX command line)")
     parser.add_argument("--numpy_protocol", dest="on_device",
                         action="store_false", default=True,
                         help="score per frame with the NumPy protocol "

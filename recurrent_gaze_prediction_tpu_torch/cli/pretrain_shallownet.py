@@ -11,7 +11,8 @@ self_test`, `models/saliency_shallownet.py:415-503`).
 `--dataset synthetic` trains on an image-level stand-in with the SALICON
 batch API (frames and gaze maps of the synthetic clip corpus).
 `--dataset salicon` is not ported yet and exits with code 2: its loader,
-`data/salicon.py`, lands with ROADMAP.md queue A item 7. `--out` must not
+`data/salicon.py`, lands with ROADMAP.md queue A item 7b
+(`--salicon_root` is accepted). `--out` must not
 exist yet (checked before training). `--train_dir` also writes the losses
 to `metrics.jsonl` every `--steps_per_logprint` steps.
 """
@@ -60,6 +61,10 @@ def build_parser() -> argparse.ArgumentParser:
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     parser.add_argument("--dataset", default="synthetic",
                         choices=["salicon", "synthetic"])
+    parser.add_argument("--salicon_root", default="salicon",
+                        help="the SALICON root of --dataset salicon, which "
+                             "is not ported yet (ROADMAP.md queue A item "
+                             "7b)")
     parser.add_argument("--out", required=True,
                         help="output params file (must not exist)")
     parser.add_argument("--max_steps", default=1000, type=int)
@@ -80,7 +85,7 @@ def main(argv: Optional[list[str]] = None) -> int:
     args = parser.parse_args(argv)
     if args.dataset == "salicon":
         parser.error("--dataset salicon: the SALICON loader (data/salicon.py) "
-                     "is not ported yet (ROADMAP.md queue A item 7); use "
+                     "is not ported yet (ROADMAP.md queue A item 7b); use "
                      "--dataset synthetic")
     if os.path.exists(args.out):
         # fail BEFORE the training run, with the remedy

@@ -16,7 +16,12 @@ through them (forward B1, backward B2) on the card. Training batches are
 prefetched by a worker thread (cast on the host, copied on a side stream)
 unless `--no_prefetch`.
 
-Not ported yet: profiling and the mesh flags.
+`--pallas` and `--no_pallas` are accepted for the JAX command lines and
+change nothing: the route follows `kernel_takes` (a recurrence the kernels
+take runs through them on the card, any other through the cell's own
+scan). Not ported yet, and refused with exit code 2: `--profile_steps`
+(ROADMAP.md queue A item 7c) and `--data_parallel` / `--model_parallel`
+other than 1 (queue A item 6).
 """
 
 from __future__ import annotations
@@ -96,19 +101,51 @@ def build_parser() -> argparse.ArgumentParser:
                              "(cli.pretrain_shallownet --out)")
     parser.add_argument("--compute_dtype", default=None,
                         choices=[None, "bfloat16", "float32"])
+    parser.add_argument("--pallas", dest="use_pallas", action="store_true",
+                        default=None,
+                        help="accepted for the JAX command line; the route "
+                             "follows kernel_takes either way")
+    parser.add_argument("--no_pallas", dest="use_pallas",
+                        action="store_false",
+                        help="accepted for the JAX command line and maps to "
+                             "nothing: it does not select the plain scan; "
+                             "the route follows kernel_takes")
     parser.add_argument("--seed", default=0, type=int)
     parser.add_argument("--no_prefetch", dest="prefetch",
                         action="store_false", default=True,
                         help="copy each training batch inline instead of "
                              "on the prefetch thread")
+    parser.add_argument("--profile_steps", default=0, type=int,
+                        help="not ported yet (ROADMAP.md queue A item 7c): "
+                             "N > 0 exits 2")
+    parser.add_argument("--data_parallel", default=1, type=int,
+                        help="not ported yet (ROADMAP.md queue A item 6): "
+                             "other than 1 exits 2")
+    parser.add_argument("--model_parallel", default=1, type=int,
+                        help="not ported yet (ROADMAP.md queue A item 6): "
+                             "other than 1 exits 2")
     parser.add_argument("--device", default="cuda",
                         help="torch device; the default needs a CUDA card")
     return parser
 
 
+def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
+    """Exit 2, naming the ROADMAP item that brings each unported flag."""
+    if args.profile_steps > 0:
+        parser.error("--profile_steps: the profiler window is not ported "
+                     "yet (ROADMAP.md queue A item 7c)")
+    if args.data_parallel != 1 or args.model_parallel != 1:
+        parser.error("--data_parallel / --model_parallel: multi-GPU is not "
+                     "ported yet (ROADMAP.md queue A item 6)")
+
+
 def main(argv: Optional[list[str]] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
+    _refuse_unported(parser, args)
+    if args.use_pallas is not None:
+        log.warn("--%spallas changes nothing here: the recurrence's route "
+                 "follows kernel_takes", "" if args.use_pallas else "no_")
     if args.dataset != "synthetic" and not args.data_root:
         log.error("--data_root is required for dataset %s", args.dataset)
         return 1

@@ -1,6 +1,8 @@
 // Cluster-split 3x3 SAME convolutions for the ConvGRU kernels B1
 // (convgru_fwd.cu) and B2 (convgru_bwd.cu) and the ConvLSTM kernel B3
-// (convlstm_fwd.cu) on Hopper (sm_90a).
+// (convlstm_fwd.cu) on Hopper (sm_90a); B4's phases G and W
+// (convgru_bwd_gates.cu, convgru_wgrad.cu) use its grid, copies and mma
+// helpers.
 //
 // One batch element runs on a thread-block cluster of C CTAs
 // (`cluster_size`); CTA k owns the output channels [k*Ns, (k+1)*Ns),
@@ -13,14 +15,14 @@
 //     CTA's copy through distributed shared memory (`quad_broadcast`); a
 //     cluster barrier then makes the stores visible.
 //
-// Layout: the padded grid of conv3x3.cuh with another row stride. An
-// operand with K channels is kept zero-padded on an (H+2) x (W+2) grid in a
-// buffer of R rows of stride K + 8 elements. Outputs are computed on an
-// H x (W+2) grid of Mpad rows (the two extra columns and the tail rows are
-// discarded), so for tap (dy, dx) the rows of the A operand are one
-// contiguous run of the padded buffer starting at dy*(W+2)+dx. In bf16 a row
-// of K + 8 elements is an odd number of 16-byte units, so the 8 rows one
-// ldmatrix reads fall on 8 distinct groups of 4 banks.
+// Layout: the padded grid. An operand with K channels is kept zero-padded on
+// an (H+2) x (W+2) grid in a buffer of R rows of stride K + 8 elements.
+// Outputs are computed on an H x (W+2) grid of Mpad rows (the two extra
+// columns and the tail rows are discarded), so for tap (dy, dx) the rows of
+// the A operand are one contiguous run of the padded buffer starting at
+// dy*(W+2)+dx. In bf16 a row of K + 8 elements is an odd number of 16-byte
+// units, so the 8 rows one ldmatrix reads fall on 8 distinct groups of 4
+// banks.
 //
 // Weights. A slice is [9*K][N] (HWIO, taps flattened, the CTA's output
 // columns). In bf16 the wrapper stores it in mma fragment order
@@ -185,6 +187,19 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Store two (four) f32 values at p, rounded to the buffer's type (p
+// aligned to their size).
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16x2(v.x, v.y), pack_bf16x2(v.z, v.w));
+}
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+
 // The four lanes of a quad (lanes 4q .. 4q+3) hold two consecutive channels
 // each, (v0, v1): eight consecutive channels, the first of which is at
 // element `off` of `buf` (the same `off` in all four lanes). Store the
@@ -229,6 +244,15 @@ __device__ inline void quad_broadcast(float* buf, size_t off, float v0, float v1
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const __nv_bfloat16* p) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(s));
+}
+
+// The same for four 8x8 matrices stored transposed (rows along k): lane l
+// receives elements (2(l%4), l/4) and (2(l%4)+1, l/4) of each.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], const __nv_bfloat16* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
                : "r"(s));
 }

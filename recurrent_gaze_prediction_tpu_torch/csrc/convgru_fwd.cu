@@ -277,8 +277,6 @@ size_t convgru_fwd_smem_bytes(int H, int W, int U, int elem_bytes) {
   return layout(make_grid(H, W), U, cluster_size(U), (size_t)elem_bytes).total;
 }
 
-size_t convgru_fwd_smem_limit() { return (size_t)kMaxSharedBytes; }
-
 const char* convgru_fwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -59,23 +59,22 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     lib.convgru_fwd.argtypes = [vp] * 6 + [i] * 6 + [vp]
     lib.convgru_bwd.argtypes = [vp] * 10 + [i] * 6 + [vp]
-    lib.convgru_bwd_mono.argtypes = [vp] * 12 + [i] * 6 + [vp]
+    lib.convgru_bwd_gates.argtypes = [vp] * 10 + [i] * 6 + [vp]
+    lib.convgru_wgrad.argtypes = [vp] * 6 + [i] * 6 + [vp]
     lib.convlstm_fwd.argtypes = [vp] * 10 + [i] * 6 + [vp]
     for name in ("convgru_fwd_smem_bytes", "convgru_bwd_smem_bytes",
-                 "convgru_bwd_mono_smem_bytes", "convlstm_fwd_smem_bytes"):
+                 "convgru_bwd_gates_smem_bytes", "convlstm_fwd_smem_bytes"):
         getattr(lib, name).argtypes = [i, i, i, i]
         getattr(lib, name).restype = size
     for name in ("convgru_fwd_max_clusters", "convgru_bwd_max_clusters",
                  "convlstm_fwd_max_clusters"):
         getattr(lib, name).argtypes = [i, i, i, i]
         getattr(lib, name).restype = i
-    lib.convgru_bwd_mono_workspace_bytes.argtypes = [i] * 5
-    lib.convgru_bwd_mono_workspace_bytes.restype = size
-    for name in ("convgru_fwd", "convgru_bwd", "convgru_bwd_mono",
-                 "convlstm_fwd"):
+    lib.convgru_wgrad_tiles.argtypes = [i]
+    lib.convgru_wgrad_tiles.restype = i
+    for name in ("convgru_fwd", "convgru_bwd", "convgru_bwd_gates",
+                 "convgru_wgrad", "convlstm_fwd"):
         getattr(lib, name).restype = i
-    lib.convgru_fwd_smem_limit.argtypes = []
-    lib.convgru_fwd_smem_limit.restype = size
     for name in ("convgru_fwd_error_string", "convlstm_fwd_error_string"):
         getattr(lib, name).argtypes = [i]
         getattr(lib, name).restype = ctypes.c_char_p
@@ -136,18 +135,6 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             _lib = _build()
         return _lib
-
-
-def check_shared_memory(kernel: str, h: int, w: int, units: int,
-                        elem_bytes: int) -> None:
-    """Raise if one block of `kernel` needs more shared memory than the
-    card gives a block at this grid and width."""
-    lib = load()
-    need = getattr(lib, f"{kernel}_smem_bytes")(h, w, units, elem_bytes)
-    if need > lib.convgru_fwd_smem_limit():
-        raise ValueError(f"{kernel} needs {need} B of shared memory at H={h} "
-                         f"W={w} U={units} (limit "
-                         f"{lib.convgru_fwd_smem_limit()})")
 
 
 def launch(kernel: str, device: torch.device, *args) -> None:

@@ -1,32 +1,48 @@
-"""ConvGRU custom backward, v1 (monolithic): the hand-written CUDA kernel's
-wrapper, its plain version, and the autograd Function around them.
+"""ConvGRU custom backward, v1 (monolithic, kernel B4): its three
+hand-written phases' wrappers, their plain versions, and the autograd
+Function around them.
 
 Replaces the TPU kernel `_convgru_bwd_kernel` of the JAX package's
 `ops/pallas/convgru_vjp.py` (`_convgru_bwd_pallas`, custom VJP
-`convgru_scan_fused`, entry point `convgru_scan_trainable`). The kernel
-(`csrc/convgru_bwd_mono.cu`) walks T in reverse in one launch, one block
-per batch element: it recomputes u, r, c from h_{t-1}, applies both
-transposed convs, and accumulates dU_zr and dU_c in a per-block f32 partial
-in device memory, summed over B after the launch.
+`convgru_scan_fused`, entry point `convgru_scan_trainable`). That kernel
+walks T in reverse and, per step, recomputes the gates from h_{t-1}, forms
+both transposed convs and accumulates dU_zr and dU_c. Only the cotangent
+recursion is serial, so on the card B4 is three launches on one stream
+(`convgru_bwd_phased`):
+
+  phase G (`csrc/convgru_bwd_gates.cu`, `bwd_gates`): u, r, c, h_{t-1} and
+      r*h_{t-1} for all T*B frames at once (the recompute reads only wx and
+      h_{t-1} = [h0, ys[:-1]]);
+  B2 (`csrc/convgru_bwd.cu`, `convgru_vjp2.dh_bwd`, unchanged): the
+      reverse-time recursion -> dzr = [du_pre|dr_pre], da, dh0;
+  phase W (`csrc/convgru_wgrad.cu`, `wgrad`): dU_zr = sum patches(h)^T
+      dzr and dU_c = sum patches(r*h)^T da as one split-K implicit GEMM
+      with a deterministic sum of the slices;
+
+and dwx = [dzr|da] is one concatenation (a copy, no arithmetic).
 
 Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s) at T=42, U=128 in bf16:
-operations, 3x the forward's FLOPs (43.7 GFLOP at B=8, 44.2 us; 87.4 GFLOP
-at B=16, 88.4 us), against ~58 MB moved at B=8.
+operations, each phase 14.57 / 29.13 GFLOP at B=8 / 16, 43.70 / 87.40 in
+all (44.2 / 88.4 us).
 
 Numerics rule (as in the forward kernel): all elementwise math is f32; in
-bf16 mode (wx in bf16) every conv operand, the cotangents and the weights
-included, is rounded to bf16 and the products are summed in f32; in f32
-mode everything is f32. The plain versions here round the same way, so the
-card's check compares like with like. The JAX kernel casts its weights to
-f32 (`convgru_vjp.py:173`); on the TPU its f32 dots round their operands to
-bf16 at default precision, which is the rule written out.
+bf16 mode (wx in bf16) every conv and weight-gradient operand is rounded to
+bf16 and the products are summed in f32; in f32 mode everything is f32.
+Phase G rounds h_{t-1} and r*h_{t-1} where the forward kernel did, so B2
+sees the forward's gates. The plain versions here round the same way, so
+the card's check compares like with like. The JAX kernel casts its weights
+to f32 (`convgru_vjp.py:173`); on the TPU its f32 dots round their operands
+to bf16 at default precision, which is the rule written out.
 
 Also holds the plain conv helpers shared with v2 (`convgru_vjp2.py`):
 `conv3x3_transpose` and `kernel_grad`, copies of the JAX package's
 `_conv3x3_transpose`, `_conv3x3_kernel_grad`, `_patches` and `_kernel_grad`.
 
-On a CUDA tensor the wrapper launches the kernel or raises (no fallback);
-on a CPU tensor it runs the plain version, `convgru_bwd_plain`.
+On a CUDA tensor `convgru_bwd` launches G, B2 and W or raises (no
+fallback); `launches` counts one per B4 backward, `gates_launches` and
+`wgrad_launches` one per launch of G and W, and `convgru_vjp2.launches`
+ticks too (B2 runs). On a CPU tensor it runs the plain version of the
+whole, `convgru_bwd_plain`, step by step.
 """
 
 from __future__ import annotations
@@ -40,11 +56,14 @@ import torch.nn.functional as F
 from ..cells import ConvGRU
 from ..layers import conv2d
 from . import build
-from .convgru import convgru_recurrence
+from .convgru import (SMEM_LIMIT, aligned, convgru_recurrence, pack_slices,
+                      pad_bytes, padded_grid)
 
-# Launches of the CUDA kernel in this process; chip_smoke.py resets it to
-# 0 before driving a path and reads it after.
+# Launches in this process: of B4 as a whole, and of its phases G and W;
+# chip_smoke.py resets them to 0 before driving a path and reads them after.
 launches = 0
+gates_launches = 0
+wgrad_launches = 0
 _count_lock = threading.Lock()
 
 _DTYPES = {torch.bfloat16: 2, torch.float32: 4}
@@ -141,6 +160,172 @@ def convgru_bwd_plain(uzr: torch.Tensor, uc: torch.Tensor, wx: torch.Tensor,
     return torch.stack(dwx[::-1]), dh, duzr, duc
 
 
+def wgrad_plain(hprev, dzr, rh, da, compute_dtype=None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase W's plain version: (dU_zr, dU_c) = (kernel_grad(hprev, dzr),
+    kernel_grad(rh, da)), summed over every frame, in f32."""
+    return (kernel_grad(hprev, dzr, compute_dtype),
+            kernel_grad(rh, da, compute_dtype))
+
+
+def convgru_bwd_phased(uzr, uc, wx, ys, h0, g, *, gates, recursion, tail
+                       ) -> tuple[torch.Tensor, ...]:
+    """B4 as three phases: `gates(uzr, uc, wx, h0, ys)` -> u, r, c, hprev,
+    rh; `recursion(u, r, c, hprev, g, uzr, uc, compute_dtype)` -> dzr, da,
+    dh0; `tail(hprev, dzr, rh, da, compute_dtype)` -> dU_zr, dU_c. Returns
+    (dwx = [dzr|da], dh0, dU_zr, dU_c) as `convgru_bwd_plain` does."""
+    cdt = mode_of(wx)
+    u, r, c, hprev, rh = gates(uzr, uc, wx, h0, ys)
+    dzr, da, dh0 = recursion(u, r, c, hprev, g.float(), uzr, uc, cdt)
+    duzr, duc = tail(hprev, dzr, rh, da, cdt)
+    return torch.cat([dzr, da], dim=-1), dh0, duzr, duc
+
+
+def gates_smem_bytes(h: int, w: int, units: int, elem: int) -> int:
+    """Shared memory of one CTA of phase G, as `csrc/convgru_bwd_gates.cu`
+    lays it out: hpad and rhpad for each of its frames (in bf16 as many as
+    give 8 row tiles of 16, 2 at 7x7; in f32 one)."""
+    tiles = padded_grid(h, w)[0] // 16
+    frames = 8 // tiles if elem == 2 and tiles < 8 else 1
+    return frames * 2 * pad_bytes(h, w, units, elem)
+
+
+def kernel_takes(h: int, w: int, units: int, dtype: torch.dtype,
+                 kernel: tuple[int, int] = (3, 3)) -> bool:
+    """Whether B4 takes U units on an H x W grid in `dtype` (wx's): exactly
+    when B2 takes it (`convgru_vjp2.kernel_takes`) and phase G's shared
+    memory fits. Phase W takes every U that is a multiple of 16."""
+    from . import convgru_vjp2
+
+    return (convgru_vjp2.kernel_takes(h, w, units, dtype, kernel)
+            and gates_smem_bytes(h, w, units, _DTYPES[dtype]) <= SMEM_LIMIT)
+
+
+# CTAs of phase W that an H100 holds at once (two per SM on 132 SMs): the
+# split-K slices fill them, a function of the shapes alone
+WGRAD_SLOTS = 264
+WGRAD_TILE, WGRAD_CHUNK = 128, 32  # its output tile and K chunk
+
+
+def wgrad_tiles(units: int) -> int:
+    """Output tiles of 128 x 128 of phase W: dU_zr [9U, 2U] and dU_c
+    [9U, U]."""
+    rows = -(-9 * units // WGRAD_TILE)
+    return rows * (-(-2 * units // WGRAD_TILE) + -(-units // WGRAD_TILE))
+
+
+def wgrad_slices(units: int, frames: int, hw: int) -> int:
+    """Phase W's split of K = frames * H * W: as many slices as fill
+    WGRAD_SLOTS, none emptier than one K chunk."""
+    chunks = -(-frames * hw // WGRAD_CHUNK)
+    return max(1, min(chunks, WGRAD_SLOTS // wgrad_tiles(units)))
+
+
+def _launch_gates(uzr, uc, wx, h0, ys) -> tuple[torch.Tensor, ...]:
+    global gates_launches
+    if wx.dim() != 5:
+        raise ValueError(f"need wx [T,B,H,W,3U]; got {tuple(wx.shape)}")
+    t, b, hh, ww, three_u = wx.shape
+    units = three_u // 3
+    if wx.dtype not in _DTYPES:
+        raise ValueError(f"wx dtype must be bfloat16 or float32, got "
+                         f"{wx.dtype}")
+    if (three_u != 3 * units or units < 16 or units % 16
+            or tuple(ys.shape) != (t, b, hh, ww, units)
+            or tuple(h0.shape) != (b, hh, ww, units)
+            or tuple(uzr.shape) != (3, 3, units, 2 * units)
+            or tuple(uc.shape) != (3, 3, units, units)):
+        raise ValueError(
+            f"convgru_bwd_gates takes wx [T,B,H,W,3U] with U a multiple of "
+            f"16, ys [T,B,H,W,U], h0 [B,H,W,U], U_zr [3,3,U,2U], U_c "
+            f"[3,3,U,U]; got wx {tuple(wx.shape)}, ys {tuple(ys.shape)}, h0 "
+            f"{tuple(h0.shape)}, U_zr {tuple(uzr.shape)}, U_c "
+            f"{tuple(uc.shape)}")
+    device = build.same_device("convgru_bwd_gates", uzr, uc, wx, h0, ys)
+    elem = _DTYPES[wx.dtype]
+    need = gates_smem_bytes(hh, ww, units, elem)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"convgru_bwd_gates needs {need} B of shared memory "
+                         f"per CTA at H={hh} W={ww} U={units} (limit "
+                         f"{SMEM_LIMIT})")
+    wx = aligned(wx.contiguous())
+    h0 = aligned(h0.float().contiguous())
+    ys = aligned(ys.float().contiguous())
+    wzr = pack_slices(uzr, 1, wx.dtype)
+    wc = pack_slices(uc, 1, wx.dtype)
+    outs = [torch.empty((t, b, hh, ww, units), dtype=torch.float32,
+                        device=device) for _ in range(5)]
+    build.launch("convgru_bwd_gates", device, wx.data_ptr(), h0.data_ptr(),
+                 ys.data_ptr(), wzr.data_ptr(), wc.data_ptr(),
+                 *(x.data_ptr() for x in outs), t, b, hh, ww, units, elem)
+    with _count_lock:
+        gates_launches += 1
+    return tuple(outs)
+
+
+def bwd_gates(uzr, uc, wx, h0, ys) -> tuple[torch.Tensor, ...]:
+    """Phase G: u, r, c, h_{t-1} and r*h_{t-1} [T,B,H,W,U] in f32 for every
+    frame, from the forward's wx (bf16 or f32), h0 and ys. On a CUDA tensor
+    the kernel (or raises); on a CPU tensor its plain version,
+    `convgru_vjp2.recompute_gates`."""
+    if wx.device.type == "cuda":
+        return _launch_gates(uzr, uc, wx, h0, ys)
+    if wx.device.type != "cpu":
+        raise ValueError(f"no ConvGRU gate kernel for device {wx.device}")
+    from .convgru_vjp2 import recompute_gates
+
+    return recompute_gates(uzr, uc, wx, h0, ys)
+
+
+def _launch_wgrad(hprev, dzr, rh, da, compute_dtype
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    global wgrad_launches
+    wdt = torch.float32 if compute_dtype is None else compute_dtype
+    if wdt not in _DTYPES:
+        raise ValueError(f"compute dtype must be bfloat16 or float32 (None), "
+                         f"got {compute_dtype}")
+    if hprev.dim() < 3:
+        raise ValueError(f"need hprev [...,H,W,U]; got {tuple(hprev.shape)}")
+    hh, ww, units = hprev.shape[-3:]
+    frames = hprev.numel() // (hh * ww * units) if hprev.numel() else 0
+    if (units < 16 or units % 16 or frames < 1
+            or rh.shape != hprev.shape or da.shape != hprev.shape
+            or tuple(dzr.shape) != (*hprev.shape[:-1], 2 * units)):
+        raise ValueError(
+            f"convgru_wgrad takes hprev, rh, da [...,H,W,U] with U a multiple "
+            f"of 16 and dzr [...,H,W,2U]; got hprev {tuple(hprev.shape)}, "
+            f"dzr {tuple(dzr.shape)}, rh {tuple(rh.shape)}, da "
+            f"{tuple(da.shape)}")
+    device = build.same_device("convgru_wgrad", hprev, dzr, rh, da)
+    slices = wgrad_slices(units, frames, hh * ww)
+    ins = [aligned(x.float().contiguous()) for x in (hprev, dzr, rh, da)]
+    f32 = dict(dtype=torch.float32, device=device)
+    workspace = torch.empty(slices * 27 * units * units, **f32)
+    out = torch.empty(27 * units * units, **f32)
+    build.launch("convgru_wgrad", device, *(x.data_ptr() for x in ins),
+                 workspace.data_ptr(), out.data_ptr(), frames, slices, hh,
+                 ww, units, _DTYPES[wdt])
+    with _count_lock:
+        wgrad_launches += 1
+    split = 18 * units * units
+    return (out[:split].view(3, 3, units, 2 * units),
+            out[split:].view(3, 3, units, units))
+
+
+def wgrad(hprev, dzr, rh, da, compute_dtype=None
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Phase W: (dU_zr, dU_c) in f32, summed over every frame, from the
+    h_{t-1} and r*h_{t-1} streams and the cotangents dzr and da.
+    `compute_dtype` (None = f32) is the dtype the operands round to. On a
+    CUDA tensor the kernel (or raises); on a CPU tensor `wgrad_plain`."""
+    if hprev.device.type == "cuda":
+        return _launch_wgrad(hprev, dzr, rh, da, compute_dtype)
+    if hprev.device.type != "cpu":
+        raise ValueError(f"no ConvGRU weight-gradient kernel for device "
+                         f"{hprev.device}")
+    return wgrad_plain(hprev, dzr, rh, da, compute_dtype)
+
+
 def _launch(uzr: torch.Tensor, uc: torch.Tensor, wx: torch.Tensor,
             ys: torch.Tensor, h0: torch.Tensor, g: torch.Tensor
             ) -> tuple[torch.Tensor, ...]:
@@ -164,30 +349,18 @@ def _launch(uzr: torch.Tensor, uc: torch.Tensor, wx: torch.Tensor,
             f"[3,3,U,2U], U_c [3,3,U,U]; got wx {tuple(wx.shape)}, ys "
             f"{tuple(ys.shape)}, g {tuple(g.shape)}, h0 {tuple(h0.shape)}, "
             f"U_zr {tuple(uzr.shape)}, U_c {tuple(uc.shape)}")
-    device = build.same_device("convgru_bwd_mono", uzr, uc, wx, ys, h0, g)
-    elem = _DTYPES[wx.dtype]
-    build.check_shared_memory("convgru_bwd_mono", hh, ww, units, elem)
-    wx = wx.contiguous()
-    hprev = hprev_of(h0, ys).contiguous()
-    g = g.float().contiguous()
-    weights = [w.to(wx.dtype).contiguous() for w in (
-        uzr, uc, transposed_weight(uzr), transposed_weight(uc))]
-    f32 = dict(dtype=torch.float32, device=device)
-    dwx = torch.empty((t, b, hh, ww, three_u), **f32)
-    dh0 = torch.empty((b, hh, ww, units), **f32)
-    duzr_part = torch.empty((b, 3, 3, units, 2 * units), **f32)
-    duc_part = torch.empty((b, 3, 3, units, units), **f32)
-    workspace = torch.empty(build.load().convgru_bwd_mono_workspace_bytes(
-        b, hh, ww, units, elem), dtype=torch.uint8, device=device)
-    build.launch("convgru_bwd_mono", device, wx.data_ptr(), hprev.data_ptr(),
-                 g.data_ptr(), *(w.data_ptr() for w in weights),
-                 dwx.data_ptr(), dh0.data_ptr(), duzr_part.data_ptr(),
-                 duc_part.data_ptr(), workspace.data_ptr(), t, b, hh, ww,
-                 units, elem)
+    build.same_device("convgru_bwd_mono", uzr, uc, wx, ys, h0, g)
+    if not kernel_takes(hh, ww, units, wx.dtype):
+        raise ValueError(f"convgru_bwd_mono: phase G's or B2's shared memory "
+                         f"does not fit at H={hh} W={ww} U={units} "
+                         f"({wx.dtype})")
+    from .convgru_vjp2 import dh_bwd
+
+    out = convgru_bwd_phased(uzr, uc, wx, ys, h0, g, gates=bwd_gates,
+                             recursion=dh_bwd, tail=wgrad)
     with _count_lock:
         launches += 1
-    # one deterministic reduction of the per-block partials over B
-    return dwx, dh0, duzr_part.sum(dim=0), duc_part.sum(dim=0)
+    return out
 
 
 def convgru_bwd(uzr: torch.Tensor, uc: torch.Tensor, wx: torch.Tensor,

@@ -40,8 +40,8 @@ from ..cells import ConvGRU
 from . import build
 from .convgru import (SMEM_LIMIT, acc_bytes, align128, aligned, check_fits,
                       cluster_size, convgru_recurrence, pack_slices, pad_bytes)
-from .convgru_vjp import (conv3x3, conv3x3_transpose, hprev_of, kernel_grad,
-                          mode_of, transposed_weight)
+from .convgru_vjp import (conv3x3, conv3x3_transpose, convgru_bwd_phased,
+                          hprev_of, mode_of, transposed_weight, wgrad_plain)
 
 # Launches of the CUDA kernel in this process; chip_smoke.py resets it to
 # 0 before driving a path and reads it after.
@@ -184,14 +184,10 @@ class ConvGRUFusedV2(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         uzr, uc, wx, h0, ys = ctx.saved_tensors
-        cdt = mode_of(wx)
-        u, r, c, hprev, rh = recompute_gates(uzr, uc, wx, h0, ys)
-        # stage 2: sequential cotangent propagation (kernel B2)
-        dzr, da, dh0 = dh_bwd(u, r, c, hprev, g.float(), uzr, uc, cdt)
-        # stage 3: weight gradients as one matmul each; dwx = [dzr|da]
-        duzr = kernel_grad(hprev, dzr, cdt)
-        duc = kernel_grad(rh, da, cdt)
-        dwx = torch.cat([dzr, da], dim=-1)
+        # stage 1 and 3 library calls, stage 2 kernel B2; dwx = [dzr|da]
+        dwx, dh0, duzr, duc = convgru_bwd_phased(
+            uzr, uc, wx, ys, h0, g, gates=recompute_gates, recursion=dh_bwd,
+            tail=wgrad_plain)
         return (duzr.to(uzr.dtype), duc.to(uc.dtype), dwx.to(wx.dtype),
                 dh0.to(h0.dtype))
 

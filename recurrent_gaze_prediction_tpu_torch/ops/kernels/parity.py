@@ -4,9 +4,10 @@ plain versions, the counterpart of the JAX package's `ops/pallas/parity.py`.
 `convgru_parity()` and `convlstm_parity()` run the SAME params and inputs
 through a forward kernel's wrapper (B1, B3) and the plain scan;
 `backward_parity()` runs the backward kernels (B2 `convgru_bwd`, B4
-`convgru_bwd_mono`) and their plain versions on inputs from a real
-forward. Each reports agreement. On a CPU device both sides are the plain
-versions, so only a CUDA run checks a kernel (chip_smoke.py).
+`convgru_bwd_mono`, and B4's phases G `convgru_bwd_gates` and W
+`convgru_wgrad`) and their plain versions on inputs from a real forward.
+Each reports agreement. On a CPU device both sides are the plain versions,
+so only a CUDA run checks a kernel (chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -149,15 +150,18 @@ def backward_inputs(t: int = 42, b: int = 8, c: int = 512, units: int = 128,
         wx = ConvGRU.input_gates(fused, xs, compute_dtype)
         h0 = ConvGRU.zero_state(b, (7, 7), units, device=dev)
         _, ys = convgru_recurrence(fused, wx, h0)
-        u, r, cand, hprev, _ = convgru_vjp2.recompute_gates(
+        u, r, cand, hprev, rh = convgru_vjp2.recompute_gates(
             fused["Uh_zr"], fused["U_c"], wx, h0, ys)
     return {"uzr": fused["Uh_zr"], "uc": fused["U_c"], "wx": wx, "h0": h0,
-            "ys": ys, "g": g, "u": u, "r": r, "c": cand, "hprev": hprev}
+            "ys": ys, "g": g, "u": u, "r": r, "c": cand, "hprev": hprev,
+            "rh": rh}
 
 
 def backward_kernel_and_plain(kernel: str, x: dict):
     """(kernel call, plain call, output names) of a backward kernel on the
-    inputs of `backward_inputs`, as zero-argument functions."""
+    inputs of `backward_inputs`, as zero-argument functions. Phase W's
+    cotangents dzr and da come from B2 (its plain version on a CPU
+    device), run once here."""
     if kernel == "convgru_bwd":
         args = (x["u"], x["r"], x["c"], x["hprev"], x["g"], x["uzr"],
                 x["uc"], convgru_vjp.mode_of(x["wx"]))
@@ -169,6 +173,20 @@ def backward_kernel_and_plain(kernel: str, x: dict):
         return (lambda: convgru_vjp.convgru_bwd(*args),
                 lambda: convgru_vjp.convgru_bwd_plain(*args),
                 ("dwx", "dh0", "dU_zr", "dU_c"))
+    if kernel == "convgru_bwd_gates":
+        args = (x["uzr"], x["uc"], x["wx"], x["h0"], x["ys"])
+        return (lambda: convgru_vjp.bwd_gates(*args),
+                lambda: convgru_vjp2.recompute_gates(*args),
+                ("u", "r", "c", "hprev", "rh"))
+    if kernel == "convgru_wgrad":
+        cdt = convgru_vjp.mode_of(x["wx"])
+        with torch.no_grad():
+            dzr, da, _ = convgru_vjp2.dh_bwd(x["u"], x["r"], x["c"],
+                                             x["hprev"], x["g"], x["uzr"],
+                                             x["uc"], cdt)
+        args = (x["hprev"], dzr, x["rh"], da, cdt)
+        return (lambda: convgru_vjp.wgrad(*args),
+                lambda: convgru_vjp.wgrad_plain(*args), ("dU_zr", "dU_c"))
     raise ValueError(f"unknown backward kernel {kernel!r}")
 
 

@@ -1,5 +1,6 @@
-"""The port's ConvGRU backward (plain versions of kernels B2 and B4, and the
-autograd Functions around them) against the JAX package on the CPU.
+"""The port's ConvGRU backward (plain versions of kernels B2 and B4, B4's
+three-phase composition, and the autograd Functions around them) against
+the JAX package on the CPU.
 
 The plain versions are held against the JAX Pallas kernels in interpret
 mode (`_dh_bwd_pallas`, `_convgru_bwd_pallas`) at rtol 1e-4 / atol 1e-5, the
@@ -68,6 +69,70 @@ def test_convgru_bwd_plain_matches_jax_kernel_interpret():
     want = jv1._convgru_bwd_pallas(*map(jnp.asarray, arrays), interpret=True)
     got = v1.convgru_bwd_plain(*map(torch.from_numpy, arrays))
     _assert_all_close(got, want)  # dwx, dh0, dU_zr, dU_c
+
+
+PLAIN_PHASES = dict(gates=v2.recompute_gates, recursion=v2.dh_bwd_plain,
+                    tail=v1.wgrad_plain)
+
+
+def _bwd_problem(seed, t, b, hw, units):
+    rng = np.random.RandomState(seed)
+    uzr, uc = _weights(rng, units)
+    wx = _f32(rng, t, b, *hw, 3 * units)
+    ys = _f32(rng, t, b, *hw, units, scale=0.5)
+    h0 = _f32(rng, b, *hw, units, scale=0.5)
+    g = _f32(rng, t, b, *hw, units)
+    return uzr, uc, wx, ys, h0, g
+
+
+@pytest.mark.parametrize("hw", [(7, 7), (5, 9)])
+def test_convgru_bwd_phased_matches_jax_kernel_interpret(hw):
+    """B4 as phase G, B2's recursion and phase W, each by its plain
+    version, against the JAX kernel: the decomposition's algebra."""
+    arrays = _bwd_problem(4, 3, 2, hw, 4)
+    want = jv1._convgru_bwd_pallas(*map(jnp.asarray, arrays), interpret=True)
+    got = v1.convgru_bwd_phased(*map(torch.from_numpy, arrays),
+                                **PLAIN_PHASES)
+    _assert_all_close(got, want)  # dwx, dh0, dU_zr, dU_c
+
+
+@pytest.mark.parametrize("hw", [(7, 7), (5, 9)])
+def test_convgru_bwd_phased_bf16_matches_the_step_by_step_plain(hw):
+    """In bf16 rounding mode (wx in bf16) the phases round every conv and
+    weight-gradient operand where the step-by-step plain version does;
+    they differ by the f32 summation order of the weight gradients (one
+    sum over all frames against T per-step sums)."""
+    uzr, uc, wx, ys, h0, g = map(torch.from_numpy,
+                                 _bwd_problem(5, 3, 2, hw, 4))
+    wx = wx.to(torch.bfloat16)
+    got = v1.convgru_bwd_phased(uzr, uc, wx, ys, h0, g, **PLAIN_PHASES)
+    want = v1.convgru_bwd_plain(uzr, uc, wx, ys, h0, g)
+    for i, (k, a) in enumerate(zip(got, want)):
+        assert k.dtype == a.dtype == torch.float32
+        np.testing.assert_allclose(k.numpy(), a.numpy(), err_msg=str(i),
+                                   **TOL)
+
+
+@pytest.mark.parametrize("hw", [(7, 7), (5, 9)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_b4_takes_exactly_what_b2_takes(hw, dtype):
+    """B4 runs B2 unchanged, and phase G's shared memory is far below B2's,
+    so B4's rule is B2's for every width."""
+    for units in (16, 24, 32, 48, 64, 128, 256):
+        assert (v1.kernel_takes(*hw, units, dtype)
+                == v2.kernel_takes(*hw, units, dtype)), units
+
+
+def test_wgrad_slices_are_a_function_of_the_shapes():
+    """Phase W's split-K: 27 tiles at U=128, 9 slices at T*B = 336 and 672
+    frames (243 CTAs: one wave at two per SM); never more slices than K
+    chunks of 32."""
+    assert v1.wgrad_tiles(128) == 27
+    assert v1.wgrad_slices(128, 336, 49) == v1.wgrad_slices(128, 672, 49) == 9
+    assert v1.wgrad_slices(16, 1, 49) == 2
+    for units in (16, 32, 48, 64, 128):
+        tiles = v1.wgrad_tiles(units)
+        assert tiles * v1.wgrad_slices(units, 1000, 49) <= v1.WGRAD_SLOTS
 
 
 def test_conv_helpers_match_jax():
@@ -164,17 +229,27 @@ def test_backward_wrappers_on_cpu_are_the_plain_versions():
     for got, want in zip(v1.convgru_bwd(uzr, uc, wx, ys, h0, g),
                          v1.convgru_bwd_plain(uzr, uc, wx, ys, h0, g)):
         assert torch.equal(got, want)
+    for got, want in zip(v1.bwd_gates(uzr, uc, wx, h0, ys),
+                         v2.recompute_gates(uzr, uc, wx, h0, ys)):
+        assert torch.equal(got, want)
+    dzr = torch.cat([g, -g], dim=-1)
+    for got, want in zip(v1.wgrad(ys, dzr, h0.expand_as(ys), g),
+                         v1.wgrad_plain(ys, dzr, h0.expand_as(ys), g)):
+        assert torch.equal(got, want)
     streams = [torch.sigmoid(ys), torch.sigmoid(-ys), torch.tanh(ys),
                ys, g]
     for got, want in zip(v2.dh_bwd(*streams, uzr, uc),
                          v2.dh_bwd_plain(*streams, uzr, uc)):
         assert torch.equal(got, want)
     assert (v1.launches, v2.launches) == before
+    assert (v1.gates_launches, v1.wgrad_launches) == (0, 0)
 
 
 @pytest.mark.parametrize("kernel,outputs", [
     ("convgru_bwd", {"dzr", "da", "dh0"}),
     ("convgru_bwd_mono", {"dwx", "dh0", "dU_zr", "dU_c"}),
+    ("convgru_bwd_gates", {"u", "r", "c", "hprev", "rh"}),
+    ("convgru_wgrad", {"dU_zr", "dU_c"}),
 ])
 def test_backward_parity_harness_runs_on_cpu(kernel, outputs):
     """On the CPU both sides of `backward_parity` are the plain version;

@@ -1,6 +1,7 @@
 """Tests that need a CUDA card: the hand-written recurrence kernels (ConvGRU
-forward B1, backward B2 and B4; ConvLSTM forward B3) against their plain
-PyTorch versions at shapes chip_smoke.py does not cover, and the cluster
+forward B1, backward B2 and B4 with its phases G and W; ConvLSTM forward
+B3) against their plain PyTorch versions at shapes chip_smoke.py does not
+cover, B4 bitwise repeatable and free of library products, and the cluster
 kernels' (B1, B2, B3) shared-memory reckoning and refusal of widths that do
 not fit; the models' routing of other widths to the plain scan (fault C1);
 the raw-video front (the C3D tower's bf16 gate, fused predict and two
@@ -188,22 +189,121 @@ def test_convgru_bwd_kernel_matches_plain(cuda_no_tf32, t, b, hw, units,
         _assert_close(k, a, dtype)
 
 
-@pytest.mark.parametrize("t,b,hw,units", SHAPES)
+# B4 and its phases: SHAPES and the U=64 shapes, and B=16 at U=128
+B4_SHAPES = SHAPES + C4_SHAPES + [(3, 16, (7, 7), 128)]
+
+
+def _b4_inputs(t, b, hw, units, dtype, device):
+    fused, wx, h0 = _inputs(t, b, hw, units, dtype, device)
+    with torch.no_grad():
+        _, ys = kconv.convgru_recurrence(fused, wx, h0)
+    g = _gates(t, b, hw, units, device, seed=2)[-1]
+    return fused["Uh_zr"], fused["U_c"], wx, ys, h0, g
+
+
+def _b4_counts():
+    return (v1.launches, v1.gates_launches, v2.launches, v1.wgrad_launches)
+
+
+@pytest.mark.parametrize("t,b,hw,units", B4_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_convgru_bwd_mono_kernel_matches_plain(cuda_no_tf32, t, b, hw, units,
                                                dtype):
-    fused, wx, h0 = _inputs(t, b, hw, units, dtype, cuda_no_tf32)
-    with torch.no_grad():
-        _, ys = kconv.convgru_recurrence(fused, wx, h0)
-    g = _gates(t, b, hw, units, cuda_no_tf32, seed=2)[-1]
-    before = v1.launches
-    got = v1.convgru_bwd(fused["Uh_zr"], fused["U_c"], wx, ys, h0, g)
-    want = v1.convgru_bwd_plain(fused["Uh_zr"], fused["U_c"], wx, ys, h0, g)
+    """B4 (G, B2, W) against the step-by-step plain version; one launch of
+    each."""
+    args = _b4_inputs(t, b, hw, units, dtype, cuda_no_tf32)
+    before = _b4_counts()
+    got = v1.convgru_bwd(*args)
+    want = v1.convgru_bwd_plain(*args)
     torch.cuda.synchronize()
-    assert v1.launches == before + 1
+    assert _b4_counts() == tuple(n + 1 for n in before)
     for k, a in zip(got, want):
         assert k.shape == a.shape and k.dtype == torch.float32
         _assert_close(k, a, dtype)
+
+
+@pytest.mark.parametrize("t,b,hw,units", B4_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_convgru_bwd_gates_kernel_matches_recompute_gates(
+        cuda_no_tf32, t, b, hw, units, dtype):
+    uzr, uc, wx, ys, h0, _ = _b4_inputs(t, b, hw, units, dtype, cuda_no_tf32)
+    before = v1.gates_launches
+    got = v1.bwd_gates(uzr, uc, wx, h0, ys)
+    want = v2.recompute_gates(uzr, uc, wx, h0, ys)
+    torch.cuda.synchronize()
+    assert v1.gates_launches == before + 1
+    assert torch.equal(got[3], want[3])  # h_{t-1} is a copy
+    for k, a in zip(got, want):
+        assert k.shape == a.shape and k.dtype == torch.float32
+        assert k.is_contiguous() and k.data_ptr() % 16 == 0
+        _assert_close(k, a, dtype)
+
+
+@pytest.mark.parametrize("t,b,hw,units", B4_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_convgru_wgrad_kernel_matches_plain(cuda_no_tf32, t, b, hw, units,
+                                            dtype):
+    hprev, rh, da, dz, dr = _gates(t, b, hw, units, cuda_no_tf32, seed=3)
+    dzr = torch.cat([dz, dr], dim=-1)
+    cdt = None if dtype == torch.float32 else dtype
+    before = v1.wgrad_launches
+    got = v1.wgrad(hprev, dzr, rh, da, cdt)
+    want = v1.wgrad_plain(hprev, dzr, rh, da, cdt)
+    torch.cuda.synchronize()
+    assert v1.wgrad_launches == before + 1
+    for k, a in zip(got, want):
+        assert k.shape == a.shape and k.dtype == torch.float32
+        _assert_close(k, a, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_convgru_bwd_mono_is_bitwise_repeatable(cuda_no_tf32, dtype):
+    """Phase W sums its split-K slices in a fixed order: two calls give
+    the same bits."""
+    args = _b4_inputs(42, 8, (7, 7), 128, dtype, cuda_no_tf32)
+    first = v1.convgru_bwd(*args)
+    second = v1.convgru_bwd(*args)
+    torch.cuda.synchronize()
+    for a, k in zip(first, second):
+        assert torch.equal(a, k)
+
+
+def test_convgru_bwd_mono_runs_no_library_product(cuda_no_tf32, monkeypatch):
+    """With every library product that could stand in for B4's convs and
+    contractions made to raise, B4 still runs on the card: its products are
+    all in the hand-written kernels."""
+    from recurrent_gaze_prediction_tpu_torch.ops import layers
+
+    args = _b4_inputs(4, 8, (7, 7), 128, torch.bfloat16, cuda_no_tf32)
+    want = v1.convgru_bwd_plain(*args)
+
+    def refuse(*_, **__):
+        raise AssertionError("a library product ran on B4's path")
+
+    for target, name in ((torch, "matmul"), (torch, "mm"), (torch, "bmm"),
+                         (torch, "einsum"), (torch.Tensor, "__matmul__"),
+                         (torch.nn.functional, "conv2d"), (layers, "conv2d"),
+                         (v1, "conv2d"), (v1, "kernel_grad"),
+                         (v1, "conv3x3"), (v2, "conv3x3"),
+                         (v2, "conv3x3_transpose")):
+        monkeypatch.setattr(target, name, refuse)
+    got = v1.convgru_bwd(*args)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    for k, a in zip(got, want):
+        _assert_close(k, a, torch.bfloat16)
+
+
+@pytest.mark.parametrize("units", [16, 32, 48, 64, 128])
+@pytest.mark.parametrize("hw", [(7, 7), (5, 9)])
+def test_b4_phase_reckoning_matches_the_sources(cuda_no_tf32, units, hw):
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import build
+
+    lib = build.load()
+    for elem in (2, 4):
+        assert v1.gates_smem_bytes(*hw, units, elem) == \
+            lib.convgru_bwd_gates_smem_bytes(*hw, units, elem)
+    assert v1.wgrad_tiles(units) == lib.convgru_wgrad_tiles(units)
 
 
 @pytest.mark.parametrize("version", ["v1", "v2"])
