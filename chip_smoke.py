@@ -96,8 +96,9 @@ In order, failing (exit 1) on the first check that does not hold:
      --batch_windows 16, bf16) against the f32 tower (corr >= 0.999),
      windows/s, and, where a decoder imports, the CLI on an .avi;
      `cli.extract_map` of the gaze_grcn and gaze_lstm CLI runs over 8
-     clips of 105..300 windows without frame files, batched at its
-     defaults (T=105, B=4: two launches of B1 / B3) and `--streaming`
+     clips of 105..300 windows with 540 frame files each (so 105 maps
+     per clip), batched at its defaults (T=105, B=4: two launches of B1 /
+     B3; every saved map against the predict) and `--streaming`
      (one launch per 42-window chunk), the maps against the plain scan
      (corr >= 0.999, max_rel_delta <= 0.05; the batched ones summing to
      1), ms per clip; `cli.create_records` (synthetic, one B1 launch) and
@@ -107,6 +108,25 @@ In order, failing (exit 1) on the first check that does not hold:
      Pillow import, `cli.process_gazemap`, `cli.train_gaze --dataset crc`
      (4 steps, B1 and B2 per step) and `cli.evaluate_gaze --dataset crc`
      (both protocols) on a fake CRC layout;
+  11. a port-only user's export: `cli.export_serving` of the gaze_grcn
+     (with `--stream_chunk_len 42`) and gaze_lstm CLI runs of phase 5 with
+     the tower's weights as a `--caffemodel` .npz, bf16 features and uint8
+     video on the wire; each bundle loaded and served over HTTP (8
+     concurrent predict POSTs and 8 fused POSTs at F=160 against the plain
+     path, one B1 / B3 launch per batcher call), the HTTP median per
+     program, and a profiler window over one more round of gaze_grcn's
+     predict POSTs: its device idle share and top device operations;
+  12. `cli.pretrain_shallownet --dataset salicon` on a SALICON tree laid
+     out with Pillow (160 98x98 images, 49x49 maps, .npy fixations), 20
+     steps at B=128: the loss falls;
+  13. `cli.train_gaze --profile_steps 5` at B=28: a trace under
+     {train_dir}/profile naming B1 and B2, its device idle share and top
+     device operations;
+  14. the FLOP counts of `utils/mfu.py` through the kernel route against
+     the plain route (predict at B=16 and fused predict at B=8 equal; the
+     train step at B=28 above it by V2's gate recompute and B2's dh0
+     transposed conv; B1's share 14.57 GFLOP at B=8), and the MFU of each
+     over its CUDA-event time;
   7. times the kernels and their plain versions (B=8, B=16; B1 and B2 also
      at B=1 and 28, B3 also at B=1, in us per step beside the bound; B4's
      phases G and W beside the cuDNN calls that compute the same functions,
@@ -148,10 +168,11 @@ from recurrent_gaze_prediction_tpu_torch.action.classification import (
     batch_to)
 from recurrent_gaze_prediction_tpu_torch.action.classification import (
     make_train_step as action_train_step)
+from recurrent_gaze_prediction_tpu_torch.bridge import c3d_params_to_jax
 from recurrent_gaze_prediction_tpu_torch.cli import (
-    action_classification, create_records, evaluate_gaze, extract_features,
-    extract_map, pretrain_shallownet, process_gazemap, train_fused,
-    train_gaze)
+    action_classification, create_records, evaluate_gaze, export_serving,
+    extract_features, extract_map, pretrain_shallownet, process_gazemap,
+    train_fused, train_gaze)
 from recurrent_gaze_prediction_tpu_torch.config import (
     ExperimentConfig, OptimizerConfig)
 from recurrent_gaze_prediction_tpu_torch.data import codec, synthetic, video
@@ -182,8 +203,9 @@ from recurrent_gaze_prediction_tpu_torch.train import (
     Checkpointer, create_train_state, fit, make_train_step)
 from recurrent_gaze_prediction_tpu_torch.train import fused as fused_data
 from recurrent_gaze_prediction_tpu_torch.train import (load_params,
-                                                       saliency, save_params)
-from recurrent_gaze_prediction_tpu_torch.utils import tf32_off
+                                                       profiler, saliency,
+                                                       save_params)
+from recurrent_gaze_prediction_tpu_torch.utils import mfu, tf32_off
 
 SEED = 0
 T = 42
@@ -632,16 +654,21 @@ FORWARD_KERNEL = {"gaze_grcn": "convgru_fwd", "gaze_lstm": "convlstm_fwd"}
 
 
 def serve_and_check(model, frames: np.ndarray, c3d: np.ndarray,
-                    card: str) -> dict:
-    """Serve `model` over HTTP from a bundle it writes; POST every clip at
-    once and check each reply against a plain-scan predict of the same
-    clip, and that the model's forward kernel, and no other, launched
-    once per batcher call. Then POST them again for the latency."""
+                    card: str, bundle: str = None,
+                    profile_dir: str = None) -> dict:
+    """Serve `model` over HTTP from a bundle it writes (or from `bundle`,
+    `model`'s export); POST every clip at once and check each reply
+    against a plain-scan predict of the same clip, and that the model's
+    forward kernel, and no other, launched once per batcher call. Then
+    POST them again for the latency; with `profile_dir`, once more inside
+    a profiler trace written there."""
     name = model.cfg.name
     kernel = FORWARD_KERNEL[name]
     with tempfile.TemporaryDirectory() as tmp:
-        save_bundle(f"{tmp}/bundle", model)
-        server = server_from_bundle(f"{tmp}/bundle", device="cuda",
+        if bundle is None:
+            bundle = f"{tmp}/bundle"
+            save_bundle(bundle, model)
+        server = server_from_bundle(bundle, device="cuda",
                                     max_batch=32, max_wait_ms=50.0).start()
         try:
             host, port = server.address
@@ -661,7 +688,7 @@ def serve_and_check(model, frames: np.ndarray, c3d: np.ndarray,
                   f"serving {name}: healthz {health} does not count the "
                   f"{len(c3d)} requests / {kernel} launches {launches}")
 
-            reference = load_bundle(f"{tmp}/bundle", device="cuda")
+            reference = load_bundle(bundle, device="cuda")
             plain = plain_predict(reference, torch.from_numpy(c3d).cuda())
             plain = plain.cpu().numpy()
             for i, (status, maps, _) in enumerate(served):
@@ -685,6 +712,10 @@ def serve_and_check(model, frames: np.ndarray, c3d: np.ndarray,
 
             again = post_all(f"{url}/predict", frames, c3d)
             http_ms = statistics.median(s for _, _, s in again) * 1e3
+            if profile_dir is not None:
+                with profiler.trace(profile_dir):
+                    post_all(f"{url}/predict", frames, c3d)
+                    torch.cuda.synchronize()
         finally:
             server.close()
     return {"launches": launches, "http_ms": http_ms, "min_corr": min_corr}
@@ -1326,21 +1357,24 @@ def plain_fused_predict(model, tower: dict, video: torch.Tensor
 
 
 def fused_serve_and_check(model, tower: dict, videos: np.ndarray,
-                          card: str) -> dict:
+                          card: str, bundle: str = None) -> dict:
     """Serve `model`'s fused program from a bundle it writes with uint8
-    video; POST every clip at once, check each reply against the plain
-    path, and that the model's forward kernel, and no other, launched once
-    per batcher call. Then POST them again for the latency."""
+    video (or from `bundle`, an export of `model` with `tower`); POST
+    every clip at once, check each reply against the plain path, and that
+    the model's forward kernel, and no other, launched once per batcher
+    call. Then POST them again for the latency."""
     name = model.cfg.name
     kernel = FORWARD_KERNEL[name]
     t = pipeline.pipeline_timesteps(FUSED_FRAMES)
     with tempfile.TemporaryDirectory() as tmp:
-        save_bundle(f"{tmp}/bundle", model, c3d_params=tower,
-                    num_frames=FUSED_FRAMES, video_hw=VIDEO_HW,
-                    video_dtype="uint8")
-        reference = load_bundle(f"{tmp}/bundle", device="cuda")
+        if bundle is None:
+            bundle = f"{tmp}/bundle"
+            save_bundle(bundle, model, c3d_params=tower,
+                        num_frames=FUSED_FRAMES, video_hw=VIDEO_HW,
+                        video_dtype="uint8")
+        reference = load_bundle(bundle, device="cuda")
         route = reference.recurrence_route(train=False)
-        server = server_from_bundle(f"{tmp}/bundle", program="fused",
+        server = server_from_bundle(bundle, program="fused",
                                     device="cuda", max_batch=32,
                                     max_wait_ms=200.0).start()
         try:
@@ -2241,14 +2275,28 @@ def research_features_cli(card: str, tower: dict, frames: np.ndarray,
     return {"seconds": seconds, "corr": c}
 
 
+# frame files per clip folder: the [15::5] subsample then holds MAP_T frames,
+# so a batched export writes min(frames, windows, T) = MAP_T maps per clip
+MAP_FRAMES = 15 + 5 * MAP_T
+
+
 def map_clips(work: str) -> tuple:
-    """MAP_CLIPS clip folders without frame files, whose `.c3d` files hold
-    MAP_WINDOWS[0]..MAP_WINDOWS[1] windows of seeded features."""
+    """MAP_CLIPS clip folders of MAP_FRAMES frame JPEGs (98x98, one seeded
+    image per clip), whose `.c3d` files hold MAP_WINDOWS[0]..MAP_WINDOWS[1]
+    windows of seeded features."""
+    from PIL import Image
+
     root = f"{work}/clips"
     rng = np.random.RandomState(SEED + 31)
     lengths = [int(n) for n in np.linspace(*MAP_WINDOWS, MAP_CLIPS)]
     for i, n in enumerate(lengths):
         os.makedirs(f"{root}/clip{i:02d}")
+        jpeg = io.BytesIO()
+        Image.fromarray(rng.randint(0, 256, (98, 98, 3)).astype(
+            np.uint8)).save(jpeg, format="JPEG")
+        for f in range(MAP_FRAMES):
+            with open(f"{root}/clip{i:02d}/{f:06d}.jpg", "wb") as out:
+                out.write(jpeg.getvalue())
         codec.write_c3d_file(f"{root}/clip{i:02d}.c3d", list(
             rng.randn(n, 512, 2, 7, 7).astype(np.float32)))
     return root, lengths
@@ -2292,9 +2340,10 @@ def research_maps(card: str, run: str, clips: str, lengths: list,
         seconds = time.perf_counter() - start
         check(rc == 0, f"cli.extract_map {name} {mode} returned {rc}")
         print(f"research cli.extract_map {name} {mode}: {MAP_CLIPS} clips "
-              f"of {lengths} windows in {seconds:.2f} s wall with the "
-              f"restore and .c3d reads = {seconds / MAP_CLIPS * 1e3:.1f} ms "
-              f"per clip; launches {launches} [{card}]", flush=True)
+              f"of {lengths} windows ({MAP_FRAMES} frame files each) in "
+              f"{seconds:.2f} s wall with the restore, .c3d and frame reads "
+              f"= {seconds / MAP_CLIPS * 1e3:.1f} ms per clip of maps "
+              f"written; launches {launches} [{card}]", flush=True)
         check(launches[kernel] == want and sum(launches.values()) == want,
               f"extract_map {name} {mode}: launches {launches}, want {want} "
               f"of {kernel}")
@@ -2315,7 +2364,7 @@ def research_maps(card: str, run: str, clips: str, lengths: list,
     a, b = maps.cpu().numpy(), plain.cpu().numpy()
     sums = a.reshape(MAP_BATCH, MAP_T, -1).sum(-1)
     saved = np.stack([np.load(f"{result['batched']['out']}/clip{i:02d}"
-                              f".gazemap.npy")[0] for i in range(MAP_BATCH)])
+                              f".gazemap.npy") for i in range(MAP_BATCH)])
     predict_ms = cuda_ms(lambda: model.predict(batch["frames"],
                                                batch["c3d"]), 5)
     c, rel = corr(a, b), max_rel(a, b)
@@ -2331,11 +2380,14 @@ def research_maps(card: str, run: str, clips: str, lengths: list,
           f"extract_map {name} batched: corr {c}, max_rel_delta {rel}")
     check(bool(np.abs(sums - 1.0).max() <= 1e-3), f"extract_map {name}: "
           f"map sums {sums.min()}..{sums.max()}")
-    saved_delta = float(np.abs(saved.astype(np.float32) - a[:, 0]).max())
-    check(np.allclose(saved.astype(np.float32), a[:, 0], rtol=1e-3,
-                      atol=1e-6),
+    # every clip has MAP_T maps: min(frames, windows, T) with MAP_FRAMES
+    # frame files and at least MAP_T windows
+    check(saved.shape == a.shape, f"extract_map {name}: saved maps "
+                                  f"{saved.shape}, predicted {a.shape}")
+    saved_delta = float(np.abs(saved.astype(np.float32) - a).max())
+    check(np.allclose(saved.astype(np.float32), a, rtol=1e-3, atol=1e-6),
           f"extract_map {name}: saved float16 maps differ from the predict "
-          f"by up to {saved_delta} (max map value {np.abs(a[:, 0]).max()})")
+          f"by up to {saved_delta} (max map value {np.abs(a).max()})")
 
     streamed = {}
     for i in (0, MAP_CLIPS - 1):
@@ -2597,6 +2649,293 @@ def research_loop_phases(card: str, tower: dict, runs: str) -> dict:
             "records": records, "attention": attention, "crc": crc}
 
 
+# ------------------------------------------- slice 12: a port-only workflow
+
+SALICON_IMAGES = 160   # 128 train images after the 80/20 split: B=128
+PROFILE_STEPS = 5
+PROFILE_MAX_STEPS = 8  # the window opens at step 3: steps 3..7 are traced
+TOP_OPS = 5
+
+
+def export_through_cli(card: str, run: str, tower_npz: str, out: str,
+                       stream: bool):
+    """`cli.export_serving` of a `cli.train_gaze` run with the tower's
+    weights (`--caffemodel` .npz), bf16 features and uint8 video on the
+    wire, and the stream program where asked; returns the loaded bundle's
+    model."""
+    argv = ["--train_dir", run, "--out_dir", out, "--caffemodel", tower_npz,
+            "--video_dtype", "uint8", "--wire_dtype", "bfloat16"]
+    if stream:
+        argv += ["--stream_chunk_len", str(STREAM_CHUNK)]
+    start = time.perf_counter()
+    rc = export_serving.main(argv)
+    seconds = time.perf_counter() - start
+    check(rc == 0, f"cli.export_serving {run} returned {rc}")
+    model = load_bundle(out, device="cuda")
+    programs = model.bundle_programs
+    want = {"predict", "fused"} | ({"stream"} if stream else set())
+    print(f"export (cli.export_serving {os.path.basename(run)}: "
+          f"{model.cfg.name}, T={model.cfg.n_lstm_steps}, {seconds:.2f} s "
+          f"wall with the restore): programs {sorted(programs)}, predict "
+          f"wire {programs['predict']['wire_dtype']}, fused "
+          f"{programs['fused']['video_dtype']} F="
+          f"{programs['fused']['num_frames']} [{card}]", flush=True)
+    check(set(programs) == want
+          and programs["predict"]["wire_dtype"] == "bfloat16"
+          and programs["fused"]["video_dtype"] == "uint8"
+          and programs["fused"]["num_frames"] == FUSED_FRAMES
+          and model.cfg.n_lstm_steps == T,
+          f"exported bundle {out}: {programs}")
+    return model
+
+
+def trace_summary(log_dir: str) -> dict:
+    """The profiler window written to `log_dir`: its span (all events),
+    the device's busy time (the union of kernel intervals) and idle share
+    1 - busy / span, and the kernels with the most device time."""
+    import glob
+
+    (path,) = glob.glob(f"{log_dir}/*.pt.trace.json")
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    start = min(e["ts"] for e in events)
+    span = max(e["ts"] + e["dur"] for e in events) - start
+    kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"])
+                     for e in events if e.get("cat") == "kernel")
+    busy, end = 0.0, -np.inf
+    by_name: dict = {}
+    for lo, hi, name in kernels:
+        busy += max(hi - max(lo, end), 0.0)
+        end = max(end, hi)
+        by_name[name] = by_name.get(name, 0.0) + (hi - lo) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_OPS]
+    return {"window_ms": span / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / span, "kernels": len(kernels),
+            "names": set(by_name),
+            "top_ms": {name[:90]: round(ms, 4) for name, ms in top}}
+
+
+def print_window(label: str, window: dict, card: str) -> None:
+    print(f"profile {label}: window {window['window_ms']:.3f} ms, device "
+          f"busy {window['busy_ms']:.3f} ms in {window['kernels']} kernels, "
+          f"device idle share {window['idle_share']:.4f}; top device "
+          f"operations (ms): {json.dumps(window['top_ms'])} [{card}]",
+          flush=True)
+
+
+def export_phases(card: str, tower: dict, runs: str, frames: np.ndarray,
+                  c3d: np.ndarray, videos: np.ndarray) -> dict:
+    """Phase 11: `cli.export_serving` of the gaze_grcn (with the stream
+    program) and gaze_lstm CLI runs of phase 5 with the tower's weights,
+    each bundle loaded and served over HTTP: 8 concurrent `predict` POSTs
+    and 8 `fused` POSTs at F=160 against the plain path, launches counted;
+    a profiler window over one more round of gaze_grcn's predict POSTs."""
+    work = f"{runs}/export"
+    os.makedirs(work)
+    tower_npz = f"{work}/c3d_params.npz"
+    np.savez(tower_npz, **c3d_params_to_jax(tower))
+    out = {}
+    for name, run, stream in (("gaze_grcn", "grcn", True),
+                              ("gaze_lstm", "lstm", False)):
+        bundle = f"{work}/{run}_bundle"
+        model = export_through_cli(card, f"{runs}/{run}", tower_npz, bundle,
+                                   stream)
+        check(model.cfg.name == name, f"exported {model.cfg.name}")
+        profile_dir = f"{work}/serve_profile" if stream else None
+        served = serve_and_check(model, frames, c3d, card, bundle=bundle,
+                                 profile_dir=profile_dir)
+        fused = fused_serve_and_check(model, tower, videos, card,
+                                      bundle=bundle)
+        print(f"export {name}: served from the exported bundle, HTTP "
+              f"median of {N_REQUESTS} concurrent POSTs: predict "
+              f"{served['http_ms']:.1f} ms (bf16 wire), fused "
+              f"{fused['http_ms']:.1f} ms (uint8, F={FUSED_FRAMES}); "
+              f"launches predict {served['launches']}, fused "
+              f"{fused['launches']} [{card}]", flush=True)
+        out[name] = {"predict": served, "fused": fused}
+    window = trace_summary(f"{work}/serve_profile")
+    print_window(f"serving window (gaze_grcn exported bundle, {N_REQUESTS} "
+                 f"concurrent predict POSTs)", window, card)
+    check(any("convgru_fwd_kernel" in n for n in window["names"]),
+          f"the serving window holds no B1 kernel: {window['top_ms']}")
+    out["window"] = window
+    return out
+
+
+def salicon_layout(root: str) -> None:
+    """A SALICON tree in the reference's layout: SALICON_IMAGES 98x98 JPEG
+    images (the synthetic corpus's frames), their 49x49 saliency maps
+    (its gaze maps, scaled to 0..255) and `.npy` fixation maps (each map's
+    peak)."""
+    from PIL import Image
+
+    clips = synthetic.make_clip_windows(SALICON_IMAGES // 8, 8,
+                                        seed=SEED + 40)
+    images = (clips.frames.reshape(-1, 98, 98, 3) * 255).round().astype(
+        np.uint8)
+    maps = clips.gazemaps.reshape(-1, 49, 49)
+    maps = (maps / maps.max(axis=(1, 2), keepdims=True) * 255).astype(
+        np.uint8)
+    dirs = [f"{root}/images/train98x98", f"{root}/saliencymaps/train49x49",
+            f"{root}/fixations/train"]
+    for d in dirs:
+        os.makedirs(d)
+    for i in range(SALICON_IMAGES):
+        name = f"img{i:04d}.jpg"
+        Image.fromarray(images[i]).save(f"{dirs[0]}/{name}")
+        Image.fromarray(maps[i]).save(f"{dirs[1]}/{name}")
+        np.save(f"{dirs[2]}/{name}.npy", (maps[i] == maps[i].max()).astype(
+            np.uint8))
+
+
+def salicon_through_cli(card: str, runs: str) -> dict:
+    """Phase 12: `cli.pretrain_shallownet --dataset salicon` on a SALICON
+    tree, 20 steps at B=128: the loss falls, nothing launches a kernel,
+    the params file is ShallowNet's."""
+    root, run, out = (f"{runs}/salicon", f"{runs}/salicon_run",
+                      f"{runs}/salicon_sn.pt")
+    start = time.perf_counter()
+    salicon_layout(root)
+    layout_s = time.perf_counter() - start
+    reset_launches()
+    start = time.perf_counter()
+    rc = pretrain_shallownet.main(
+        ["--dataset", "salicon", "--salicon_root", root, "--max_steps",
+         str(TRAIN_STEPS), "--batch_size", str(PRETRAIN_BATCH),
+         "--steps_per_logprint", "1", "--out", out, "--train_dir", run])
+    seconds = time.perf_counter() - start
+    launches = read_launches()
+    check(rc == 0, f"cli.pretrain_shallownet --dataset salicon returned {rc}")
+    losses, steps = train_records(run)
+    print(f"salicon (cli.pretrain_shallownet --dataset salicon, "
+          f"{SALICON_IMAGES} images laid out in {layout_s:.2f} s, 80/20 "
+          f"split, B={PRETRAIN_BATCH}, {TRAIN_STEPS} steps, {seconds:.1f} s "
+          f"wall with the loader): losses {[round(x, 5) for x in losses]}, "
+          f"launches {launches} [{card}]", flush=True)
+    check_learned("pretrain_shallownet --dataset salicon", losses, steps,
+                  TRAIN_STEPS)
+    check(sum(launches.values()) == 0, f"pretraining launched {launches}")
+    check(set(load_params(out)) == set(shallownet.init_params()),
+          f"{out}: not ShallowNet's params")
+    return {"losses": losses, "seconds": seconds}
+
+
+def profile_through_cli(card: str, runs: str) -> dict:
+    """Phase 13: `cli.train_gaze --profile_steps 5` at full width, B=28: a
+    trace under {train_dir}/profile naming B1 and B2, its device idle
+    share and top device operations."""
+    run = f"{runs}/profiled"
+    reset_launches()
+    rc = train_gaze.main(
+        ["--dataset", "synthetic", "--batch_size", str(TRAIN_BATCH),
+         "--synthetic_clips", str(2 * TRAIN_BATCH), "--n_lstm_steps", str(T),
+         "--compute_dtype", "bfloat16", "--max_steps",
+         str(PROFILE_MAX_STEPS), "--seed", str(SEED), "--profile_steps",
+         str(PROFILE_STEPS), "--train_dir", run])
+    launches = read_launches()
+    check(rc == 0, f"cli.train_gaze --profile_steps returned {rc}")
+    window = trace_summary(f"{run}/profile")
+    print_window(f"train window (cli.train_gaze --profile_steps "
+                 f"{PROFILE_STEPS}, B={TRAIN_BATCH}, T={T}, bf16; launches "
+                 f"over the run {launches})", window, card)
+    for kernel in ("convgru_fwd_kernel", "convgru_bwd_kernel"):
+        check(any(kernel in n for n in window["names"]),
+              f"the train trace names no {kernel}: {window['top_ms']}")
+    return window
+
+
+def flop_line(label: str, kernel: dict, plain: dict, ms: float,
+              card: str, extra: str = "") -> float:
+    total = sum(kernel.values())
+    util = mfu.mfu(total, 1e3 / ms, "cuda")
+    print(f"mfu {label}: {total / 1e9:.3f} GFLOP per call through the "
+          f"kernels ({', '.join(f'{k} {v / 1e9:.3f}' for k, v in kernel.items())}"
+          f"), plain route {sum(plain.values()) / 1e9:.3f} GFLOP{extra}; "
+          f"{ms:.3f} ms per call (CUDA events) = "
+          f"{total / ms / 1e9:.2f} TFLOP/s, MFU {util:.4f} of "
+          f"{mfu.peak_flops('cuda') / 1e12:.0f} TFLOP/s bf16 [{card}]",
+          flush=True)
+    return util
+
+
+def mfu_phase(card: str, tower: dict, raw_batch: dict,
+              videos: np.ndarray) -> dict:
+    """Phase 14: the contractions of predict (B=16), the train step
+    (B=28) and fused predict (B=8, F=160), counted by `utils/mfu.py`
+    through the kernel route and through the plain route, and each call's
+    MFU over its CUDA-event time."""
+    check(mfu.peak_flops("cuda") is not None,
+          f"no peak FLOP/s for {torch.cuda.get_device_name(0)}")
+    dev = torch.device("cuda")
+    model = full_width_model()
+    rng = np.random.RandomState(SEED + 50)
+    out = {}
+
+    c3d8 = torch.from_numpy(rng.randn(8, T, 1024, 7, 7).astype(
+        np.float32)).to(dev)
+    b1 = mfu.flop_counts(model.predict, None, c3d8)["convgru_fwd"]
+    check(b1 == kconv.flops(T, 8, 7, 7, UNITS, 3) == 14_566_293_504,
+          f"B1's count at B=8: {b1}")
+    c3d16 = torch.from_numpy(rng.randn(16, T, 1024, 7, 7).astype(
+        np.float32)).to(dev)
+    kernel = mfu.flop_counts(model.predict, None, c3d16)
+    plain = mfu.flop_counts(plain_predict, model, c3d16)
+    check(sum(kernel.values()) == sum(plain.values()),
+          f"predict counts: kernel route {kernel}, plain {plain}")
+    out["predict"] = flop_line(
+        f"gaze_grcn predict B=16 T={T} (B1's share at B=8: "
+        f"{b1 / 1e9:.3f} GFLOP)", kernel, plain,
+        cuda_ms(lambda: model.predict(None, c3d16), 10), card)
+
+    state, tx = create_train_state(model, OptimizerConfig())
+    step = make_train_step(model, tx)
+    batch = device_put_batch(raw_batch, dev, stream_casts(torch.bfloat16))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    kernel = mfu.flop_counts(step, state, batch, gen)
+    try:
+        model.train_scan = ConvGRU.scan
+        plain = mfu.flop_counts(step, state, batch, gen)
+    finally:
+        del model.train_scan
+    # V2's backward recomputes the gates (two library convs) and B2 forms
+    # dh0 through U_zr's transposed conv, which plain autograd skips (h0
+    # takes no gradient): both counted on lines of their own
+    with torch.no_grad():
+        fused = ConvGRU.fuse(model.cell)
+        xs = apply_c3d_projection(
+            model.c3d_proj, batch["c3d"], keep_prob=1.0, generator=None,
+            train=False, compute_dtype=torch.bfloat16).transpose(0, 1)
+        wx = ConvGRU.input_gates(fused, xs, torch.bfloat16)
+        h0 = ConvGRU.zero_state(TRAIN_BATCH, (7, 7), UNITS, device=dev)
+        _, ys = kconv.convgru_recurrence(fused, wx, h0)
+    recompute = sum(mfu.flop_counts(v2.recompute_gates, fused["Uh_zr"],
+                                    fused["U_c"], wx, h0, ys).values())
+    dh0 = 2 * TRAIN_BATCH * 49 * 9 * UNITS * 2 * UNITS
+    check(sum(kernel.values()) == sum(plain.values()) + recompute + dh0,
+          f"train step counts: kernel route {kernel}, plain {plain}, "
+          f"recompute {recompute}, dh0 {dh0}")
+    check(kernel.get("convgru_bwd")
+          == kconv.flops(T, TRAIN_BATCH, 7, 7, UNITS, 3),
+          f"B2's count {kernel}")
+    out["train"] = flop_line(
+        f"train step B={TRAIN_BATCH} T={T}", kernel, plain,
+        cuda_ms(lambda: step(state, batch, gen), 5), card,
+        f" + V2's gate recompute {recompute / 1e9:.3f} GFLOP + dh0's "
+        f"transposed conv {dh0 / 1e9:.3f} GFLOP")
+
+    fn = pipeline.make_fused_predict(model, num_frames=FUSED_FRAMES)
+    video = torch.from_numpy(videos[:FUSED_TRAIN_BATCH]).to(dev)
+    kernel = mfu.flop_counts(fn, tower, video)
+    plain = mfu.flop_counts(plain_fused_predict, model, tower, video)
+    check(sum(kernel.values()) == sum(plain.values()),
+          f"fused predict counts: kernel route {kernel}, plain {plain}")
+    out["fused"] = flop_line(
+        f"gaze_grcn fused predict B={FUSED_TRAIN_BATCH} F={FUSED_FRAMES}",
+        kernel, plain, cuda_ms(lambda: fn(tower, video), 5), card)
+    return out
+
+
 def main() -> int:
     # 1. the card
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
@@ -2723,6 +3062,10 @@ def main() -> int:
     research_loop_phases(card, tower, runs)  # 10.
 
     zoo = zoo_phases(card, tower, runs)  # 9.
+    export_phases(card, tower, runs, frames, c3d, videos)  # 11.
+    salicon_through_cli(card, runs)  # 12.
+    profile_through_cli(card, runs)  # 13.
+    mfu_phase(card, tower, raw_batch, videos)  # 14.
     runs_dir.cleanup()
 
     # 7. timings

@@ -8,12 +8,13 @@ self_test`, `models/saliency_shallownet.py:415-503`).
     python -m recurrent_gaze_prediction_tpu_torch.cli.train_gaze \\
         --model gaze_rnn --shallownet_pretrain /tmp/shallownet.pt ...
 
-`--dataset synthetic` trains on an image-level stand-in with the SALICON
-batch API (frames and gaze maps of the synthetic clip corpus).
-`--dataset salicon` is not ported yet and exits with code 2: its loader,
-`data/salicon.py`, lands with ROADMAP.md queue A item 7b
-(`--salicon_root` is accepted). `--out` must not
-exist yet (checked before training). `--train_dir` also writes the losses
+`--dataset salicon` trains on the SALICON train split under
+`--salicon_root` (`data/salicon.py`: `images/train98x98/`,
+`saliencymaps/train49x49/`, `fixations/train/`; 80% of it, the rest held
+out as the JAX package does). `--dataset synthetic` trains on an
+image-level stand-in with the SALICON batch API (frames and gaze maps of
+the synthetic clip corpus). `--out` must not exist yet (checked before
+training). `--train_dir` also writes the losses
 to `metrics.jsonl` every `--steps_per_logprint` steps.
 """
 
@@ -27,6 +28,7 @@ from typing import Optional
 import torch
 
 from ..config import OptimizerConfig
+from ..data import salicon as salicon_data
 from ..data import synthetic
 from ..train.checkpoint import save_params
 from ..train.saliency import fit_shallownet
@@ -62,9 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--dataset", default="synthetic",
                         choices=["salicon", "synthetic"])
     parser.add_argument("--salicon_root", default="salicon",
-                        help="the SALICON root of --dataset salicon, which "
-                             "is not ported yet (ROADMAP.md queue A item "
-                             "7b)")
+                        help="the SALICON root of --dataset salicon")
     parser.add_argument("--out", required=True,
                         help="output params file (must not exist)")
     parser.add_argument("--max_steps", default=1000, type=int)
@@ -83,17 +83,17 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[list[str]] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.dataset == "salicon":
-        parser.error("--dataset salicon: the SALICON loader (data/salicon.py) "
-                     "is not ported yet (ROADMAP.md queue A item 7b); use "
-                     "--dataset synthetic")
     if os.path.exists(args.out):
         # fail BEFORE the training run, with the remedy
         log.warn("--out %s already exists and is not overwritten. Remove it "
                  "or pick a fresh path.", args.out)
         return 1
     device = resolve_device(args.device)
-    train = SyntheticSaliency()
+    if args.dataset == "salicon":
+        train = salicon_data.SaliconData(root=args.salicon_root,
+                                         use_val_split=True).build().train
+    else:
+        train = SyntheticSaliency()
     opt = OptimizerConfig(initial_learning_rate=args.learning_rate,
                           use_decay_schedule=False)
     writer = MetricWriter(args.train_dir) if args.train_dir else None

@@ -3,8 +3,9 @@
     python -m recurrent_gaze_prediction_tpu_torch.cli.serve \
         --bundle /tmp/rgp_bundle --port 8500 [--program fused] [--device cuda]
 
-The bundle may come from either package's `save_bundle` (or the JAX
-package's `cli.export_serving`). `--program predict` (the default) takes
+The bundle may come from either package's `save_bundle` or
+`cli.export_serving` (this package's turns a `cli.train_gaze` run into
+one). `--program predict` (the default) takes
 C3D features, `--program fused` raw video (the bundle must have been saved
 with the C3D weights). Concurrent single-clip POSTs are coalesced by the
 dynamic micro-batcher (`serving/server.py`).

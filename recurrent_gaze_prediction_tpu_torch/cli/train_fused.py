@@ -15,9 +15,14 @@ an `.npz` of the JAX package's flat C3D layout (a bundle's
 `--freeze_shallownet` keeps it frozen (as in the JAX package's fused
 trainer, it trains unless this flag is given).
 
-Not ported yet, and refused with exit code 2: `--dataset videos` (its
-loader, `train/fused.load_fused_corpus`, ROADMAP.md queue A item 7) and
-`--data_parallel` / `--model_parallel` (item 6).
+`--dataset videos` (the default) trains on `--videos_root` (`*.avi` /
+`*.mp4`, decoded by cv2 or imageio) with the processed gaze records of
+`--gaze_root` (`<clip>.mat` after `cli.process_gazemap`; h5py on the
+host), the frames resized on the host to `--frame_hw` (default 128x171)
+by `train/fused.load_fused_corpus`.
+
+Not ported yet, and refused with exit code 2: `--data_parallel` /
+`--model_parallel` (ROADMAP.md queue A item 6).
 """
 
 from __future__ import annotations
@@ -122,10 +127,6 @@ def load_c3d_params(path: Optional[str], generator: torch.Generator,
 
 def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
     """Exit 2, naming the ROADMAP item that brings each unported flag."""
-    if args.dataset == "videos":
-        parser.error("--dataset videos: the video + gaze-record loader is "
-                     "not ported yet (ROADMAP.md queue A item 7); use "
-                     "--dataset synthetic")
     if args.data_parallel > 1 or args.model_parallel > 1:
         parser.error("--data_parallel / --model_parallel: multi-GPU is not "
                      "ported yet (ROADMAP.md queue A item 6)")
@@ -135,6 +136,11 @@ def main(argv: Optional[list[str]] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     _refuse_unported(parser, args)
+    if args.dataset == "videos" and not (args.videos_root and
+                                         args.gaze_root):
+        log.error("--videos_root and --gaze_root are required for "
+                  "--dataset videos")
+        return 1
     device = resolve_device(args.device)
 
     t = pipeline.pipeline_timesteps(args.num_frames)
@@ -164,11 +170,17 @@ def main(argv: Optional[list[str]] = None) -> int:
                          generator=torch.Generator().manual_seed(exp.seed))
     exp.model = model.cfg
 
-    corpus = fused.make_synthetic_fused_corpus(
-        args.synthetic_clips, num_frames=args.num_frames,
-        frame_hw=tuple(args.frame_hw) if args.frame_hw else (64, 80),
-        gazemap_hw=(model.cfg.gazemap_height, model.cfg.gazemap_width),
-        seed=args.seed)
+    gazemap_hw = (model.cfg.gazemap_height, model.cfg.gazemap_width)
+    if args.dataset == "synthetic":
+        corpus = fused.make_synthetic_fused_corpus(
+            args.synthetic_clips, num_frames=args.num_frames,
+            frame_hw=tuple(args.frame_hw) if args.frame_hw else (64, 80),
+            gazemap_hw=gazemap_hw, seed=args.seed)
+    else:
+        corpus = fused.load_fused_corpus(
+            args.videos_root, args.gaze_root, num_frames=args.num_frames,
+            frame_hw=tuple(args.frame_hw) if args.frame_hw else (128, 171),
+            gazemap_hw=gazemap_hw, max_clips=args.max_clips)
     corpus.shuffle(seed=args.seed or 3027300)
     train_data, valid_data = corpus.split(args.valid_clips)
     log.info("fused corpus: %d train / %d valid clips, F=%d -> T=%d",

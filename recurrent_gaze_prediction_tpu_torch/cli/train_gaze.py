@@ -14,14 +14,15 @@ file of `cli.pretrain_shallownet`), fit with auto-resume from
 as `test/<metric>`). The train step runs a ConvGRU the kernels take
 through them (forward B1, backward B2) on the card. Training batches are
 prefetched by a worker thread (cast on the host, copied on a side stream)
-unless `--no_prefetch`.
+unless `--no_prefetch`. `--profile_steps N` traces N train steps from
+step 3 on into `{train_dir}/profile` (torch.profiler, TensorBoard-viewable
+`*.pt.trace.json`).
 
 `--pallas` and `--no_pallas` are accepted for the JAX command lines and
 change nothing: the route follows `kernel_takes` (a recurrence the kernels
 take runs through them on the card, any other through the cell's own
-scan). Not ported yet, and refused with exit code 2: `--profile_steps`
-(ROADMAP.md queue A item 7c) and `--data_parallel` / `--model_parallel`
-other than 1 (queue A item 6).
+scan). Not ported yet, and refused with exit code 2: `--data_parallel` /
+`--model_parallel` other than 1 (ROADMAP.md queue A item 6).
 """
 
 from __future__ import annotations
@@ -116,8 +117,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="copy each training batch inline instead of "
                              "on the prefetch thread")
     parser.add_argument("--profile_steps", default=0, type=int,
-                        help="not ported yet (ROADMAP.md queue A item 7c): "
-                             "N > 0 exits 2")
+                        help="trace N train steps (after warm-up) into "
+                             "{train_dir}/profile (TensorBoard-viewable)")
     parser.add_argument("--data_parallel", default=1, type=int,
                         help="not ported yet (ROADMAP.md queue A item 6): "
                              "other than 1 exits 2")
@@ -131,9 +132,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
     """Exit 2, naming the ROADMAP item that brings each unported flag."""
-    if args.profile_steps > 0:
-        parser.error("--profile_steps: the profiler window is not ported "
-                     "yet (ROADMAP.md queue A item 7c)")
     if args.data_parallel != 1 or args.model_parallel != 1:
         parser.error("--data_parallel / --model_parallel: multi-GPU is not "
                      "ported yet (ROADMAP.md queue A item 6)")
@@ -203,7 +201,8 @@ def main(argv: Optional[list[str]] = None) -> int:
     log.warn("Start fitting ...")
     try:
         state = fit(model, state, tx, data, exp, train_dir=exp.train_dir,
-                    metric_writer=writer, train_iterator=train_iter)
+                    metric_writer=writer, train_iterator=train_iter,
+                    profile_steps=args.profile_steps)
         if data.test is not None and len(data.test) >= model.cfg.batch_size:
             log.warn("Final test-split evaluation ...")
             _, scores = evaluator.generate_and_evaluate(

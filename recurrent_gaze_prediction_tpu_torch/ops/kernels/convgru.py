@@ -29,6 +29,7 @@ import threading
 import torch
 
 from ..cells import ConvGRU
+from ...utils import mfu
 from . import build
 
 # Launches of the CUDA kernel in this process; chip_smoke.py resets it to
@@ -138,6 +139,13 @@ def kernel_takes(h: int, w: int, units: int, dtype: torch.dtype,
             and smem_bytes(h, w, units, _DTYPES[dtype]) <= SMEM_LIMIT)
 
 
+def flops(t: int, b: int, h: int, w: int, units: int, gates: int) -> int:
+    """The contractions of one launch of a 3x3 cluster kernel, as
+    `utils/mfu.py` counts them: T*B*H*W*9*U*(gates*U)*2 (gates = 3 for B1,
+    B2 and B4's phases G and W, 4 for B3)."""
+    return 2 * t * b * h * w * 9 * units * gates * units
+
+
 def check_fits(kernel: str, need: int, h: int, w: int, units: int) -> None:
     """Raise ValueError if a CTA of `kernel` needs more shared memory than
     the card gives one."""
@@ -190,6 +198,7 @@ def _launch(u_zr: torch.Tensor, u_c: torch.Tensor, wx: torch.Tensor,
                  h_final.data_ptr(), t, b, hh, ww, units, elem)
     with _count_lock:
         launches += 1
+    mfu.add_kernel_flops("convgru_fwd", flops(t, b, hh, ww, units, 3))
     return h_final, ys
 
 

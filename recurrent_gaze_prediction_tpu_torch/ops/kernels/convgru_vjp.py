@@ -55,9 +55,10 @@ import torch.nn.functional as F
 
 from ..cells import ConvGRU
 from ..layers import conv2d
+from ...utils import mfu
 from . import build
-from .convgru import (SMEM_LIMIT, aligned, convgru_recurrence, pack_slices,
-                      pad_bytes, padded_grid)
+from .convgru import (SMEM_LIMIT, aligned, convgru_recurrence, flops,
+                      pack_slices, pad_bytes, padded_grid)
 
 # Launches in this process: of B4 as a whole, and of its phases G and W;
 # chip_smoke.py resets them to 0 before driving a path and reads them after.
@@ -260,6 +261,7 @@ def _launch_gates(uzr, uc, wx, h0, ys) -> tuple[torch.Tensor, ...]:
                  *(x.data_ptr() for x in outs), t, b, hh, ww, units, elem)
     with _count_lock:
         gates_launches += 1
+    mfu.add_kernel_flops("convgru_bwd_gates", flops(t, b, hh, ww, units, 3))
     return tuple(outs)
 
 
@@ -307,6 +309,7 @@ def _launch_wgrad(hprev, dzr, rh, da, compute_dtype
                  ww, units, _DTYPES[wdt])
     with _count_lock:
         wgrad_launches += 1
+    mfu.add_kernel_flops("convgru_wgrad", flops(frames, 1, hh, ww, units, 3))
     split = 18 * units * units
     return (out[:split].view(3, 3, units, 2 * units),
             out[split:].view(3, 3, units, units))

@@ -37,9 +37,11 @@ import threading
 import torch
 
 from ..cells import ConvGRU
+from ...utils import mfu
 from . import build
 from .convgru import (SMEM_LIMIT, acc_bytes, align128, aligned, check_fits,
-                      cluster_size, convgru_recurrence, pack_slices, pad_bytes)
+                      cluster_size, convgru_recurrence, flops, pack_slices,
+                      pad_bytes)
 from .convgru_vjp import (conv3x3, conv3x3_transpose, convgru_bwd_phased,
                           hprev_of, mode_of, transposed_weight, wgrad_plain)
 
@@ -130,6 +132,8 @@ def _launch(u, r, c, hprev, g, uzr, uc, compute_dtype
                  da.data_ptr(), dh0.data_ptr(), t, b, hh, ww, units, elem)
     with _count_lock:
         launches += 1
+    # the two transposed state convs: B1's contractions
+    mfu.add_kernel_flops("convgru_bwd", flops(t, b, hh, ww, units, 3))
     return dzr, da, dh0
 
 

@@ -32,9 +32,10 @@ import threading
 import torch
 
 from ..cells import ConvLSTM
+from ...utils import mfu
 from . import build
 from .convgru import (SMEM_LIMIT, acc_bytes, align128, aligned, check_fits,
-                      cluster_size, pack_slices, pad_bytes)
+                      cluster_size, flops, pack_slices, pad_bytes)
 
 # Launches of the CUDA kernel in this process; chip_smoke.py resets it to
 # 0 before driving a path and reads it after.
@@ -123,6 +124,7 @@ def _launch(fused: dict, gx: torch.Tensor, c0: torch.Tensor,
                  h_final.data_ptr(), t, b, hh, ww, units, elem)
     with _count_lock:
         launches += 1
+    mfu.add_kernel_flops("convlstm_fwd", flops(t, b, hh, ww, units, 4))
     return (c_final, h_final), ys
 
 

@@ -20,11 +20,12 @@ package's `train/checkpoint.py`, with its layout.
     model's `shallownet.*` parameters, the counterpart of the reference's
     per-variable assign surgery (`models/gaze_rnn.py:412-433`).
 
-Reading the JAX package's orbax checkpoints (its `save_params` writes
-orbax) is out of scope: the port does not import orbax, and the card's
-machine has no jax. They wait for the converter script of ROADMAP.md queue
-A item 7, which runs where jax is. Weights cross between the packages
-through bundles (`serving/bundle.py`) and `bridge.py`.
+The port reads no orbax checkpoint of the JAX package (it imports
+neither orbax nor jax, and the card's machine has no jax):
+`scripts/convert_jax_checkpoint.py`, run where jax is, turns a JAX run
+into this layout and a JAX `save_params` file into this one's. Weights
+also cross between the packages through bundles (`serving/bundle.py`)
+and `bridge.py`.
 """
 
 from __future__ import annotations

@@ -7,18 +7,21 @@ and the tower can be fine-tuned jointly. This module holds what the CLI
 (`cli/train_fused.py`) wires up:
 
   * `RawVideoDataset`: fixed-shape uint8 clips and aligned gazemaps;
+  * `load_fused_corpus`: a directory of videos with their processed gaze
+    `.mat` records (h5py, and cv2 or imageio to decode), into one;
   * `make_synthetic_fused_corpus`: a learnable stand-in corpus, with the
     JAX package's numpy draws (the same seed gives the same arrays);
   * `FusedTrainState` and `fit_fused`: the checkpointed, resumable loop.
 
-Not ported yet: `load_fused_corpus` (a directory of videos with their
-gaze records, ROADMAP.md queue A item 7) and the mesh branch of
-`fit_fused` (item 6).
+Not ported yet: the mesh branch of `fit_fused` (ROADMAP.md queue A item
+6).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
+import os
 import signal
 import time
 from typing import Callable, Optional
@@ -30,6 +33,7 @@ from ..config import ExperimentConfig
 from ..data.prefetch import device_put_batch
 from ..models import pipeline
 from ..models.common import GazeModel, sequence_loss
+from ..ops.layers import resize_bilinear
 from ..ops.normalize import normalize_probability_map
 from ..utils import log
 from .checkpoint import Checkpointer
@@ -178,6 +182,139 @@ def make_synthetic_fused_corpus(n_clips: int = 8, *, num_frames: int = 80,
     gaze = gaze.astype(np.float32) + 1e-4
     names = [f"synthetic{ci:04d}" for ci in range(n_clips)]
     return RawVideoDataset(video, gaze, names)
+
+
+def _gaze_targets_for_clip(mat_path: str, num_frames: int,
+                           gazemap_hw: tuple[int, int]) -> np.ndarray:
+    """Per-frame mean-over-users blurred gazemaps, subsampled to the fused
+    pipeline's T. Follows the CRC loader protocol (`data/crc.read_clip`,
+    `crc_input_data_seq.py:271-295`): mean of per-user resolution-matched
+    maps, missing frames filled, Gaussian blur at the resolution's sigma."""
+    import h5py
+
+    from ..data.gazemap import (apply_gaussian_filter, fill_missing_frames,
+                                gazemap_key_and_sigma)
+
+    gh, gw = gazemap_hw
+    key, sigma = gazemap_key_and_sigma(gh, gw)
+    t = pipeline.pipeline_timesteps(num_frames)
+    with h5py.File(mat_path, "r") as mat:
+        # the root group's name is whatever MATLAB wrote, not necessarily
+        # "data" (as in data/crc.read_clip)
+        root = list(mat.values())[0]
+        users = []
+        for name in root.keys():
+            user = root[name]
+            if key not in user:
+                log.warn("%s: user %s lacks %s — run cli/process_gazemap "
+                         "over the corpus first", mat_path, name, key)
+                continue
+            if "pupilsize" in user and np.isnan(
+                    np.min(np.asarray(user["pupilsize"]))):
+                continue  # a tracking-dropout user (as crc.read_clip)
+            users.append(np.asarray(user[key], np.float32))
+    if not users:
+        raise ValueError(f"{mat_path}: no usable users with {key}")
+    # the gazelen heuristic and the per-user [15::5] subsample BEFORE the
+    # mean, as data/crc.read_clip (crc_input_data_seq.py:261-280)
+    if len(users) >= 2:
+        gazelen = max(len(users[0]), len(users[1])) - 10
+    else:
+        gazelen = len(users[0]) - 10
+    subs = [u[pipeline.FRAME_OFFSET:gazelen:pipeline.FRAME_STRIDE]
+            for u in users if len(u) > gazelen - 1]
+    if not subs:
+        raise ValueError(f"{mat_path}: no gaze record of length >= {gazelen}")
+    mean = np.mean(np.asarray(subs, dtype=np.float32), axis=0)
+    # records store (W, H); training targets are (H, W)
+    mean = np.swapaxes(mean, 1, 2).copy()
+    if len(mean) and mean.reshape(len(mean), -1).sum(axis=1).min() == 0:
+        mean = fill_missing_frames(mean)
+    apply_gaussian_filter(mean, sigma)
+    sub = mean[:t]
+    if len(sub) < t:  # video padded past the gaze record: repeat last map
+        pad = np.repeat(sub[-1:] if len(sub) else
+                        np.full((1, gh, gw), 1.0 / (gh * gw), np.float32),
+                        t - len(sub), axis=0)
+        sub = np.concatenate([sub, pad]) if len(sub) else pad
+    return sub.astype(np.float32) + 1e-6
+
+
+def load_fused_corpus(videos_root: str, gaze_root: str, *,
+                      num_frames: int = 80,
+                      frame_hw: tuple[int, int] = (128, 171),
+                      gazemap_hw: tuple[int, int] = (49, 49),
+                      max_clips: Optional[int] = None) -> RawVideoDataset:
+    """Decode `{videos_root}/*.avi|*.mp4` and read `{gaze_root}/<clip>.mat`.
+
+    Videos are truncated or zero-padded to `num_frames` (a fixed shape, as
+    `cli/extract_map.py` does) and resized on the host to `frame_hw`: by
+    default 128x171, the C3D VIDEO_DATA resize target
+    (`extract_C3D_features.py:204-216`), so the step skips its on-card
+    resize and the copy carries the fewest uint8 bytes. A clip without a
+    gaze record, without frames or whose record has no usable map is
+    skipped with a warning.
+    """
+    from ..data import video as video_lib
+
+    paths = sorted(glob.glob(os.path.join(videos_root, "*.avi")) +
+                   glob.glob(os.path.join(videos_root, "*.mp4")))
+    if max_clips:
+        paths = paths[:max_clips]
+    if not paths:
+        raise ValueError(f"no videos under {videos_root}")
+    fh, fw = frame_hw
+    vids, gazes, names = [], [], []
+    for path in paths:
+        clip = os.path.splitext(os.path.basename(path))[0]
+        mat_path = os.path.join(gaze_root, clip + ".mat")
+        if not os.path.exists(mat_path):
+            log.warn("skipping %s: no gaze record %s", clip, mat_path)
+            continue
+        frames = []
+        for frame in video_lib.decode_video(path):
+            frames.append(_resize_uint8(frame, fh, fw))
+            if len(frames) >= num_frames:
+                break
+        if not frames:
+            log.warn("skipping %s: decoded no frames", clip)
+            continue
+        stacked = np.stack(frames)
+        if len(stacked) < num_frames:
+            pad = np.zeros((num_frames - len(stacked),) + stacked.shape[1:],
+                           stacked.dtype)
+            stacked = np.concatenate([stacked, pad])
+        try:
+            gaze = _gaze_targets_for_clip(mat_path, num_frames, gazemap_hw)
+        except ValueError as e:
+            # e.g. an all-zero record (`gazemap.fill_missing_frames`
+            # raises): skip the clip, as data/crc.read_clip does
+            log.warn("skipping %s: %s", clip, e)
+            continue
+        vids.append(stacked)
+        gazes.append(gaze)
+        names.append(clip)
+    if not vids:
+        raise ValueError(f"no usable (video, gaze) pairs under "
+                         f"{videos_root} / {gaze_root}")
+    return RawVideoDataset(np.stack(vids), np.stack(gazes), names)
+
+
+def _resize_uint8(frame: np.ndarray, h: int, w: int) -> np.ndarray:
+    """[H, W, 3] -> [h, w, 3] uint8: cv2's INTER_LINEAR where cv2 imports,
+    else the JAX package's fallback, `jax.image.resize(..., "bilinear")`
+    (antialiased when it shrinks: `ops.layers.resize_bilinear`),
+    clipped and truncated to uint8."""
+    if frame.shape[:2] == (h, w):
+        return frame.astype(np.uint8)
+    try:
+        import cv2
+    except ImportError:
+        out = resize_bilinear(torch.from_numpy(
+            frame.astype(np.float32))[None], (h, w))[0]
+        return np.clip(out.numpy(), 0, 255).astype(np.uint8)
+    return cv2.resize(frame, (w, h),
+                      interpolation=cv2.INTER_LINEAR).astype(np.uint8)
 
 
 # ------------------------------------------------------------- train state

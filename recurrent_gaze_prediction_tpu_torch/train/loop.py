@@ -6,11 +6,12 @@ One train step per iteration, on batches copied inline or taken from a
 checkpoint, validation-loss and evaluation cadences; auto-resume from the
 latest checkpoint at start (`base.py:341-342`); a checkpoint-and-stop on
 SIGTERM/SIGINT; per-step timing logs matching the reference's `sec/batch,
-instances/sec` line (`models/gaze_rnn.py:547-563`).
+instances/sec` line (`models/gaze_rnn.py:547-563`); an optional profiler
+window of `profile_steps` train steps (`train/profiler.py`).
 
-Not ported yet: the profiler window (ROADMAP.md queue A item 7) and the
-mesh branch (item 6). The loss is read back from the card only at the log
-cadence, so the host runs ahead of the card in between.
+Not ported yet: the mesh branch (ROADMAP.md queue A item 6). The loss is
+read back from the card only at the log cadence (and at the end of the
+profiler window), so the host runs ahead of the card in between.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from ..data.prefetch import device_put_batch, stream_casts
 from ..eval import evaluator
 from ..models.common import GazeModel
 from ..utils import log
+from . import profiler
 from .checkpoint import Checkpointer
 from .state import (Optimizer, TrainState, build_schedule, make_eval_step,
                     make_predict_fn, make_train_step)
@@ -44,7 +46,8 @@ def fit(model: GazeModel, state: TrainState, tx: Optimizer, data: DataSplits,
         exp: ExperimentConfig, *, train_dir: Optional[str] = None,
         metric_writer: Optional[Callable[[int, dict], None]] = None,
         max_eval_instances: int = 50,
-        train_iterator: Optional[Iterator[dict]] = None) -> TrainState:
+        train_iterator: Optional[Iterator[dict]] = None,
+        profile_steps: int = 0, profile_start: int = 3) -> TrainState:
     """Train until `exp.schedule.max_steps`; returns the final state. The
     flip and dropout draw from one generator on the model's device, seeded
     with `exp.seed`.
@@ -54,7 +57,12 @@ def fit(model: GazeModel, state: TrainState, tx: Optimizer, data: DataSplits,
     warning when it runs dry), else from `data.train.next_batch`, copied
     inline. Every `steps_per_evaluation` steps the saliency metrics of
     `generate_and_evaluate` on up to `max_eval_instances` clips of
-    `data.valid` go to `metric_writer` as `evaluation/<metric>`."""
+    `data.valid` go to `metric_writer` as `evaluation/<metric>`.
+
+    `profile_steps > 0` traces that many train steps into
+    `{train_dir}/profile` (`train/profiler.py`), from the first step past
+    `profile_start` (after the warm-up steps); a resumed run past it
+    traces its first steps."""
     sched_cfg = exp.schedule
     batch_size = model.cfg.batch_size
     device = next(model.parameters()).device
@@ -94,8 +102,21 @@ def fit(model: GazeModel, state: TrainState, tx: Optimizer, data: DataSplits,
     cast = stream_casts(input_dtype)
     step = state.step
     last_logged_step, t_logged = step, time.time()
+    trace = None      # the open profiler, between its start and stop
+    profile_end = 0   # the last step to trace; nonzero once armed
+    if profile_steps and train_dir is None:
+        log.warn("profile_steps=%d requested but train_dir is unset; "
+                 "profiling disabled", profile_steps)
     try:
         while step < sched_cfg.max_steps and not stop_requested["flag"]:
+            # arm once at the first step past profile_start (>=, not ==: a
+            # resumed run enters with step >> profile_start)
+            if (profile_steps and train_dir is not None and profile_end == 0
+                    and step + 1 >= profile_start):
+                trace = profiler.start_trace(f"{train_dir}/profile")
+                profile_end = step + profile_steps
+                log.info("profiler: tracing steps %d..%d -> %s/profile",
+                         step + 1, profile_end, train_dir)
             if train_iterator is not None:
                 raw = next(train_iterator, None)
                 if raw is None:
@@ -108,6 +129,11 @@ def fit(model: GazeModel, state: TrainState, tx: Optimizer, data: DataSplits,
                                          device, cast)
             state, metrics = train_step(state, batch, generator)
             step = state.step
+
+            if trace is not None and step >= profile_end:
+                float(metrics["loss"])  # the traced steps finish on the card
+                trace.stop()
+                trace = None
 
             if step % sched_cfg.steps_per_logprint == 0:
                 loss = float(metrics["loss"])  # the card syncs HERE
@@ -158,9 +184,17 @@ def fit(model: GazeModel, state: TrainState, tx: Optimizer, data: DataSplits,
                     metric_writer(step, {f"evaluation/{m}": s
                                          for m, s in scores.items()})
 
+        if profile_steps and train_dir is not None and profile_end == 0:
+            log.warn("profile_steps=%d requested but no step ran past "
+                     "profile_start=%d (max_steps=%d); nothing was traced",
+                     profile_steps, profile_start, sched_cfg.max_steps)
         if ckpt is not None:
             ckpt.save(state)
     finally:
+        # every exit path, an exception's too, closes an open trace (the
+        # loop may end inside the window)
+        if trace is not None:
+            trace.stop()
         for sig, handler in prev_handlers.items():
             signal.signal(sig, handler)
     return state

@@ -6,9 +6,11 @@ kernels' (B1, B2, B3) shared-memory reckoning and refusal of widths that do
 not fit; the models' routing of other widths to the plain scan (fault C1);
 the raw-video front (the C3D tower's bf16 gate, fused predict and two
 `cli.train_fused` steps, with launch counts); each family of the model
-zoo's predict in bf16 against f32; and evaluation (the metrics
+zoo's predict in bf16 against f32; evaluation (the metrics
 on the card against the CPU, one B1 launch per evaluated batch) and the
-prefetched trainer against the inline one. They skip without a card. This
+prefetched trainer against the inline one; and observability (the FLOP
+count of the kernel route against the plain route's, a profiled train
+step naming B1 and B2). They skip without a card. This
 file imports torch only (no jax), so on a machine with a card it runs
 without the JAX test harness:
 
@@ -717,3 +719,94 @@ def test_extract_map_on_the_card(cuda_no_tf32, tmp_path, name, streaming):
         np.testing.assert_allclose(card.astype(np.float32),
                                    cpu.astype(np.float32), rtol=1e-3,
                                    atol=1e-3)
+
+
+def _flops(fn, *args):
+    from recurrent_gaze_prediction_tpu_torch.utils import mfu
+
+    return mfu.flop_counts(fn, *args)
+
+
+def test_kernel_route_counts_the_plain_route_contractions(cuda_no_tf32):
+    """FlopCounterMode does not see the ctypes launches, so each wrapper
+    adds its own count: at T=42, B=8, 512 -> 128 in bf16 the kernel route
+    counts what the plain route counts, B1's and B2's share each
+    T*B*49*9*U*3U*2 (14.57 GFLOP), B3's T*B*49*9*U*4U*2; training adds
+    only ConvGRUFusedV2's gate recompute."""
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels.convgru_vjp2 import (
+        convgru_scan_trainable_v2)
+
+    dev, cdt = cuda_no_tf32, torch.bfloat16
+    t, b, c, units = 42, 8, 512, 128
+    rng = np.random.RandomState(0)
+    xs = torch.from_numpy(rng.randn(t, b, 7, 7, c).astype(np.float32)).to(
+        dev)
+
+    def weights(init):
+        return {k: torch.from_numpy((rng.randn(*v.shape) * 0.05).astype(
+            np.float32)).to(dev).requires_grad_() for k, v in init.items()}
+
+    gru = weights(ConvGRU.init(c, units))
+    # h0 takes a gradient, so the plain backward forms dh0 as B2 does
+    h0 = ConvGRU.zero_state(b, (7, 7), units, device=dev).requires_grad_()
+    want = kconv.flops(t, b, 7, 7, units, 3)
+    assert want == 14_566_293_504
+    kernel = _flops(kconv.convgru_scan, gru, xs, h0, cdt)
+    plain = _flops(ConvGRU.scan, gru, xs, h0, cdt)
+    assert kernel["convgru_fwd"] == want
+    assert sum(kernel.values()) == sum(plain.values())
+
+    def train(scan):
+        _, ys = scan(gru, xs, h0, compute_dtype=cdt)
+        torch.autograd.grad(ys.float().square().sum(), [*gru.values(), h0])
+
+    kernel = _flops(train, convgru_scan_trainable_v2)
+    plain = _flops(train, ConvGRU.scan)
+    with torch.no_grad():
+        fused = ConvGRU.fuse(gru)
+        wx = ConvGRU.input_gates(fused, xs, cdt)
+        _, ys = kconv.convgru_recurrence(fused, wx, h0)
+    recompute = _flops(v2.recompute_gates, fused["Uh_zr"], fused["U_c"], wx,
+                       h0, ys)
+    assert kernel["convgru_fwd"] == kernel["convgru_bwd"] == want
+    assert sum(recompute.values()) == want
+    assert sum(kernel.values()) == sum(plain.values()) + want
+
+    lstm = weights(ConvLSTM.init(c, units))
+    carry = ConvLSTM.zero_state(b, (7, 7), units, device=dev)
+    kernel = _flops(klstm.convlstm_scan, lstm, xs, carry, cdt)
+    plain = _flops(ConvLSTM.scan, lstm, xs, carry, cdt)
+    assert kernel["convlstm_fwd"] == kconv.flops(t, b, 7, 7, units, 4)
+    assert sum(kernel.values()) == sum(plain.values())
+
+
+def test_profiled_train_step_names_b1_and_b2(cuda_no_tf32, tmp_path):
+    """`profile_steps` over one full-width train step: the trace holds the
+    device kernels of B1 and B2."""
+    import glob
+    import json
+
+    from recurrent_gaze_prediction_tpu_torch import registry
+    from recurrent_gaze_prediction_tpu_torch.config import OptimizerConfig
+    from recurrent_gaze_prediction_tpu_torch.data import synthetic
+    from recurrent_gaze_prediction_tpu_torch.data.prefetch import (
+        device_put_batch, stream_casts)
+    from recurrent_gaze_prediction_tpu_torch.train import (
+        create_train_state, make_train_step, profiler)
+
+    model = registry.create_model("gaze_grcn", n_lstm_steps=8, batch_size=4,
+                                  compute_dtype="bfloat16", device="cuda")
+    state, tx = create_train_state(model, OptimizerConfig())
+    step = make_train_step(model, tx)
+    batch = device_put_batch(synthetic.make_clip_windows(4, 8, seed=0)
+                             .next_batch(4), cuda_no_tf32,
+                             stream_casts(torch.bfloat16))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step(state, batch, gen)  # warm-up: the kernels are built and loaded
+    profiler.profile_steps(step, (state, batch, gen), 1, str(tmp_path))
+    (trace,) = glob.glob(str(tmp_path / "*.pt.trace.json"))
+    with open(trace) as f:
+        kernels = {e["name"] for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"}
+    for name in ("convgru_fwd_kernel", "convgru_bwd_kernel"):  # B1, B2
+        assert any(name in k for k in kernels), sorted(kernels)

@@ -2,6 +2,7 @@
 its entry points never carry on quietly on the CPU when the card is
 missing."""
 
+import os
 import re
 import subprocess
 import sys
@@ -178,6 +179,31 @@ def test_research_loop_entry_points_raise_without_cuda(tmp_path):
         extract_features.extract_windows({}, np.zeros((16, 8, 8, 3),
                                                       np.uint8))
     assert not (tmp_path / "model").exists()
+
+
+def test_workflow_entry_points_raise_without_cuda(tmp_path):
+    """The export CLI and the SALICON and video-corpus trainers resolve
+    the card before they restore, read or decode anything."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from recurrent_gaze_prediction_tpu_torch.cli import (export_serving,
+                                                         pretrain_shallownet,
+                                                         train_fused)
+    from recurrent_gaze_prediction_tpu_torch.config import ExperimentConfig
+
+    d = str(tmp_path)
+    ExperimentConfig().dump(str(tmp_path / "config.json"))
+    for main, argv in (
+            (export_serving.main, ["--train_dir", d, "--out_dir",
+                                   f"{d}/bundle"]),
+            (pretrain_shallownet.main, ["--dataset", "salicon",
+                                        "--salicon_root", d, "--out",
+                                        f"{d}/sn.pt"]),
+            (train_fused.main, ["--dataset", "videos", "--videos_root", d,
+                                "--gaze_root", d])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(argv)
+    assert sorted(os.listdir(d)) == ["config.json"]
 
 
 def test_research_loop_refusals(tmp_path):

@@ -240,7 +240,8 @@ def test_explicit_freeze_flag_wins():
 
 def test_pretrain_cli_then_graft_through_train_gaze(tmp_path):
     """`cli.pretrain_shallownet` writes a params file (and refuses an
-    existing --out; --dataset salicon exits 2 naming queue A item 7);
+    existing --out; --dataset salicon without a SALICON tree under
+    --salicon_root fails reading it, as the JAX CLI does);
     `cli.train_gaze --shallownet_pretrain` grafts it into gaze_rnn, whose
     frozen ShallowNet is then bitwise the file's after training."""
     out = str(tmp_path / "sn.pt")
@@ -252,10 +253,10 @@ def test_pretrain_cli_then_graft_through_train_gaze(tmp_path):
         steps = [json.loads(line)["step"] for line in f]
     assert steps == [1, 2, 3]
     assert pretrain_shallownet.main(argv) == 1      # --out exists
-    with pytest.raises(SystemExit) as err:
+    with pytest.raises(FileNotFoundError):
         pretrain_shallownet.main(["--device", "cpu", "--dataset", "salicon",
+                                  "--salicon_root", str(tmp_path / "none"),
                                   "--out", str(tmp_path / "x.pt")])
-    assert err.value.code == 2
 
     run = str(tmp_path / "rnn")
     assert train_gaze.main([

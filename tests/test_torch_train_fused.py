@@ -1,7 +1,10 @@
 """Training from raw video: the port's fused train step against the JAX
 package's on the CPU in f32 (the full C3D tower, narrow gaze widths,
 dropout keep 1.0 and flip off so neither package draws), the synthetic
-raw-video corpus, fused checkpoints, and `cli.train_fused`.
+raw-video corpus, the video corpus loader (`load_fused_corpus`: the JAX
+tests' .avi + gaze .mat fixtures, arrays equal to the JAX package's),
+fused checkpoints, and `cli.train_fused` (synthetic and `--dataset
+videos`).
 
 The loss is held within 1e-5 (relative), the gradients at rtol 1e-3 /
 atol 1e-5 (the JAX package's gradient tolerance), the parameters after one
@@ -282,9 +285,6 @@ def test_cli_train_fused_grafts_a_pretrained_shallownet(tmp_path, freeze):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--dataset", "videos"], "item 7"),
-    (["--dataset", "videos", "--videos_root", "v", "--gaze_root", "g"],
-     "item 7"),
     (["--dataset", "synthetic", "--model_parallel", "2"], "item 6"),
     (["--dataset", "synthetic", "--data_parallel", "2"], "item 6"),
 ])
@@ -293,3 +293,142 @@ def test_cli_train_fused_refuses_what_is_not_ported(capsys, flags, item):
         train_fused.main(["--device", "cpu"] + flags)
     assert err.value.code == 2
     assert item in capsys.readouterr().err
+
+
+F = 32  # the JAX tests' clip length: two C3D windows, T = 2
+
+
+def _avi(path, n_frames, rng, oh=36, ow=48):
+    cv2 = pytest.importorskip("cv2")
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 10,
+                             (ow, oh))
+    assert writer.isOpened()
+    for _ in range(n_frames):
+        writer.write(rng.randint(0, 255, (oh, ow, 3), np.uint8))
+    writer.release()
+
+
+@pytest.fixture(scope="module")
+def video_corpus(tmp_path_factory):
+    """`tests/test_train_fused.py::test_load_fused_corpus_from_avi`'s
+    fixture: two .avi clips of F + 8 frames (36x48) with raw gaze .mat
+    records of two users each, processed by `cli.process_gazemap`."""
+    import h5py
+
+    from recurrent_gaze_prediction_tpu_torch.cli import process_gazemap
+
+    base = tmp_path_factory.mktemp("corpus")
+    videos, gaze = base / "videos", base / "gazemap"
+    videos.mkdir()
+    gaze.mkdir()
+    rng = np.random.RandomState(0)
+    oh, ow = 36, 48
+    for ci in range(2):
+        clip = f"clip{ci:03d}"
+        _avi(str(videos / (clip + ".avi")), F + 8, rng, oh, ow)
+        with h5py.File(gaze / (clip + ".mat"), "w") as mat:
+            grp = mat.create_group("data")
+            for ui in range(2):
+                user = grp.create_group(f"user{ui:02d}")
+                raw = np.zeros((F + 8, oh, ow), np.uint8)
+                raw[np.arange(F + 8), rng.randint(0, oh, F + 8),
+                    rng.randint(0, ow, F + 8)] = 1
+                user["gazemap"] = raw
+                user["pupilsize"] = rng.rand(F + 8)
+    assert process_gazemap.main(["--glob", str(gaze / "*.mat"),
+                                 "--num_agents", "1"]) == 0
+    return str(videos), str(gaze)
+
+
+def _assert_same_corpus(got, want):
+    assert got.clipnames == want.clipnames
+    assert got.video.dtype == want.video.dtype == np.uint8
+    np.testing.assert_array_equal(got.video, want.video)
+    np.testing.assert_array_equal(got.gazemaps, want.gazemaps)
+
+
+def test_load_fused_corpus_from_avi(video_corpus):
+    videos, gaze = video_corpus
+    got = fused.load_fused_corpus(videos, gaze, num_frames=F,
+                                  frame_hw=(40, 56))
+    want = jfused.load_fused_corpus(videos, gaze, num_frames=F,
+                                    frame_hw=(40, 56))
+    t = pipeline.pipeline_timesteps(F)
+    assert got.video.shape == (2, F, 40, 56, 3)
+    assert got.gazemaps.shape == (2, t, 49, 49)
+    assert got.gazemaps.min() > 0  # blurred and floored
+    _assert_same_corpus(got, want)
+
+
+def test_load_fused_corpus_missing_inputs(tmp_path):
+    for load in (fused.load_fused_corpus, jfused.load_fused_corpus):
+        with pytest.raises(ValueError, match="no videos"):
+            load(str(tmp_path), str(tmp_path), num_frames=F)
+
+
+def test_load_fused_corpus_skips_allzero_gaze(tmp_path):
+    """A clip whose gaze record is all-zero for every user is skipped with
+    a warning, as the JAX package does; so is a clip without a record."""
+    import h5py
+
+    videos, gaze = tmp_path / "videos", tmp_path / "gazemap"
+    videos.mkdir()
+    gaze.mkdir()
+    rng = np.random.RandomState(0)
+    for ci, zero in enumerate([False, True, None]):
+        clip = f"clip{ci:03d}"
+        _avi(str(videos / (clip + ".avi")), F, rng)
+        if zero is None:
+            continue  # no gaze record
+        with h5py.File(gaze / (clip + ".mat"), "w") as mat:
+            user = mat.create_group("data").create_group("user00")
+            maps = np.zeros((F, 49, 49), np.float32)
+            if not zero:
+                maps[np.arange(F), rng.randint(0, 49, F),
+                     rng.randint(0, 49, F)] = 1.0
+            user["gazemap49x49"] = maps
+    got = fused.load_fused_corpus(str(videos), str(gaze), num_frames=F,
+                                  frame_hw=(40, 56))
+    want = jfused.load_fused_corpus(str(videos), str(gaze), num_frames=F,
+                                    frame_hw=(40, 56))
+    assert got.clipnames == ["clip000"]
+    _assert_same_corpus(got, want)
+
+
+@pytest.mark.parametrize("hw", [(20, 28), (40, 56), (36, 48)])
+def test_resize_uint8_fallback_without_cv2(monkeypatch, hw):
+    """Without cv2 both packages fall back to a bilinear resize that
+    antialiases when it shrinks (`jax.image.resize`, here
+    `ops.layers.resize_bilinear`): within one uint8 step of the JAX
+    package's, shrinking, growing and at the frame's own size."""
+    import sys
+
+    frame = np.random.RandomState(3).randint(0, 256, (36, 48, 3)).astype(
+        np.uint8)
+    monkeypatch.setitem(sys.modules, "cv2", None)  # import cv2 -> ImportError
+    got = fused._resize_uint8(frame, *hw)
+    want = jfused._resize_uint8(frame, *hw)
+    assert got.dtype == want.dtype == np.uint8 and got.shape == (*hw, 3)
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("roots", [False, True])
+def test_cli_train_fused_on_videos(tmp_path, video_corpus, roots):
+    """`--dataset videos` without both roots fails as the JAX CLI does
+    (return 1); with them it trains on the corpus (frames resized on the
+    host to 128x171) and checkpoints."""
+    videos, gaze = video_corpus
+    argv = ["--device", "cpu", "--dataset", "videos", "--num_frames",
+            str(F), "--batch_size", "2", "--compute_dtype", "float32",
+            "--max_steps", "1", "--steps_per_logprint", "1", "--train_dir",
+            str(tmp_path / "run")]
+    if not roots:
+        assert train_fused.main(argv + ["--videos_root", videos]) == 1
+        assert not os.path.exists(tmp_path / "run")
+        return
+    assert train_fused.main(
+        argv + ["--videos_root", videos, "--gaze_root", gaze]) == 0
+    records = _records(str(tmp_path / "run"))
+    assert [r["step"] for r in records] == [1]
+    assert np.isfinite(records[0]["loss/train"])
+    assert Checkpointer(str(tmp_path / "run")).steps() == [1]
