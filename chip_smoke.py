@@ -127,6 +127,22 @@ In order, failing (exit 1) on the first check that does not hold:
      train step at B=28 above it by V2's gate recompute and B2's dh0
      transposed conv; B1's share 14.57 GFLOP at B=8), and the MFU of each
      over its CUDA-event time;
+  15. the int8 C3D tower (kernel Q1, `models/quant.py`), with weights
+     under which activations survive all eight layers: calibrated on 8
+     seeded windows; Q1 and Q1-pool against their plain versions layer by
+     layer on one clip at the real shapes (bitwise); the tower through
+     `quant.apply_int8` at 160 clips (the served fused predict's B=16,
+     F=160: Q1 8 times, Q1-pool 4 times) against the plain int8 tower
+     (corr >= 0.999, max_rel_delta <= 0.05) and the bf16 cuDNN tower (corr
+     > 0.995, mean rel < 0.06); `cli.export_serving --int8 --calib_videos`
+     of phase 5's gaze_grcn run on seeded .avi files, its `fused_int8`
+     program served over HTTP (8 concurrent uint8 POSTs, each reply against
+     the bundle's `fused` program at corr >= 0.98; Q1 8 and Q1-pool 4
+     launches and B1 one per batcher call);
+  16. the host-side interop: a TFRecord round trip, the native libraries'
+     build status (`native: built` or `native: fallback (<reason>)`) and,
+     where the JPEG decoder built, a frame folder through
+     `load_frame_folder(backend="native")` within one step of PIL's;
   7. times the kernels and their plain versions (B=8, B=16; B1 and B2 also
      at B=1 and 28, B3 also at B=1, in us per step beside the bound; B4's
      phases G and W beside the cuDNN calls that compute the same functions,
@@ -137,10 +153,14 @@ In order, failing (exit 1) on the first check that does not hold:
      through the kernels and through plain autograd with a breakdown; the
      gaze_lstm train step; the C3D tower NCDHW against channels-last-3d;
      the fused predict at B=8 and 16 with its stages, the fused train step
-     (frozen, fine-tuned) and the fused HTTP latency; with CUDA events or
-     the host clock after warm-up;
-  8. prints the kernels' JSON line (B1-B4, B4's phases G and W, and B1 and
-     B2 at U=64), then,
+     (frozen, fine-tuned) and the fused HTTP latency; Q1 and Q1-pool layer
+     by layer at 160 clips beside their bounds, plain versions, im2col +
+     `torch._int_mm` and the bf16 cuDNN conv; the int8 tower against the
+     bf16 tower in turns; `fused_int8` against `fused` predict at B=8 and
+     16 and the fused_int8 HTTP latency; with CUDA events or the host clock
+     after warm-up;
+  8. prints the kernels' JSON line (B1-B4, B4's phases G and W, B1 and B2
+     at U=64, and Q1 and Q1-pool), then,
      last, the device JSON line.
 """
 
@@ -161,7 +181,7 @@ import urllib.request
 import numpy as np
 import torch
 
-from recurrent_gaze_prediction_tpu_torch import registry
+from recurrent_gaze_prediction_tpu_torch import native, registry
 from recurrent_gaze_prediction_tpu_torch.action import (
     ActionClassifier, ActionHParams, iter_record_batches, read_record_shard)
 from recurrent_gaze_prediction_tpu_torch.action.classification import (
@@ -173,6 +193,7 @@ from recurrent_gaze_prediction_tpu_torch.cli import (
     action_classification, create_records, evaluate_gaze, export_serving,
     extract_features, extract_map, pretrain_shallownet, process_gazemap,
     train_fused, train_gaze)
+from recurrent_gaze_prediction_tpu_torch.compat import tfrecord
 from recurrent_gaze_prediction_tpu_torch.config import (
     ExperimentConfig, OptimizerConfig)
 from recurrent_gaze_prediction_tpu_torch.data import codec, synthetic, video
@@ -181,8 +202,8 @@ from recurrent_gaze_prediction_tpu_torch.data.prefetch import (
 from recurrent_gaze_prediction_tpu_torch.eval import (
     evaluator, metrics_np, metrics_torch)
 from recurrent_gaze_prediction_tpu_torch.models import c3d as c3d_model
-from recurrent_gaze_prediction_tpu_torch.models import (pipeline, shallownet,
-                                                        streaming)
+from recurrent_gaze_prediction_tpu_torch.models import (pipeline, quant,
+                                                        shallownet, streaming)
 from recurrent_gaze_prediction_tpu_torch.models.common import (
     apply_c3d_projection, apply_decoder, sequence_loss)
 from recurrent_gaze_prediction_tpu_torch.ops.cells import ConvGRU, ConvLSTM
@@ -191,6 +212,7 @@ from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru as kconv
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp as v1
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp2 as v2
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convlstm as klstm
+from recurrent_gaze_prediction_tpu_torch.ops.kernels import conv3d_int8 as q1
 from recurrent_gaze_prediction_tpu_torch.ops.kernels.parity import (
     MIN_CORR, backward_inputs, backward_kernel_and_plain, backward_parity,
     backward_parity_ok, convgru_parity, convlstm_parity, parity_ok)
@@ -198,7 +220,8 @@ from recurrent_gaze_prediction_tpu_torch.ops.layers import resize_bilinear
 from recurrent_gaze_prediction_tpu_torch.ops.normalize import (
     normalize_probability_map, softmax_2d)
 from recurrent_gaze_prediction_tpu_torch.serving import (
-    load_bundle, save_bundle, server_from_bundle)
+    fused_int8_predict_fn, fused_predict_fn, load_bundle, save_bundle,
+    server_from_bundle)
 from recurrent_gaze_prediction_tpu_torch.train import (
     Checkpointer, create_train_state, fit, make_train_step)
 from recurrent_gaze_prediction_tpu_torch.train import fused as fused_data
@@ -232,6 +255,7 @@ F32_MAX_REL_DELTA = 1e-3
 MAP_MIN_CORR = 0.999
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 STATE_STDDEV = 0.05  # the reference init (1e-4) leaves the recurrence ~0
 # batches at which the cluster kernels B1 and B2 are gated and timed: the
@@ -308,6 +332,20 @@ MAP_T, MAP_BATCH = 105, 4
 MAP_MAX_REL_DELTA = 0.05   # the JAX package's gate (ops/pallas/parity.py)
 ACTION_NN_STEPS, ACTION_SVM_STEPS = 200, 50
 CRC_CLIPS, CRC_FRAMES, CRC_STEPS = 6, 120, 4
+# the int8 tower (slice 13): Q1 per layer on one clip's activations, the
+# tower at the served fused predict's 160 clips (B=16, F=160), against the
+# plain int8 tower (the JAX package's kernel gate) and the bf16 cuDNN
+# tower (its accuracy gate, tests/test_quant.py); fused_int8 served over
+# HTTP against the same bundle's fused program (its surface gate);
+# calibration on CALIB_VIDEOS seeded .avi files of CALIB_FRAMES frames
+INT8_CLIPS = 160
+INT8_BF16_MIN_CORR, INT8_BF16_MAX_MEAN_REL = 0.995, 0.06
+INT8_MAP_MIN_CORR = 0.98
+# a cause that keeps Q1 from its plain version's bits may move at most
+# this share of a layer's int8 outputs by at most one step
+INT8_MAX_STEP, INT8_MAX_SHARE = 1, 1e-4
+CALIB_VIDEOS, CALIB_FRAMES = 2, 64
+INT8_CHUNK = 16   # clips per call of the float64 plain tower
 
 
 def fail(msg: str) -> None:
@@ -634,6 +672,12 @@ def full_width_model(name: str = "gaze_grcn"):
 def reset_launches() -> None:
     kconv.launches = v2.launches = v1.launches = klstm.launches = 0
     v1.gates_launches = v1.wgrad_launches = 0
+    q1.launches = q1.pool_launches = 0
+
+
+def read_int8_launches() -> dict:
+    torch.cuda.synchronize()
+    return {"conv3d_int8": q1.launches, "maxpool3d_int8": q1.pool_launches}
 
 
 def read_launches() -> dict:
@@ -2936,6 +2980,405 @@ def mfu_phase(card: str, tower: dict, raw_batch: dict,
     return out
 
 
+# ------------------------------------------------------------ the int8 tower
+
+def int8_tower(seed: int = SEED + 60) -> dict:
+    """C3D conv weights under which activations survive all eight layers
+    (w / sqrt(27 Cin) and small biases, as the JAX package's fabricated
+    caffemodel in tests/test_quant.py), on the card; the fc layers zero
+    (no path here reads them)."""
+    rng = np.random.RandomState(seed)
+    params, cin = {}, 3
+    for name, cout in c3d_model.CONV_LAYERS:
+        params[f"{name}_w"] = (rng.randn(cout, cin, 3, 3, 3)
+                               / np.sqrt(27.0 * cin)).astype(np.float32)
+        params[f"{name}_b"] = (0.01 * rng.randn(cout)).astype(np.float32)
+        cin = cout
+    for name, d_in, d_out in c3d_model.FC_LAYERS:
+        params[f"{name}_w"] = np.zeros((d_out, d_in), np.float32)
+        params[f"{name}_b"] = np.zeros(d_out, np.float32)
+    return {k: torch.from_numpy(v).cuda() for k, v in params.items()}
+
+
+def int8_layers(qparams: dict, clips: torch.Tensor, conv, pool) -> tuple:
+    """`quant.apply_int8`'s loop with the given conv and pool functions
+    (the kernels or their plain versions): (conv5b NCDHW f32, each layer's
+    int8 input, each pool's int8 input)."""
+    names = [name for name, _ in c3d_model.CONV_LAYERS]
+    xs = [float(qparams[f"{n}_xscale"]) for n in names]
+    x_q = q1.quantize(clips.permute(0, 2, 3, 4, 1).float(),
+                      xs[0]).contiguous()
+    inputs, pool_inputs = [], []
+    for i, name in enumerate(names):
+        inputs.append(x_q)
+        last = name == "conv5b"
+        y = conv(x_q, qparams[f"{name}_wq"], qparams[f"{name}_wscale"],
+                 qparams[f"{name}_b"], xs[i], None if last else xs[i + 1])
+        if last:
+            return y.permute(0, 4, 1, 2, 3), inputs, pool_inputs
+        x_q = y
+        if name in c3d_model.POOLS:
+            pool_inputs.append((name, x_q))
+            x_q = pool(x_q, *c3d_model.POOLS[name])
+    raise AssertionError("unreachable")
+
+
+def plain_int8_tower(qparams: dict, clips: torch.Tensor) -> torch.Tensor:
+    """The plain int8 tower on the card (float64 convs), INT8_CHUNK clips
+    per call."""
+    return torch.cat([int8_layers(qparams, clips[i:i + INT8_CHUNK],
+                                  q1.conv3d_int8_plain,
+                                  q1.maxpool3d_int8_plain)[0]
+                      for i in range(0, clips.shape[0], INT8_CHUNK)])
+
+
+def int8_compare(got: torch.Tensor, want: torch.Tensor) -> dict:
+    diff = (got.float() - want.float()).abs()
+    return {"equal": bool(torch.equal(got, want)),
+            "differing": int((diff > 0).sum()), "elements": diff.numel(),
+            "max_abs_diff": float(diff.max())}
+
+
+def int8_layer_gates(card: str, qparams: dict, clips1: torch.Tensor
+                     ) -> dict:
+    """Q1 and Q1-pool against their plain versions, layer by layer, on one
+    clip's activations at the real shapes (conv1a's input 16x112x112x3):
+    bitwise, or at most INT8_MAX_STEP in INT8_MAX_SHARE of an int8
+    layer's outputs (conv5b's f32: bitwise)."""
+    names = [name for name, _ in c3d_model.CONV_LAYERS]
+    with torch.inference_mode():
+        _, inputs, pool_inputs = int8_layers(qparams, clips1,
+                                             q1.conv3d_int8_plain,
+                                             q1.maxpool3d_int8_plain)
+        out = {}
+        xs = [float(qparams[f"{n}_xscale"]) for n in names]
+        for i, (name, x) in enumerate(zip(names, inputs)):
+            args = (x, qparams[f"{name}_wq"], qparams[f"{name}_wscale"],
+                    qparams[f"{name}_b"], xs[i],
+                    None if name == "conv5b" else xs[i + 1])
+            stats = int8_compare(q1.conv3d_int8(*args),
+                                 q1.conv3d_int8_plain(*args))
+            print(f"parity conv3d_int8 {name} x {list(x.shape)} int8 -> "
+                  f"{'f32' if name == 'conv5b' else 'int8'}: "
+                  f"{json.dumps(stats)} [{card}]", flush=True)
+            ok = stats["equal"] or (
+                name != "conv5b" and stats["max_abs_diff"] <= INT8_MAX_STEP
+                and stats["differing"] <= INT8_MAX_SHARE * stats["elements"])
+            check(ok, f"Q1 {name} against its plain version: {stats}")
+            out[name] = stats
+        for name, x in pool_inputs:
+            window, stride = c3d_model.POOLS[name]
+            stats = int8_compare(q1.maxpool3d_int8(x, window, stride),
+                                 q1.maxpool3d_int8_plain(x, window, stride))
+            print(f"parity maxpool3d_int8 after {name} x {list(x.shape)} "
+                  f"window {window}: {json.dumps(stats)} [{card}]",
+                  flush=True)
+            check(stats["equal"], f"Q1-pool after {name}: {stats}")
+            out[f"pool_{name}"] = stats
+    return out
+
+
+def int8_tower_gates(card: str, qparams: dict, tower: dict,
+                     clips: torch.Tensor) -> dict:
+    """The int8 tower through `quant.apply_int8` (Q1 8 times, Q1-pool 4
+    times) at INT8_CLIPS clips against the plain int8 tower (corr >=
+    MIN_CORR, max_rel_delta <= MAP_MAX_REL_DELTA: the JAX package's kernel
+    gate) and against the bf16 cuDNN tower (corr > 0.995, mean rel < 0.06:
+    its accuracy gate)."""
+    with torch.inference_mode():
+        reset_launches()
+        got = quant.apply_int8(qparams, clips)
+        launches = read_int8_launches()
+        plain = plain_int8_tower(qparams, clips)
+        bf16 = c3d_model.apply(tower, clips, compute_dtype=torch.bfloat16)
+    check(launches == {"conv3d_int8": 8, "maxpool3d_int8": 4},
+          f"int8 tower launches {launches}")
+    a, p, r = (t.float().cpu().numpy() for t in (got, plain, bf16))
+    check(a.shape == (clips.shape[0], 512, 2, 7, 7)
+          and bool(np.isfinite(a).all()), f"int8 conv5b {a.shape}")
+    stats = {"corr_vs_plain": corr(a, p), "max_rel_delta_vs_plain": max_rel(
+        a, p), "bitwise_vs_plain": bool(np.array_equal(a, p)),
+        "corr_vs_bf16": corr(a, r),
+        "mean_rel_vs_bf16": float(np.abs(a - r).mean() / np.abs(r).mean()),
+        "zero_share": float((a == 0).mean()), "launches": launches}
+    print(f"int8 tower ({clips.shape[0]} clips, conv5b "
+          f"[{clips.shape[0]},512,2,7,7]): {json.dumps(stats)} [{card}]",
+          flush=True)
+    check(stats["corr_vs_plain"] >= MIN_CORR
+          and stats["max_rel_delta_vs_plain"] <= MAP_MAX_REL_DELTA,
+          f"int8 tower against the plain int8 tower: {stats}")
+    check(stats["corr_vs_bf16"] > INT8_BF16_MIN_CORR
+          and stats["mean_rel_vs_bf16"] < INT8_BF16_MAX_MEAN_REL,
+          f"int8 tower against the bf16 tower: {stats}")
+    return stats
+
+
+def int8_serve_phase(card: str, runs: str, tower: dict,
+                     videos: np.ndarray) -> dict:
+    """`cli.export_serving --int8 --calib_videos` of the gaze_grcn CLI run
+    of phase 5 (the int8 tower's weights as a `--caffemodel` .npz, uint8
+    video), calibrated on seeded .avi files; the bundle's `fused_int8`
+    program served over HTTP: 8 concurrent uint8 POSTs, each reply against
+    the same bundle's `fused` program on the same video (corr >= 0.98),
+    Q1 8 times and Q1-pool 4 times per batcher call, B1 once."""
+    work = f"{runs}/int8"
+    os.makedirs(f"{work}/calib")
+    rng = np.random.RandomState(SEED + 61)
+    for i in range(CALIB_VIDEOS):
+        write_video(f"{work}/calib/calib{i}.avi", rng.randint(
+            0, 256, (CALIB_FRAMES, *VIDEO_HW, 3)).astype(np.uint8))
+    tower_npz = f"{work}/c3d_int8_tower.npz"
+    np.savez(tower_npz, **c3d_params_to_jax(tower))
+    bundle = f"{work}/bundle"
+    start = time.perf_counter()
+    rc = export_serving.main([
+        "--train_dir", f"{runs}/grcn", "--out_dir", bundle, "--caffemodel",
+        tower_npz, "--video_dtype", "uint8", "--int8", "--calib_videos",
+        f"{work}/calib", "--calib_windows", "8"])
+    seconds = time.perf_counter() - start
+    check(rc == 0, f"cli.export_serving --int8 returned {rc}")
+    model = load_bundle(bundle, device="cuda")
+    programs = model.bundle_programs
+    print(f"int8 export (cli.export_serving --int8 --calib_videos, "
+          f"{CALIB_VIDEOS} videos of {CALIB_FRAMES} frames, 8 windows; "
+          f"{seconds:.2f} s wall with the restore and calibration): "
+          f"programs {sorted(programs)}, fused_int8 "
+          f"{programs.get('fused_int8')} [{card}]", flush=True)
+    check({"predict", "fused", "fused_int8"} <= set(programs)
+          and programs["fused_int8"]["video_dtype"] == "uint8"
+          and model.bundle_qparams_int8 is not None,
+          f"int8 bundle programs {programs}")
+    t = pipeline.pipeline_timesteps(FUSED_FRAMES)
+    server = server_from_bundle(bundle, program="fused_int8", device="cuda",
+                                max_batch=32, max_wait_ms=200.0).start()
+    try:
+        host, port = server.address
+        url = f"http://{host}:{port}/predict"
+        reset_launches()
+        served = post_videos(url, videos)
+        launches = {**read_int8_launches(),
+                    "convgru_fwd": read_launches()["convgru_fwd"]}
+        calls = server.batcher.calls
+        print(f"fused_int8 serving gaze_grcn: {len(videos)} concurrent uint8 "
+              f"video requests, {calls} batcher calls, launches "
+              f"{launches} [{card}]", flush=True)
+        check(calls >= 1 and launches == {
+            "conv3d_int8": 8 * calls, "maxpool3d_int8": 4 * calls,
+            "convgru_fwd": calls}, f"fused_int8 launches {launches}, "
+                                   f"{calls} calls")
+        reference = fused_predict_fn(model)(videos).cpu().numpy()
+        corrs = []
+        for i, (status, maps, _) in enumerate(served):
+            check(status == 200 and maps.shape == (t, 49, 49)
+                  and bool(np.isfinite(maps).all()),
+                  f"fused_int8 request {i}: HTTP {status}, {maps.shape}")
+            corrs.append(corr(maps, reference[i]))
+        print(f"fused_int8 serving gaze_grcn: all {len(videos)} replies "
+              f"HTTP 200, [{t},49,49] finite; corr vs the bundle's fused "
+              f"program (bf16 tower) min {min(corrs):.6f} mean "
+              f"{float(np.mean(corrs)):.6f} [{card}]", flush=True)
+        check(min(corrs) >= INT8_MAP_MIN_CORR, f"fused_int8 maps: {corrs}")
+        again = post_videos(url, videos)
+        http_ms = statistics.median(s for _, _, s in again) * 1e3
+    finally:
+        server.close()
+    return {"model": model, "launches": launches, "http_ms": http_ms,
+            "min_corr": min(corrs), "export_s": seconds}
+
+
+def layer_bound(x_shape, cout: int, out_f32: bool) -> dict:
+    """Q1's bound for one layer: its operations over the int8 peak, or its
+    bytes (int8 input, weights, output) over the memory rate."""
+    n, d, h, w, cin = x_shape
+    m = n * d * h * w
+    ops = q1.conv_ops(x_shape, cout)
+    nbytes = m * cin + cout * 27 * cin + 8 * cout + m * cout * (
+        4 if out_f32 else 1)
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "gop": ops / 1e9, "mbytes": nbytes / 1e6}
+
+
+def im2col(x_q: torch.Tensor, k: int) -> torch.Tensor:
+    """The int8 patches [M, k] of a SAME 3x3x3 conv in the packed weights'
+    (tap, ci) order, zero-padded to k columns: the library route's copy."""
+    n, d, h, w, c = x_q.shape
+    xp = torch.nn.functional.pad(x_q, (0, 0, 1, 1, 1, 1, 1, 1))
+    sn, sd, sh, sw, _ = xp.stride()
+    view = xp.as_strided((n, d, h, w, 3, 3, 3, c),
+                         (sn, sd, sh, sw, sd, sh, sw, 1))
+    cols = view.reshape(n * d * h * w, 27 * c)
+    return cols if k == 27 * c else torch.nn.functional.pad(
+        cols, (0, k - 27 * c))
+
+
+def int8_timings(card: str, qparams: dict, tower: dict,
+                 clips: torch.Tensor) -> dict:
+    """At INT8_CLIPS clips: each layer's Q1 launch beside its bound, its
+    plain version, the im2col + `torch._int_mm` (int8 x int8 -> int32)
+    route to the same product and the bf16 cuDNN conv of the layer (both
+    used nowhere in the port); each pool beside its plain version; the
+    int8 tower, the bf16 tower and the plain int8 tower."""
+    names = [name for name, _ in c3d_model.CONV_LAYERS]
+    xs = [float(qparams[f"{n}_xscale"]) for n in names]
+    out = {"layers": {}, "pools": {}}
+    with torch.inference_mode():
+        _, inputs, pool_inputs = int8_layers(qparams, clips, q1.conv3d_int8,
+                                             q1.maxpool3d_int8)
+        for i, (name, x) in enumerate(zip(names, inputs)):
+            last = name == "conv5b"
+            wq = qparams[f"{name}_wq"]
+            args = (x, wq, qparams[f"{name}_wscale"], qparams[f"{name}_b"],
+                    xs[i], None if last else xs[i + 1])
+            row = {"ms": cuda_ms(lambda: q1.conv3d_int8(*args), 5),
+                   **layer_bound(tuple(x.shape), wq.shape[0], last)}
+            # the float64 plain version over the 160 clips, INT8_CHUNK at
+            # a time (whole, conv1a's float64 temporaries would not fit)
+            row["plain_ms"] = cuda_ms(lambda: [q1.conv3d_int8_plain(
+                x[j:j + INT8_CHUNK], *args[1:]) for j in range(
+                    0, x.shape[0], INT8_CHUNK)], 1, warmup=1)
+            torch.cuda.empty_cache()
+            row["im2col_ms"] = cuda_ms(lambda: im2col(x, wq.shape[1]), 2,
+                                       warmup=1)
+            cols = im2col(x, wq.shape[1])
+            row["int_mm_ms"] = cuda_ms(lambda: torch._int_mm(cols, wq.t()),
+                                       3, warmup=1)
+            del cols
+            torch.cuda.empty_cache()
+            xb = x.permute(0, 4, 1, 2, 3).to(torch.bfloat16)
+            wb = tower[f"{name}_w"].to(torch.bfloat16).contiguous(
+                memory_format=torch.channels_last_3d)
+            row["cudnn_bf16_ms"] = cuda_ms(lambda: torch.nn.functional.conv3d(
+                xb, wb, padding=1), 3, warmup=1)
+            del xb
+            row["tops"] = row["gop"] / row["ms"]
+            out["layers"][name] = row
+            print(f"timing: conv3d_int8 {name} x {list(x.shape)} int8 "
+                  f"({INT8_CLIPS} clips): {row['ms']:.4f} ms "
+                  f"({row['tops']:.1f} TOP/s, {row['gop']:.1f} GOP), bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
+                  f"{row['plain_ms']:.3f} ms, im2col {row['im2col_ms']:.3f} "
+                  f"+ torch._int_mm {row['int_mm_ms']:.4f} ms, cuDNN bf16 "
+                  f"conv3d {row['cudnn_bf16_ms']:.4f} ms [{card}]",
+                  flush=True)
+        for name, x in pool_inputs:
+            window, stride = c3d_model.POOLS[name]
+            nbytes = x.numel() + x.numel() // int(np.prod(stride))
+            row = {"ms": cuda_ms(lambda: q1.maxpool3d_int8(x, window,
+                                                           stride), 5),
+                   "plain_ms": cuda_ms(lambda: q1.maxpool3d_int8_plain(
+                       x, window, stride), 2, warmup=1),
+                   "bound_ms": nbytes / PEAK_BYTES * 1e3,
+                   "bound_by": "bytes"}
+            out["pools"][name] = row
+            print(f"timing: maxpool3d_int8 after {name} x {list(x.shape)} "
+                  f"window {window}: {row['ms']:.4f} ms, bound "
+                  f"{row['bound_ms']:.4f} ms (bytes), plain "
+                  f"{row['plain_ms']:.3f} ms [{card}]", flush=True)
+        del inputs, pool_inputs
+        torch.cuda.empty_cache()
+        tower_ms = {"int8": [], "bf16": []}
+        for label in ("bf16", "int8", "int8", "bf16"):
+            fn = ((lambda: quant.apply_int8(qparams, clips)) if label ==
+                  "int8" else (lambda: c3d_model.apply(
+                      tower, clips, compute_dtype=torch.bfloat16)))
+            tower_ms[label].append(cuda_ms(fn, 5))
+        out["tower"] = {
+            "int8_ms": float(np.mean(tower_ms["int8"])),
+            "bf16_ms": float(np.mean(tower_ms["bf16"])),
+            "plain_ms": cuda_ms(lambda: plain_int8_tower(qparams, clips), 1,
+                                warmup=1),
+            "bound_ms": tower_flops(clips.shape[0]) / PEAK_INT8_OPS * 1e3,
+            "runs": tower_ms}
+    tw = out["tower"]
+    print(f"timing: int8 C3D tower, {clips.shape[0]} clips (B=16, F="
+          f"{FUSED_FRAMES}), in turns (bf16, int8, int8, bf16; ms): "
+          f"{json.dumps(tower_ms)}; int8 {tw['int8_ms']:.3f} ms vs bf16 "
+          f"cuDNN {tw['bf16_ms']:.3f} ms ({tw['bf16_ms'] / tw['int8_ms']:.2f}"
+          f"x), plain int8 tower {tw['plain_ms']:.1f} ms; int8 bound "
+          f"{tw['bound_ms']:.3f} ms (operations: "
+          f"{tower_flops(clips.shape[0]) / 1e12:.2f} TOP) [{card}]",
+          flush=True)
+    return out
+
+
+def int8_phases(card: str, runs: str, videos: np.ndarray) -> dict:
+    """Phase 15, the int8 tower: calibrate and quantize `int8_tower()` on
+    8 seeded windows, gate Q1 and Q1-pool layer by layer on one clip, the
+    tower at INT8_CLIPS clips, then `fused_int8` exported and served over
+    HTTP."""
+    tower = int8_tower()
+    rng = np.random.RandomState(SEED + 63)
+    with torch.inference_mode():
+        calib = c3d_model.preprocess_frames(torch.from_numpy(rng.randint(
+            0, 256, (8, 16, *VIDEO_HW, 3)).astype(np.uint8)).cuda())
+        qparams = quant.quantize_for_pipeline(tower, calib_clips=calib)
+        clips = c3d_model.preprocess_frames(torch.from_numpy(rng.randint(
+            0, 256, (INT8_CLIPS, 16, *VIDEO_HW, 3)).astype(
+                np.uint8)).cuda())
+    layers = int8_layer_gates(card, qparams, clips[:1])
+    gates = int8_tower_gates(card, qparams, tower, clips)
+    served = int8_serve_phase(card, runs, tower, videos)
+    return {"tower": tower, "qparams": qparams, "clips": clips,
+            "layers": layers, "gates": gates, "served": served}
+
+
+def interop_phase(card: str, work: str) -> dict:
+    """Phase 16, the host-side interop: a TFRecord round trip of the
+    reference's action-record schema; the native libraries' build status;
+    where the JPEG decoder built, a frame folder through
+    `load_frame_folder(backend="native")` within one step of PIL's."""
+    from PIL import Image
+
+    rng = np.random.RandomState(SEED + 64)
+    examples = [{key: (rng.rand(*shape) * (255 if dtype == np.uint8 else 1)
+                       ).astype(dtype)
+                 for key, (dtype, shape) in tfrecord.SCHEMA.items()}
+                for _ in range(4)]
+    path = f"{work}/records.tfrecord"
+    tfrecord.write_reference_tfrecord(path, examples)
+    back = tfrecord.read_reference_tfrecord(path)
+    check(len(back) == len(examples) and all(
+        np.array_equal(b[k], e[k]) for b, e in zip(back, examples)
+        for k in e), "TFRecord round trip")
+    print(f"tfrecord: {len(examples)} reference examples written and read "
+          f"back equal ({os.path.getsize(path)} bytes) [{card}]", flush=True)
+    status = native.build_status()
+    for name, state in status.items():
+        print(f"native: {state} (lib{name}) [{card}]", flush=True)
+    out = {"native": status}
+    if status["framedec"] == "built":
+        folder = f"{work}/frames"
+        os.makedirs(folder)
+        for i in range(8):
+            Image.fromarray(rng.randint(0, 256, (98, 98, 3)).astype(
+                np.uint8)).save(f"{folder}/{i:06d}.jpg", quality=95)
+        got = video.load_frame_folder(folder, (98, 98), backend="native")
+        pil = video.load_frame_folder(folder, (98, 98))
+        diff = int(np.abs(got.astype(int) - pil.astype(int)).max())
+        print(f"native: 8 JPEG frames decoded by libframedec, max |native - "
+              f"PIL| {diff} [{card}]", flush=True)
+        check(got.shape == pil.shape and diff <= 1,
+              f"native decode vs PIL: {got.shape} {pil.shape}, {diff}")
+        out["decode_max_diff"] = diff
+    return out
+
+
+def fused_int8_timing(model, b: int) -> dict:
+    """ms per `fused_int8` and per `fused` predict call of an exported
+    bundle's model at B=b, F=FUSED_FRAMES uint8 on the card, in turns
+    (fused, int8, int8, fused)."""
+    video = torch.from_numpy(np.random.RandomState(SEED + 62).randint(
+        0, 256, (b, FUSED_FRAMES, *VIDEO_HW, 3)).astype(np.uint8)).cuda()
+    fns = {"fused": fused_predict_fn(model),
+           "fused_int8": fused_int8_predict_fn(model)}
+    runs = {"fused": [], "fused_int8": []}
+    for label in ("fused", "fused_int8", "fused_int8", "fused"):
+        runs[label].append(cuda_ms(lambda: fns[label](video), 5))
+    return {k: float(np.mean(v)) for k, v in runs.items()}
+
+
 def main() -> int:
     # 1. the card
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
@@ -3066,6 +3509,8 @@ def main() -> int:
     salicon_through_cli(card, runs)  # 12.
     profile_through_cli(card, runs)  # 13.
     mfu_phase(card, tower, raw_batch, videos)  # 14.
+    int8 = int8_phases(card, runs, videos)  # 15.
+    interop_phase(card, runs)  # 16.
     runs_dir.cleanup()
 
     # 7. timings
@@ -3173,6 +3618,22 @@ def main() -> int:
 
     c4_timing, c4_bwd_timing = zoo_timings(card, zoo, timing_rng)
 
+    # the int8 tower: Q1 and Q1-pool by layer, the towers, fused_int8
+    int8_timed = int8_timings(card, int8["qparams"], int8["tower"],
+                              int8["clips"])
+    del int8["clips"]
+    for b in FUSED_BATCHES:
+        ft = fused_int8_timing(int8["served"]["model"], b)
+        print(f"timing: gaze_grcn fused_int8 predict B={b} F={FUSED_FRAMES} "
+              f"uint8 {VIDEO_HW[0]}x{VIDEO_HW[1]} (the exported bundle), in "
+              f"turns with its fused program: fused_int8 "
+              f"{ft['fused_int8']:.3f} ms/call, fused {ft['fused']:.3f} "
+              f"ms/call ({ft['fused'] / ft['fused_int8']:.2f}x) [{card}]",
+              flush=True)
+    print(f"timing: gaze_grcn fused_int8 HTTP request latency, median of "
+          f"{N_REQUESTS} concurrent uint8 video POSTs (F={FUSED_FRAMES}): "
+          f"{int8['served']['http_ms']:.1f} ms [{card}]", flush=True)
+
     # 8. result lines
     def entry(name, source, replaces, launches, err, t, **more):
         return {"name": name, "route": "cuda",
@@ -3186,6 +3647,31 @@ def main() -> int:
 
     def max_err(stats):
         return max(o["max_delta"] for o in stats["outputs"].values())
+
+    def int8_entry(name, replaces, key, rows, int8, library=False):
+        gates = [v for k, v in int8["layers"].items()
+                 if k.startswith("pool_") == (key == "maxpool3d_int8")]
+        rows = list(rows.values())
+        return {
+            "name": name, "route": "cuda",
+            "source": "recurrent_gaze_prediction_tpu_torch/csrc/"
+                      "conv3d_int8.cu",
+            "replaces": f"recurrent_gaze_prediction_tpu/{replaces}",
+            "launches": int8["served"]["launches"][key],
+            "max_abs_err": max(g["max_abs_diff"] for g in gates),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": ("operations" if sum(
+                r["bound_by"] == "operations" for r in rows) * 2 > len(rows)
+                else "bytes"),
+            "library_ms": (sum(r["im2col_ms"] + r["int_mm_ms"] for r in rows)
+                           if library else None),
+            **({"library_bf16_cudnn_ms": sum(r["cudnn_bf16_ms"]
+                                             for r in rows)}
+               if library else {}),
+            "calls": f"{len(rows)} launches per tower call, {INT8_CLIPS} "
+                     f"clips"}
 
     print(json.dumps({"kernels": [
         entry("convgru_fwd", "csrc/convgru_fwd.cu", "convgru.py:45",
@@ -3222,6 +3708,14 @@ def main() -> int:
         entry("convgru_bwd_u64", "csrc/convgru_bwd.cu", "convgru_vjp2.py:56",
               zoo["trained"]["gaze_pupil_grcn"]["launches"]["convgru_bwd"],
               max_err(zoo["c4_parity"][7]["bwd"]), c4_bwd_timing[7]),
+        # Q1 replaces no Pallas kernel: the JAX package's int8 conv is a
+        # lax.conv_general_dilated. Its times are the tower's eight
+        # launches at 160 clips; library_ms the same products through
+        # im2col + torch._int_mm
+        int8_entry("conv3d_int8", "models/quant.py:91", "conv3d_int8",
+                   int8_timed["layers"], int8, library=True),
+        int8_entry("maxpool3d_int8", "models/quant.py:117",
+                   "maxpool3d_int8", int8_timed["pools"], int8),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

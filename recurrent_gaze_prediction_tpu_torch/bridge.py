@@ -8,7 +8,9 @@ inverse, with the same names and shapes, so a bundle written by either
 package loads in the other's reader. `opt_state_from_jax(state)` carries an
 optax state's moments and update count over, so both packages can train on
 from the same point. `c3d_params_from_jax` / `c3d_params_to_jax` do the
-same for the C3D tower's weights, whose layouts differ between the two.
+same for the C3D tower's weights, whose layouts differ between the two,
+and `qparams_from_jax` / `qparams_to_jax` for the int8 tower's
+(`models/quant.py`; a bundle's `qparams_int8.npz`), bit for bit.
 """
 
 from __future__ import annotations
@@ -125,4 +127,50 @@ def c3d_params_to_jax(params: Mapping[str, torch.Tensor]
     for key, t in params.items():
         a = t.detach().float().cpu().numpy()
         out[key] = np.ascontiguousarray(np.transpose(a, _C3D_TO_JAX[a.ndim]))
+    return out
+
+
+def qparams_from_jax(tree: Mapping) -> dict[str, torch.Tensor]:
+    """The JAX package's int8 tower (`models/quant.quantize_c3d`: per conv
+    layer `{name}_wq` int8 DHWIO, `{name}_wscale` [Cout], `{name}_b`
+    [Cout], `{name}_xscale` a scalar; numpy or jax arrays, flat keys) ->
+    the port's qparams on the CPU: `wq` packed into the kernel's [Cout,
+    Kpad] rows, `xscale` an f32 0-d tensor."""
+    # imported here: the kernels' package imports utils, whose tree module
+    # imports this one
+    from .ops.kernels.conv3d_int8 import pack_weights
+
+    out = {}
+    for key, value in tree.items():
+        a = np.asarray(value)
+        if key.endswith("_wq"):
+            out[key] = torch.from_numpy(pack_weights(
+                np.transpose(a.astype(np.int8), (4, 3, 0, 1, 2))))
+        elif key.endswith("_xscale"):
+            out[key] = torch.tensor(np.float32(a))
+        else:
+            out[key] = _to_tensor(a)
+    return out
+
+
+def qparams_to_jax(qparams: Mapping[str, torch.Tensor]
+                   ) -> dict[str, np.ndarray]:
+    """Inverse of `qparams_from_jax`: numpy in the JAX package's layouts
+    (DHWIO int8 `wq`, f32 scales and biases, 0-d f32 `xscale`)."""
+    from .models.c3d import CONV_LAYERS
+    from .ops.kernels.conv3d_int8 import unpack_weights
+
+    # a layer's input channels: the RGB frame's 3, then the layer before's
+    # outputs (the packed rows alone do not say, being padded for Cin < 64)
+    names = [name for name, _ in CONV_LAYERS]
+    cins = {name: 3 if i == 0 else qparams[f"{names[i - 1]}_wscale"].numel()
+            for i, name in enumerate(names)}
+    out = {}
+    for key, t in qparams.items():
+        a = t.detach().cpu().numpy()
+        if key.endswith("_wq"):
+            out[key] = np.ascontiguousarray(np.transpose(
+                unpack_weights(a, cins[key[:-3]]), (2, 3, 4, 1, 0)))
+        else:
+            out[key] = np.asarray(a, np.float32)
     return out

@@ -7,8 +7,9 @@ The bundle may come from either package's `save_bundle` or
 `cli.export_serving` (this package's turns a `cli.train_gaze` run into
 one). `--program predict` (the default) takes
 C3D features, `--program fused` raw video (the bundle must have been saved
-with the C3D weights). Concurrent single-clip POSTs are coalesced by the
-dynamic micro-batcher (`serving/server.py`).
+with the C3D weights), `--program fused_int8` raw video through the int8
+C3D tower (a bundle exported with `--int8`). Concurrent single-clip POSTs
+are coalesced by the dynamic micro-batcher (`serving/server.py`).
 """
 
 from __future__ import annotations

@@ -132,17 +132,27 @@ def apply_attention(frames: torch.Tensor,
 def load_frame_folder(folder: str, image_hw: Optional[tuple[int, int]] = None,
                       backend: str = "pil") -> np.ndarray:
     """Read a dumped frame folder back into [N, H, W, 3] uint8 (PIL,
-    BILINEAR when `image_hw` asks for a resize). The JAX package's
-    `backend="native"` (its C++ libjpeg batch decoder) is not ported."""
-    if backend != "pil":
-        raise NotImplementedError(
-            f"backend={backend!r}: the native frame decoder is not ported "
-            f"(ROADMAP.md queue A item 7); use backend='pil'")
+    BILINEAR when `image_hw` asks for a resize).
+
+    backend="native" uses the threaded libjpeg batch decoder
+    (`native/framedec.cc`) when `image_hw` is given and every file is a
+    JPEG, and PIL otherwise or when the library cannot be built.
+    Decode-only output is bit-identical to PIL; the native resize is
+    half-pixel-centre bilinear (within a few steps of PIL.BILINEAR)."""
+    if backend not in ("pil", "native"):
+        raise ValueError(f"backend must be pil|native, got {backend!r}")
     files = sorted(
         os.path.join(folder, f) for f in os.listdir(folder)
         if f.lower().endswith((".jpg", ".jpeg", ".png")))
     if not files:
         return np.zeros((0, 0, 0, 3), np.uint8)
+
+    if backend == "native" and image_hw is not None and \
+            all(f.lower().endswith((".jpg", ".jpeg")) for f in files):
+        from .. import native
+
+        if native.framedec_available():
+            return native.decode_jpeg_batch(files, image_hw)
 
     from PIL import Image
 

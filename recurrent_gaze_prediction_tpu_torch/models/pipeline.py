@@ -67,7 +67,7 @@ def extract_and_predict(c3d_params: dict, gaze_model: GazeModel,
     autograd graph only when one of its weights requires grad (joint
     fine-tuning); a frozen tower runs under no_grad and keeps no
     activations. `c3d_forward(c3d_params, clips) -> [N, 512, 2, 7, 7]`
-    replaces the tower (the int8 tower will use it).
+    replaces the tower (`quant.make_int8_c3d_forward`: the int8 tower).
     """
     b, f = video_frames.shape[:2]
     t = pipeline_timesteps(f)
@@ -112,10 +112,12 @@ def extract_and_predict(c3d_params: dict, gaze_model: GazeModel,
 
 
 def make_fused_predict(gaze_model: GazeModel, *, num_frames: int,
-                       compute_dtype=torch.bfloat16) -> Callable:
+                       compute_dtype=torch.bfloat16,
+                       c3d_forward: Optional[Callable] = None) -> Callable:
     """`fn(c3d_params, video_frames) -> maps` for a fixed clip length, under
     inference mode: the bulk-inference entry point. Another frame count
-    raises."""
+    raises. `c3d_forward` replaces the tower, as in
+    `extract_and_predict`."""
 
     @torch.inference_mode()
     def fn(c3d_params: dict, video_frames: torch.Tensor) -> torch.Tensor:
@@ -124,7 +126,8 @@ def make_fused_predict(gaze_model: GazeModel, *, num_frames: int,
                 f"fused predict built for num_frames={num_frames}, got "
                 f"{video_frames.shape[1]}")
         return extract_and_predict(c3d_params, gaze_model, video_frames,
-                                   compute_dtype=compute_dtype)
+                                   compute_dtype=compute_dtype,
+                                   c3d_forward=c3d_forward)
 
     return fn
 

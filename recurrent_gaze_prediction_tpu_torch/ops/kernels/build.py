@@ -62,6 +62,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.convgru_bwd_gates.argtypes = [vp] * 10 + [i] * 6 + [vp]
     lib.convgru_wgrad.argtypes = [vp] * 6 + [i] * 6 + [vp]
     lib.convlstm_fwd.argtypes = [vp] * 10 + [i] * 6 + [vp]
+    f = ctypes.c_float
+    lib.conv3d_int8.argtypes = [vp] * 4 + [f, f, i, vp] + [i] * 7 + [vp]
+    lib.maxpool3d_int8.argtypes = [vp] * 2 + [i] * 17 + [vp]
     for name in ("convgru_fwd_smem_bytes", "convgru_bwd_smem_bytes",
                  "convgru_bwd_gates_smem_bytes", "convlstm_fwd_smem_bytes"):
         getattr(lib, name).argtypes = [i, i, i, i]
@@ -73,9 +76,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.convgru_wgrad_tiles.argtypes = [i]
     lib.convgru_wgrad_tiles.restype = i
     for name in ("convgru_fwd", "convgru_bwd", "convgru_bwd_gates",
-                 "convgru_wgrad", "convlstm_fwd"):
+                 "convgru_wgrad", "convlstm_fwd", "conv3d_int8",
+                 "maxpool3d_int8"):
         getattr(lib, name).restype = i
-    for name in ("convgru_fwd_error_string", "convlstm_fwd_error_string"):
+    for name in ("convgru_fwd_error_string", "convlstm_fwd_error_string",
+                 "conv3d_int8_error_string", "maxpool3d_int8_error_string"):
         getattr(lib, name).argtypes = [i]
         getattr(lib, name).restype = ctypes.c_char_p
     return lib

@@ -11,13 +11,15 @@ the model (`bundle_programs`). A bundle written here lists its programs
 under `torch_programs`, so the JAX package's `load_bundle` still reads its
 config and weights.
 
-Programs: `predict` (features -> maps) and `fused` (raw video -> maps, the
-C3D tower in the same program, `fused_predict_fn`), both served over HTTP
-(`serving/server.py`); and, for the ConvGRU family, `stream`, the
-carried-state chunk step, run through `stream_step` /
+Programs: `predict` (features -> maps), `fused` (raw video -> maps, the
+C3D tower in the same program, `fused_predict_fn`) and `fused_int8` (the
+same with the int8 tower, `fused_int8_predict_fn`: kernel Q1), all served
+over HTTP (`serving/server.py`); and, for the ConvGRU family, `stream`,
+the carried-state chunk step, run through `stream_step` /
 `initial_stream_state` (the counterparts of the JAX `ServingBundle`
-methods of those names). `fused_int8` is not ported yet (ROADMAP.md queue
-A item 3).
+methods of those names). The int8 tower's weights are `qparams_int8.npz`
+in the JAX package's layout (`bridge.qparams_to_jax`), so either package's
+`fused_int8` bundle serves from the other's reader.
 """
 
 from __future__ import annotations
@@ -31,16 +33,19 @@ import numpy as np
 import torch
 
 from ..bridge import (c3d_params_from_jax, c3d_params_to_jax, flatten_params,
-                      params_from_jax, params_to_jax, unflatten_params)
+                      params_from_jax, params_to_jax, qparams_from_jax,
+                      qparams_to_jax, unflatten_params)
 from ..config import ModelConfig
 from ..models.common import GazeModel
 from ..models.gaze_grcn import GazeGRCN
 from ..models.pipeline import make_fused_predict
+from ..models.quant import make_int8_c3d_forward
 from ..models.streaming import grcn_stream_step
 
 MANIFEST = "manifest.json"
 PARAMS = "params.npz"
 C3D_PARAMS = "c3d_params.npz"
+QPARAMS_INT8 = "qparams_int8.npz"
 # the dtype a bundle's predict program takes its frames and features in
 WIRE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the dtype the fused program takes its pixels in
@@ -54,7 +59,8 @@ def save_bundle(path: str, model: GazeModel, *,
                 num_frames: Optional[int] = None,
                 video_hw: tuple[int, int] = (128, 171),
                 video_dtype: str = "float32",
-                c3d_compute_dtype: str = "bfloat16") -> None:
+                c3d_compute_dtype: str = "bfloat16",
+                int8_qparams: Optional[dict] = None) -> None:
     """Write `model`'s config and weights as a bundle directory.
 
     `wire_dtype` ("float32" | "bfloat16") is the input dtype of the predict
@@ -70,7 +76,12 @@ def save_bundle(path: str, model: GazeModel, *,
     `video_dtype` ("float32" | "uint8"; uint8 is exact for decoded video
     and a quarter of the bytes). `c3d_compute_dtype` ("bfloat16" |
     "float32") is the tower's; a JAX bundle's fused program, which records
-    none, runs it in f32."""
+    none, runs it in f32.
+
+    `int8_qparams` (from `models.quant.quantize_for_pipeline`) with
+    `num_frames` records the `fused_int8` program: the int8 tower's
+    weights go to `qparams_int8.npz` in the JAX package's flat layout, and
+    the program takes the same pixels as `fused`."""
     if wire_dtype not in WIRE_DTYPES:
         raise ValueError(f"wire_dtype must be float32|bfloat16, got "
                          f"{wire_dtype!r}")
@@ -116,6 +127,16 @@ def save_bundle(path: str, model: GazeModel, *,
         }
         np.savez(os.path.join(path, C3D_PARAMS),
                  **c3d_params_to_jax(c3d_params))
+    if int8_qparams is not None and num_frames is not None:
+        manifest["torch_programs"]["fused_int8"] = {
+            "inputs": f"qparams_int8, params, video [B,F,H,W,3] "
+                      f"{video_dtype} 0..255",
+            "num_frames": int(num_frames),
+            "video_hw": list(video_hw),
+            "video_dtype": video_dtype,
+        }
+        np.savez(os.path.join(path, QPARAMS_INT8),
+                 **qparams_to_jax(int8_qparams))
     np.savez(os.path.join(path, PARAMS),
              **flatten_params(params_to_jax(model)))
     with open(os.path.join(path, MANIFEST), "w") as f:
@@ -136,7 +157,8 @@ def program_meta(manifest: dict, program: str) -> dict:
 
 def load_bundle(path: str, device=None) -> GazeModel:
     """The live model of a bundle on `device` (None = the card), with the
-    bundle's config and weights."""
+    bundle's config and weights; the tower's weights, where the bundle has
+    them, as `model.bundle_c3d_params` and `model.bundle_qparams_int8`."""
     from ..registry import build_model
 
     manifest = read_manifest(path)
@@ -148,14 +170,18 @@ def load_bundle(path: str, device=None) -> GazeModel:
         name: program_meta(manifest, name)
         for name in (*manifest.get("programs", {}),
                      *manifest.get("torch_programs", {}))}
-    model.bundle_c3d_params = None
-    c3d_path = os.path.join(path, C3D_PARAMS)
-    if os.path.exists(c3d_path):
-        dev = next(model.parameters()).device
-        with np.load(c3d_path) as data:
-            model.bundle_c3d_params = {
-                k: v.to(dev) for k, v in c3d_params_from_jax(
-                    {k: data[k] for k in data.files}).items()}
+    dev = next(model.parameters()).device
+    model.bundle_c3d_params = model.bundle_qparams_int8 = None
+    for attr, name, convert in (
+            ("bundle_c3d_params", C3D_PARAMS, c3d_params_from_jax),
+            ("bundle_qparams_int8", QPARAMS_INT8, qparams_from_jax)):
+        if os.path.exists(os.path.join(path, name)):
+            with np.load(os.path.join(path, name)) as data:
+                weights = convert({k: data[k] for k in data.files})
+            # the int8 tower's input scales stay host scalars
+            setattr(model, attr, {
+                k: v if k.endswith("_xscale") else v.to(dev)
+                for k, v in weights.items()})
     return model
 
 
@@ -178,6 +204,27 @@ def fused_predict_fn(model: GazeModel):
 
     def predict(video) -> torch.Tensor:
         return fn(c3d_params, torch.as_tensor(video).to(dev))
+
+    return predict
+
+
+def fused_int8_predict_fn(model: GazeModel):
+    """The bundle's `fused_int8` program as `fn(video [B,F,H,W,3]) ->
+    maps`: `fused_predict_fn` with the int8 C3D tower (kernel Q1 on the
+    card) in place of the library tower. `model` comes from
+    `load_bundle`."""
+    meta = getattr(model, "bundle_programs", {}).get("fused_int8")
+    if meta is None or model.bundle_qparams_int8 is None:
+        raise KeyError("bundle has no fused_int8 program (export with "
+                       "--int8)")
+    qparams = model.bundle_qparams_int8
+    fn = make_fused_predict(model, num_frames=int(meta["num_frames"]),
+                            compute_dtype=None,
+                            c3d_forward=make_int8_c3d_forward(qparams))
+    dev = next(model.parameters()).device
+
+    def predict(video) -> torch.Tensor:
+        return fn(qparams, torch.as_tensor(video).to(dev))
 
     return predict
 

@@ -9,7 +9,8 @@ Protocol (the same as the JAX package's):
   GET  /healthz   -> {"status": "ok", "calls": N, "requests": M, "inputs": [...]}
   POST /predict   -> body: .npz with `frames` [T,H,W,3] and `c3d`
                      [T,1024,7,7] (the `predict` program), or `video`
-                     [F,H,W,3] pixels (the `fused` program), ONE clip
+                     [F,H,W,3] pixels (the `fused` and `fused_int8`
+                     programs), ONE clip
                      without a batch dimension; response: .npz with
                      `gazemaps` [T,GH,GW].
 """
@@ -27,15 +28,14 @@ import torch
 
 from ..utils import log
 from .batcher import DynamicBatcher
-from .bundle import (WIRE_DTYPES, fused_predict_fn, load_bundle,
-                     program_meta, read_manifest)
+from .bundle import (WIRE_DTYPES, fused_int8_predict_fn, fused_predict_fn,
+                     load_bundle, program_meta, read_manifest)
 
-# Programs the JAX package's server serves and the port does not yet, and
-# the ROADMAP.md item that brings each. Neither server serves `stream`: it
-# runs through the bundle's own API (`bundle.stream_step`).
-_NOT_PORTED = {
-    "fused_int8": "ROADMAP.md queue A item 3 (the int8 C3D tower)",
-}
+# the raw-video programs: the bundle function that runs each and the
+# `save_bundle` weights that record it. Neither package's server serves
+# `stream`: it runs through the bundle's own API (`bundle.stream_step`).
+_VIDEO_PROGRAMS = {"fused": (fused_predict_fn, "c3d_params"),
+                   "fused_int8": (fused_int8_predict_fn, "int8_qparams")}
 
 
 def _as_program_dtype(key: str, a: np.ndarray, want: np.dtype) -> np.ndarray:
@@ -213,24 +213,21 @@ def server_from_bundle(bundle_dir: str, *, program: str = "predict",
                        device=None) -> GazeServer:
     """Serve a bundle written by either package's `save_bundle` on
     `device` (None = the card). `predict` serves (frames, c3d) -> maps;
-    `fused` serves (video,) -> maps, video [F,H,W,3] pixels in the
-    program's video dtype (a uint8 bundle's stay uint8 through the batcher
-    and the copy to the card). The batcher pads each coalesced batch to a
-    power-of-two bucket."""
-    if program in _NOT_PORTED:
-        raise ValueError(f"program {program!r} is not ported yet: "
-                         f"{_NOT_PORTED[program]}")
-    if program not in ("predict", "fused"):
+    `fused` and `fused_int8` (the int8 tower) serve (video,) -> maps,
+    video [F,H,W,3] pixels in the program's video dtype (a uint8 bundle's
+    stay uint8 through the batcher and the copy to the card). The batcher
+    pads each coalesced batch to a power-of-two bucket."""
+    if program != "predict" and program not in _VIDEO_PROGRAMS:
         raise ValueError(
             f"program must be predict|fused|fused_int8, got {program}")
     manifest = read_manifest(bundle_dir)
     meta = program_meta(manifest, program)
-    if program == "fused" and not meta:
-        raise ValueError("bundle has no 'fused' program (saved without "
-                         "c3d_params/num_frames)")
+    if program in _VIDEO_PROGRAMS and not meta:
+        raise ValueError(f"bundle has no {program!r} program (saved without "
+                         f"{_VIDEO_PROGRAMS[program][1]}/num_frames)")
     model = load_bundle(bundle_dir, device=device)
-    if program == "fused":
-        predict = fused_predict_fn(model)
+    if program in _VIDEO_PROGRAMS:
+        predict = _VIDEO_PROGRAMS[program][0](model)
         hw = tuple(meta.get("video_hw") or (None, None))
         return GazeServer(
             lambda video: predict(video).cpu().numpy(), ("video",),

@@ -10,7 +10,9 @@ zoo's predict in bf16 against f32; evaluation (the metrics
 on the card against the CPU, one B1 launch per evaluated batch) and the
 prefetched trainer against the inline one; and observability (the FLOP
 count of the kernel route against the plain route's, a profiled train
-step naming B1 and B2). They skip without a card. This
+step naming B1 and B2); and the int8 C3D tower (kernel Q1 and Q1-pool
+bitwise against their plain versions, the int8 tower and fused_int8
+predict with their launch counts). They skip without a card. This
 file imports torch only (no jax), so on a machine with a card it runs
 without the JAX test harness:
 
@@ -810,3 +812,142 @@ def test_profiled_train_step_names_b1_and_b2(cuda_no_tf32, tmp_path):
                    if e.get("cat") == "kernel"}
     for name in ("convgru_fwd_kernel", "convgru_bwd_kernel"):  # B1, B2
         assert any(name in k for k in kernels), sorted(kernels)
+
+
+# ------------------------------------------------------------ the int8 tower
+
+def _int8_layer_inputs(n, dhw, cin, cout, device, seed=0):
+    """Random int8 activations and a quantized layer in the packed layout."""
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels.conv3d_int8 import (
+        pack_weights)
+
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randint(-127, 128, (n, *dhw, cin)).astype(
+        np.int8)).to(device)
+    wq = torch.from_numpy(pack_weights(rng.randint(
+        -127, 128, (cout, cin, 3, 3, 3)).astype(np.int8))).to(device)
+    wscale = torch.from_numpy((rng.rand(cout) * 1e-3 + 1e-4).astype(
+        np.float32)).to(device)
+    b = torch.from_numpy((rng.randn(cout) * 0.1).astype(np.float32)).to(
+        device)
+    return x, wq, wscale, b
+
+
+@pytest.mark.parametrize("n,dhw,cin,cout", [
+    (1, (16, 20, 24), 3, 64),    # conv1a's path: Cin = 3, K packed to 128
+    (2, (3, 9, 7), 64, 128),     # a ragged last tile of M
+    (1, (8, 14, 14), 128, 256),
+    (3, (2, 7, 7), 512, 512),
+])
+@pytest.mark.parametrize("out_f32", [False, True])
+def test_conv3d_int8_kernel_matches_plain_bitwise(cuda_no_tf32, n, dhw, cin,
+                                                  cout, out_f32):
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import conv3d_int8
+
+    x, wq, wscale, b = _int8_layer_inputs(n, dhw, cin, cout, cuda_no_tf32)
+    xscale = 0.0123
+    # the next layer's scale spans the outputs' range, as calibration does
+    nxt = None if out_f32 else float(conv3d_int8.conv3d_int8_plain(
+        x, wq, wscale, b, xscale).max()) / 127.0
+    before = conv3d_int8.launches
+    got = conv3d_int8.conv3d_int8(x, wq, wscale, b, xscale, nxt)
+    torch.cuda.synchronize()
+    assert conv3d_int8.launches == before + 1
+    want = conv3d_int8.conv3d_int8_plain(x, wq, wscale, b, xscale, nxt)
+    assert got.dtype == want.dtype and got.shape == (n, *dhw, cout)
+    assert torch.equal(got, want)
+    # the plain version on the CPU computes the same bits
+    cpu = conv3d_int8.conv3d_int8_plain(x.cpu(), wq.cpu(), wscale.cpu(),
+                                        b.cpu(), xscale, nxt)
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("shape,window,stride", [
+    ((2, 16, 12, 10, 64), (1, 2, 2), (1, 2, 2)),
+    ((1, 4, 14, 14, 256), (2, 2, 2), (2, 2, 2)),
+    ((1, 3, 7, 5, 32), (2, 2, 2), (2, 2, 2)),    # SAME pads the high side
+])
+def test_maxpool3d_int8_kernel_matches_plain(cuda_no_tf32, shape, window,
+                                             stride):
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import conv3d_int8
+
+    x = torch.from_numpy(np.random.RandomState(4).randint(
+        -128, 128, shape).astype(np.int8)).to(cuda_no_tf32)
+    before = conv3d_int8.pool_launches
+    got = conv3d_int8.maxpool3d_int8(x, window, stride)
+    torch.cuda.synchronize()
+    assert conv3d_int8.pool_launches == before + 1
+    assert torch.equal(got, conv3d_int8.maxpool3d_int8_plain(x, window,
+                                                             stride))
+
+
+def _sane_tower(device, seed=5):
+    """C3D conv weights under which activations survive all eight layers
+    (w / sqrt(27 Cin), small biases)."""
+    from recurrent_gaze_prediction_tpu_torch.models import c3d
+
+    rng = np.random.RandomState(seed)
+    params, cin = {}, 3
+    for name, cout in c3d.CONV_LAYERS:
+        params[f"{name}_w"] = torch.from_numpy((rng.randn(
+            cout, cin, 3, 3, 3) / np.sqrt(27.0 * cin)).astype(np.float32))
+        params[f"{name}_b"] = torch.from_numpy(
+            (0.01 * rng.randn(cout)).astype(np.float32))
+        cin = cout
+    return {k: v.to(device) for k, v in params.items()}
+
+
+def test_int8_tower_on_the_card_matches_the_cpu(cuda_no_tf32):
+    """The whole int8 tower through Q1 and Q1-pool (8 + 4 launches) equals
+    the plain tower on the CPU bit for bit, and tracks the f32 tower."""
+    from recurrent_gaze_prediction_tpu_torch.models import c3d, quant
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import conv3d_int8
+
+    tower = _sane_tower(cuda_no_tf32)
+    pixels = torch.from_numpy(np.random.RandomState(6).randint(
+        0, 256, (2, 16, 128, 171, 3)).astype(np.uint8)).to(cuda_no_tf32)
+    clips = c3d.preprocess_frames(pixels)
+    qparams = quant.quantize_for_pipeline(tower, calib_clips=clips)
+    before = (conv3d_int8.launches, conv3d_int8.pool_launches)
+    got = quant.apply_int8(qparams, clips)
+    torch.cuda.synchronize()
+    assert (conv3d_int8.launches - before[0],
+            conv3d_int8.pool_launches - before[1]) == (8, 4)
+    cpu_q = {k: v.cpu() for k, v in qparams.items()}
+    want = quant.apply_int8(cpu_q, clips.cpu())
+    assert got.shape == (2, 512, 2, 7, 7)
+    assert torch.equal(got.cpu(), want)
+    ref = c3d.apply(tower, clips, compute_dtype=None)
+    a, r = got.cpu().numpy().ravel(), ref.cpu().numpy().ravel()
+    assert np.corrcoef(a, r)[0, 1] > 0.995
+    assert np.abs(a - r).mean() / np.abs(r).mean() < 0.06
+
+
+def test_fused_int8_predict_launches_q1(cuda_no_tf32, tmp_path):
+    """A bundle's fused_int8 program on the card: one Q1 launch per layer
+    (8) and one Q1-pool launch per pool (4) per call, maps near fused."""
+    from recurrent_gaze_prediction_tpu_torch import registry
+    from recurrent_gaze_prediction_tpu_torch.models import quant
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import conv3d_int8
+    from recurrent_gaze_prediction_tpu_torch.serving import (
+        fused_int8_predict_fn, fused_predict_fn, load_bundle, save_bundle)
+
+    model = registry.create_model("gaze_grcn", n_lstm_steps=2,
+                                  compute_dtype="bfloat16",
+                                  device=cuda_no_tf32)
+    tower = _sane_tower(cuda_no_tf32)
+    save_bundle(str(tmp_path), model, c3d_params=tower, num_frames=32,
+                int8_qparams=quant.quantize_for_pipeline(tower),
+                video_dtype="uint8")
+    bundle = load_bundle(str(tmp_path), device=cuda_no_tf32)
+    video = np.random.RandomState(7).randint(
+        0, 256, (2, 32, 128, 171, 3)).astype(np.uint8)
+    before = (conv3d_int8.launches, conv3d_int8.pool_launches)
+    got = fused_int8_predict_fn(bundle)(video)
+    torch.cuda.synchronize()
+    assert (conv3d_int8.launches - before[0],
+            conv3d_int8.pool_launches - before[1]) == (8, 4)
+    ref = fused_predict_fn(bundle)(video)
+    assert got.shape == ref.shape == (2, 2, 49, 49)
+    a, r = got.cpu().numpy().ravel(), ref.cpu().numpy().ravel()
+    assert np.isfinite(a).all() and np.corrcoef(a, r)[0, 1] >= 0.98

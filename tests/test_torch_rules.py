@@ -208,7 +208,9 @@ def test_workflow_entry_points_raise_without_cuda(tmp_path):
 
 def test_research_loop_refusals(tmp_path):
     """What the port leaves out exits with code 2 and names its ROADMAP
-    item, before any device is touched; real data needs --data_root."""
+    item, before any device is touched; real data needs --data_root.
+    `load_frame_folder`'s native backend (ported) reads an empty folder,
+    and an unknown backend is refused."""
     from recurrent_gaze_prediction_tpu_torch.cli import (evaluate_gaze,
                                                          extract_map,
                                                          train_gaze)
@@ -219,8 +221,10 @@ def test_research_loop_refusals(tmp_path):
         extract_map.main(["--train_dir", ".", "--clips_root", ".",
                           "--out_dir", ".", "--data_parallel", "2"])
     assert info.value.code == 2
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        video.load_frame_folder(".", backend="native")
+    assert video.load_frame_folder(str(tmp_path), backend="native").shape \
+        == (0, 0, 0, 3)
+    with pytest.raises(ValueError, match="pil\\|native"):
+        video.load_frame_folder(str(tmp_path), backend="opencv")
     assert train_gaze.main(["--dataset", "crc", "--device", "cpu"]) == 1
     ExperimentConfig().dump(str(tmp_path / "config.json"))
     assert evaluate_gaze.main(["--train_dir", str(tmp_path), "--dataset",

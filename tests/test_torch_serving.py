@@ -173,15 +173,15 @@ def test_port_serves_jax_zoo_bundles(tmp_path, name, wire):
 
 @pytest.mark.parametrize("program", ["fused", "fused_int8", "stream"])
 def test_unported_programs_raise(tmp_path, program):
-    """`fused_int8` names the ROADMAP item that brings it; `stream` is no
-    HTTP program in either package (it runs through the bundle's
-    `stream_step`), so it gets the JAX server's own error. `fused` is
-    ported: a bundle saved without the C3D weights refuses it."""
+    """`stream` is no HTTP program in either package (it runs through the
+    bundle's `stream_step`), so it gets the JAX server's own error.
+    `fused` and `fused_int8` are served: a bundle saved without the C3D
+    weights, or without the int8 tower's, refuses each."""
     from recurrent_gaze_prediction_tpu_torch import registry
     from recurrent_gaze_prediction_tpu_torch.serving import save_bundle
 
     match = {"stream": "program must be predict\\|fused\\|fused_int8",
-             "fused_int8": "ROADMAP.md queue A item 3",
+             "fused_int8": "no 'fused_int8' program .*int8_qparams",
              "fused": "no 'fused' program"}[program]
     save_bundle(str(tmp_path), registry.create_model(
         "gaze_grcn", device="cpu", **{k: v for k, v in WIDTHS.items()
