@@ -155,7 +155,9 @@ In order, failing (exit 1) on the first check that does not hold:
      the fused predict at B=8 and 16 with its stages, the fused train step
      (frozen, fine-tuned) and the fused HTTP latency; Q1 and Q1-pool layer
      by layer at 160 clips beside their bounds, plain versions, im2col +
-     `torch._int_mm` and the bf16 cuDNN conv; the int8 tower against the
+     `torch._int_mm` (with its TOP/s) and the bf16 cuDNN conv, each Q1
+     layer with its tile plan (route, box, BN, BK, stages, CTAs per SM);
+     the int8 tower against the
      bf16 tower in turns; `fused_int8` against `fused` predict at B=8 and
      16 and the fused_int8 HTTP latency; with CUDA events or the host clock
      after warm-up;
@@ -3231,8 +3233,12 @@ def int8_timings(card: str, qparams: dict, tower: dict,
             wq = qparams[f"{name}_wq"]
             args = (x, wq, qparams[f"{name}_wscale"], qparams[f"{name}_b"],
                     xs[i], None if last else xs[i + 1])
+            plan = q1.launch_shape(tuple(x.shape), wq.shape[0], last)
+            check(plan["ctas_per_sm"] >= 1, f"Q1 {name}: no CTA of {plan} "
+                                             f"fits on an SM")
             row = {"ms": cuda_ms(lambda: q1.conv3d_int8(*args), 5),
-                   **layer_bound(tuple(x.shape), wq.shape[0], last)}
+                   **layer_bound(tuple(x.shape), wq.shape[0], last),
+                   "plan": plan}
             # the float64 plain version over the 160 clips, INT8_CHUNK at
             # a time (whole, conv1a's float64 temporaries would not fit)
             row["plain_ms"] = cuda_ms(lambda: [q1.conv3d_int8_plain(
@@ -3253,15 +3259,22 @@ def int8_timings(card: str, qparams: dict, tower: dict,
                 xb, wb, padding=1), 3, warmup=1)
             del xb
             row["tops"] = row["gop"] / row["ms"]
+            row["int_mm_tops"] = row["gop"] / row["int_mm_ms"]
+            row["bound_share"] = row["bound_ms"] / row["ms"]
             out["layers"][name] = row
             print(f"timing: conv3d_int8 {name} x {list(x.shape)} int8 "
                   f"({INT8_CLIPS} clips): {row['ms']:.4f} ms "
-                  f"({row['tops']:.1f} TOP/s, {row['gop']:.1f} GOP), bound "
-                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
-                  f"{row['plain_ms']:.3f} ms, im2col {row['im2col_ms']:.3f} "
-                  f"+ torch._int_mm {row['int_mm_ms']:.4f} ms, cuDNN bf16 "
-                  f"conv3d {row['cudnn_bf16_ms']:.4f} ms [{card}]",
-                  flush=True)
+                  f"({row['tops']:.1f} TOP/s, {row['gop']:.1f} GOP, "
+                  f"{row['bound_share']:.3f} of its bound), bound "
+                  f"{row['bound_ms']:.4f} ms ({row['bound_by']}); route "
+                  f"{plan['route']}, box {'x'.join(map(str, plan['box']))}, "
+                  f"BN {plan['bn']}, BK {plan['bk']}, stages "
+                  f"{plan['stages']}, {plan['ctas_per_sm']} CTA(s) per SM; "
+                  f"plain {row['plain_ms']:.3f} ms, im2col "
+                  f"{row['im2col_ms']:.3f} + torch._int_mm "
+                  f"{row['int_mm_ms']:.4f} ms ({row['int_mm_tops']:.1f} "
+                  f"TOP/s), cuDNN bf16 conv3d {row['cudnn_bf16_ms']:.4f} ms "
+                  f"[{card}]", flush=True)
         for name, x in pool_inputs:
             window, stride = c3d_model.POOLS[name]
             nbytes = x.numel() + x.numel() // int(np.prod(stride))

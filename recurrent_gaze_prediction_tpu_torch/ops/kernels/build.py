@@ -63,7 +63,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.convgru_wgrad.argtypes = [vp] * 6 + [i] * 6 + [vp]
     lib.convlstm_fwd.argtypes = [vp] * 10 + [i] * 6 + [vp]
     f = ctypes.c_float
-    lib.conv3d_int8.argtypes = [vp] * 4 + [f, f, i, vp] + [i] * 7 + [vp]
+    # x, w, wscale, b, xscale, xscale_next, out_f32, out, N, D, H, W, Cin,
+    # Cout, K, the box (bd, bh, bw), bn, stages, stream
+    lib.conv3d_int8.argtypes = [vp] * 4 + [f, f, i, vp] + [i] * 12 + [vp]
+    lib.conv3d_int8_ctas_per_sm.argtypes = [i] * 4
+    lib.conv3d_int8_ctas_per_sm.restype = i
     lib.maxpool3d_int8.argtypes = [vp] * 2 + [i] * 17 + [vp]
     for name in ("convgru_fwd_smem_bytes", "convgru_bwd_smem_bytes",
                  "convgru_bwd_gates_smem_bytes", "convlstm_fwd_smem_bytes"):

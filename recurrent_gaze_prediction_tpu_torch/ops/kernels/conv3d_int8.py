@@ -1,14 +1,13 @@
 """Kernel Q1: a layer of the int8 C3D tower (3x3x3 SAME int8 conv, int32
 accumulation, fused dequant + bias + relu + requant), and Q1-pool, the int8
-max pool between layers: the hand-written CUDA kernels' wrappers and their
-plain versions.
+max pool between layers: the hand-written CUDA kernels' wrappers, their
+plain versions, and the tile plan the kernel is launched with.
 
 There is no Pallas kernel for this. The JAX package computes a layer of
 `models/quant.apply_int8` with `lax.conv_general_dilated` on int8
 (`_conv3d_int8`, `models/quant.py:91-97`) and lets XLA fuse the epilogue;
 PyTorch has no int8 conv3d on CUDA, so the port writes one
-(`csrc/conv3d_int8.cu`: an implicit GEMM on `mma.sync.m16n8k32` s8, a
-3-stage `cp.async` ring, the epilogue in the JAX package's IEEE order).
+(`csrc/conv3d_int8.cu`).
 
 Layouts: activations NDHWC int8 `[N, D, H, W, C]`, contiguous. Weights are
 packed once, at quantize time (`pack_weights`), as `[Cout, K]` int8 rows in
@@ -16,7 +15,32 @@ packed once, at quantize time (`pack_weights`), as `[Cout, K]` int8 rows in
 is a multiple of 64; otherwise each tap's channels are zero-padded to a
 multiple of 4 and K to a multiple of 64 (conv1a: Cin = 3, one 32-bit word
 per tap, K = 108 padded to 128). No wrapper repacks them per call. The
-kernel takes Cin a multiple of 64 or Cin <= 4; the plain version any.
+kernel takes Cin a multiple of 64 or Cin <= 4, and Cout a multiple of 64;
+the plain version any.
+
+The kernel's M tile is a box of 128 output positions bd x bh x bw in one
+clip; `tile_plan` picks it per layer shape (least waste past the volume,
+then the smallest halo, then the longest rows) together with the Cout
+tile and the ring depth, and the C entry point refuses a plan it was not
+built for. What bounds each layer, and what the design does about it:
+
+* conv2a..conv5b (Cin a multiple of 64) are operation-bound. Route
+  "wgmma": for each (tap, 128- or 64-byte channel chunk) one TMA load
+  brings the box of x shifted by the tap (zeros outside the volume: the
+  SAME padding, with no gather arithmetic) and one the weights' [BN, BK]
+  slice, through an mbarrier ring to two warpgroups of
+  `wgmma.mma_async` s8 x s8 -> s32 (BN = 256 where Cout allows: each A
+  row is fetched once per 256 channels). The epilogue stages the box in
+  shared memory and writes 16-byte rows.
+* conv1a (Cin = 3, K = 81 packed to 128) would be byte-bound (2.05 GB of
+  int8 out at 160 clips against 0.1 GB in); the epilogue's instructions
+  per output bound it in practice. Route "halo": a persistent CTA keeps
+  its 64 channels' weights in registers, stages each box's halo once in
+  shared memory (a 32-bit word per position), reads its `mma.sync` A
+  fragments straight from it (one fragment register is one tap's word)
+  and writes the outputs as 16-byte rows.
+* Both requantize through an exact estimate of y / xscale_next (the
+  reciprocal, then a true division only near a rounding tie).
 
 Bound on an H100 SXM (1,979 TOP/s dense int8, 3.35 TB/s), 2 operations per
 multiply-add: a layer is max(2 * M * Cout * 27 * Cin / 1979e12, bytes /
@@ -33,6 +57,7 @@ as separate torch ops in the same order.
 
 from __future__ import annotations
 
+import functools
 import threading
 from typing import Optional
 
@@ -88,6 +113,82 @@ def unpack_weights(packed: np.ndarray, cin: int) -> np.ndarray:
     taps = np.asarray(packed)[:, :TAPS * stride].reshape(cout, TAPS, stride)
     return np.ascontiguousarray(np.transpose(
         taps[:, :, :cin].reshape(cout, 3, 3, 3, cin), (0, 4, 1, 2, 3)))
+
+
+# ------------------------------------------------------------- the tile plan
+
+BOX_ROWS = 128  # the M tile: output positions per box
+HALO_MAX = 512  # the conv1a route's halo words per box (csrc kHaloMax)
+# every box of BOX_ROWS positions with power-of-two sides
+BOXES = tuple((bd, bh, 128 // (bd * bh)) for bd in (1, 2, 4, 8, 16, 32, 64, 128)
+              for bh in (1, 2, 4, 8, 16, 32, 64, 128) if bd * bh <= 128)
+
+
+def box_waste(dhw, box) -> float:
+    """Share of the positions a box grid computes that lie past the volume."""
+    covered = np.prod([-(-s // b) * b for s, b in zip(dhw, box)])
+    return 1.0 - float(np.prod(dhw)) / float(covered)
+
+
+def halo_words(box) -> int:
+    """Input positions a box of outputs reads: (bd + 2)(bh + 2)(bw + 2)."""
+    return int(np.prod([b + 2 for b in box]))
+
+
+def box_plan(dhw, max_halo: Optional[int] = None) -> tuple:
+    """The box (bd, bh, bw) of BOX_ROWS output positions for a volume
+    D x H x W: least waste, then the smallest halo (the input a box
+    re-reads), then the longest contiguous rows (bw, then bh)."""
+    boxes = [b for b in BOXES if max_halo is None or halo_words(b) <= max_halo]
+    return min(boxes, key=lambda b: (round(box_waste(dhw, b), 12),
+                                     halo_words(b), -b[2], -b[1]))
+
+
+def ring_stages(bn: int, bk: int) -> int:
+    """The TMA ring's depth for a Cout tile `bn` and K step `bk` (as
+    csrc's `ring_stages`): at BN = 256 one CTA per SM within 200 KB of
+    shared memory, below two CTAs per SM within 100 KB each, at most 6."""
+    return min(6, (200 if bn == 256 else 100) * 1024 // ((BOX_ROWS + bn) * bk))
+
+
+def tile_plan(x_shape, cout: int) -> dict:
+    """How the kernel tiles one layer on an NDHWC input `x_shape`: the
+    route ("wgmma" for Cin a multiple of 64, "halo" for Cin <= 4), the box
+    of output positions, the Cout tile `bn`, the K step `bk` (bytes) and
+    the ring's `stages` (the halo route's 2 halo buffers). Memoized: the
+    tower asks for the same eight plans on every call."""
+    return dict(_tile_plan(tuple(int(s) for s in x_shape[1:]), int(cout)))
+
+
+@functools.lru_cache(maxsize=256)
+def _tile_plan(dhwc: tuple, cout: int) -> dict:
+    d, h, w, cin = dhwc
+    if cin <= 4:
+        return {"route": "halo", "box": box_plan((d, h, w), HALO_MAX),
+                "bn": 64, "bk": packed_k(cin), "stages": 2}
+    if cin % K_ALIGN:
+        raise ValueError(f"the int8 conv kernel takes Cin <= 4 or a multiple "
+                         f"of {K_ALIGN}, got {cin}")
+    bn = next(b for b in (256, 128, 64) if cout % b == 0)
+    bk = 128 if cin % 128 == 0 else 64
+    return {"route": "wgmma", "box": box_plan((d, h, w)), "bn": bn,
+            "bk": bk, "stages": ring_stages(bn, bk)}
+
+
+def launch_shape(x_shape, cout: int, out_f32: bool) -> dict:
+    """`tile_plan` with the CTAs of that launch that fit on an SM at once,
+    as the built kernel reports them (on the card)."""
+    plan = tile_plan(x_shape, cout)
+    return {**plan, "ctas_per_sm": build.load().conv3d_int8_ctas_per_sm(
+        x_shape[-1], plan["bn"], int(out_f32), halo_words(plan["box"]))}
+
+
+def box_origins(dhw, box):
+    """The boxes' first positions (d0, h0, w0) of one clip, in the order
+    the kernel numbers them (w fastest)."""
+    counts = [-(-s // b) for s, b in zip(dhw, box)]
+    return [(i * box[0], j * box[1], k * box[2]) for i in range(counts[0])
+            for j in range(counts[1]) for k in range(counts[2])]
 
 
 def conv_ops(x_shape, cout: int) -> int:
@@ -172,6 +273,7 @@ def _launch(x_q, wq, wscale, b, xscale, xscale_next) -> torch.Tensor:
     if x_q.data_ptr() % 16 or wq.data_ptr() % 16:
         raise ValueError("the int8 conv kernel reads 16-byte aligned x and "
                          "weights")
+    plan = tile_plan(x_q.shape, cout)
     out_f32 = xscale_next is None
     out = torch.empty((n, d, h, w, cout),
                       dtype=torch.float32 if out_f32 else torch.int8,
@@ -179,7 +281,8 @@ def _launch(x_q, wq, wscale, b, xscale, xscale_next) -> torch.Tensor:
     build.launch("conv3d_int8", device, x_q.data_ptr(), wq.data_ptr(),
                  wscale.data_ptr(), b.data_ptr(), float(xscale),
                  1.0 if out_f32 else float(xscale_next), int(out_f32),
-                 out.data_ptr(), n, d, h, w, cin, cout, wq.shape[1])
+                 out.data_ptr(), n, d, h, w, cin, cout, wq.shape[1],
+                 *plan["box"], plan["bn"], plan["stages"])
     with _count_lock:
         launches += 1
     mfu.add_kernel_flops("conv3d_int8", conv_ops(x_q.shape, cout))

@@ -838,6 +838,20 @@ def _int8_layer_inputs(n, dhw, cin, cout, device, seed=0):
     (2, (3, 9, 7), 64, 128),     # a ragged last tile of M
     (1, (8, 14, 14), 128, 256),
     (3, (2, 7, 7), 512, 512),
+    # each tower layer at its real D x H x W and channels (conv5b is
+    # conv5a's shape with the f32 output)
+    (1, (16, 112, 112), 3, 64),   # conv1a: the halo route
+    (1, (16, 56, 56), 64, 128),   # conv2a: BK = 64, BN = 128
+    (1, (8, 28, 28), 128, 256),   # conv3a
+    (1, (8, 28, 28), 256, 256),   # conv3b
+    (2, (4, 14, 14), 256, 512),   # conv4a: two Cout tiles of 256
+    (2, (4, 14, 14), 512, 512),   # conv4b
+    (2, (2, 7, 7), 512, 512),     # conv5a / conv5b
+    # boxes ragged in all of d, h and w (tests/test_torch_q1_tiling.py
+    # holds the plans to that)
+    (2, (6, 10, 18), 128, 256),
+    (1, (7, 11, 13), 3, 64),
+    (2, (4, 10, 12), 64, 64),     # BN = 64 on Cin = 64
 ])
 @pytest.mark.parametrize("out_f32", [False, True])
 def test_conv3d_int8_kernel_matches_plain_bitwise(cuda_no_tf32, n, dhw, cin,
