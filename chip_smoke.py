@@ -143,6 +143,20 @@ In order, failing (exit 1) on the first check that does not hold:
      build status (`native: built` or `native: fallback (<reason>)`) and,
      where the JPEG decoder built, a frame folder through
      `load_frame_folder(backend="native")` within one step of PIL's;
+  17. multi-rank on one card (`parallel_phase`): two ranks on cuda:0 over
+     gloo (this script with `--parallel-rank R DIR`, one process each)
+     take 3 sharded train steps of full-width gaze_grcn at a global B=28
+     (SGD, flip and dropout off; each step's loss equal on both ranks and
+     within rel 2e-3 of one process on the same batches, the params after
+     them and their updates at corr >= 0.999 and max_rel <= 0.05; B1 and
+     B2 once per step per rank),
+     sharded predict of gaze_grcn and gaze_lstm at B=16 (corr >= 0.999, B1
+     / B3 once per rank), the temporal fused predict of one F=160 video (5
+     of its 10 windows through each rank's tower, corr >= 0.999 against
+     fused predict) and the sharded evaluate of 8192 frames (every metric
+     within 1e-5 of `evaluate_batch`); then `cli.train_gaze
+     --data_parallel -1` under `torch.distributed.run --nproc_per_node 1`
+     (NCCL, world 1): the same losses (rel 1e-6) as without the flag;
   7. times the kernels and their plain versions (B=8, B=16; B1 and B2 also
      at B=1 and 28, B3 also at B=1, in us per step beside the bound; B4's
      phases G and W beside the cuDNN calls that compute the same functions,
@@ -159,8 +173,9 @@ In order, failing (exit 1) on the first check that does not hold:
      layer with its tile plan (route, box, BN, BK, stages, CTAs per SM);
      the int8 tower against the
      bf16 tower in turns; `fused_int8` against `fused` predict at B=8 and
-     16 and the fused_int8 HTTP latency; with CUDA events or the host clock
-     after warm-up;
+     16 and the fused_int8 HTTP latency; the sharded train step per rank
+     beside the one-process step, and the gradient all-reduce (phase 17);
+     with CUDA events or the host clock after warm-up;
   8. prints the kernels' JSON line (B1-B4, B4's phases G and W, B1 and B2
      at U=64, and Q1 and Q1-pool), then,
      last, the device JSON line.
@@ -230,7 +245,8 @@ from recurrent_gaze_prediction_tpu_torch.train import fused as fused_data
 from recurrent_gaze_prediction_tpu_torch.train import (load_params,
                                                        profiler, saliency,
                                                        save_params)
-from recurrent_gaze_prediction_tpu_torch.utils import mfu, tf32_off
+from recurrent_gaze_prediction_tpu_torch.utils import (mfu, rank_envs,
+                                                     run_processes, tf32_off)
 
 SEED = 0
 T = 42
@@ -3378,6 +3394,318 @@ def interop_phase(card: str, work: str) -> dict:
     return out
 
 
+# ------------------------------------------------ 17. two ranks on one card
+
+PAR_STEPS = 3         # sharded train steps gated against one process
+PAR_TIMED = 5         # steps (and all-reduces) timed after them
+PAR_PREDICT_BATCH = 16
+PAR_LOSS_MAX_REL = 2e-3
+PAR_METRIC_MAX_ABS = 1e-5
+# SGD (momentum 0.9): its update is proportional to the gradient, so the
+# params after the sharded steps hold the gradient averaging. Adam turns
+# the last-bit differences of near-zero gradients (another summation
+# order) into updates of +-lr: at B=8 on an H100 80GB HBM3 (700 W) its
+# params differed by 5.4% of the largest weight after 3 steps
+# (proj_c3d_W).
+PAR_OPTIMIZER = OptimizerConfig(method="sgd")
+NCCL_STEPS = 4
+
+
+def parallel_batches() -> list:
+    """PAR_STEPS global train batches of TRAIN_BATCH, the same in every
+    process that makes them."""
+    data = synthetic.make_clip_windows(TRAIN_BATCH * PAR_STEPS, T,
+                                       seed=SEED + 70)
+    return [{k: v for k, v in data.next_batch(TRAIN_BATCH).items()
+             if k != "clipnames"} for _ in range(PAR_STEPS)]
+
+
+def parallel_model(name: str = "gaze_grcn"):
+    """`full_width_model` with dropout off: the ranks then compute what
+    one process computes on the same global batch."""
+    model = full_width_model(name)
+    model.cfg.dropout_keep_prob = 1.0
+    return model
+
+
+def parallel_inputs() -> dict:
+    rng = np.random.RandomState(SEED + 71)
+    return {"c3d": rng.randn(PAR_PREDICT_BATCH, T, 1024, 7, 7).astype(
+                np.float32),
+            "video": rng.randint(0, 256, (1, FUSED_FRAMES, *VIDEO_HW, 3))
+            .astype(np.uint8),
+            "tower": c3d_model.init_params(
+                torch.Generator().manual_seed(SEED + 1)),
+            "maps": eval_maps(EVAL_FRAMES, SEED + 72)}
+
+
+def parallel_rank(rank: int, work: str) -> int:
+    """One rank of phase 17 (`chip_smoke.py --parallel-rank R DIR`,
+    started by `parallel_phase` with torchrun's variables), on the mesh and
+    devices DIR/mesh.json gives (two ranks on cuda:0 run over gloo, ranks
+    on cards of their own over NCCL). Writes DIR/rank<R>.pt."""
+    from recurrent_gaze_prediction_tpu_torch import parallel
+    from recurrent_gaze_prediction_tpu_torch.ops.collectives import (
+        whole_tensor)
+    from recurrent_gaze_prediction_tpu_torch.parallel.sharding import (
+        mean_over_data)
+
+    with open(f"{work}/mesh.json") as f:
+        layout = json.load(f)
+    mesh = parallel.make_mesh(layout["data"], layout["model"],
+                              devices=layout["devices"])
+    build.load()
+    out = {"backend": torch.distributed.get_backend()}
+    model = parallel_model()
+    state, tx = create_train_state(model, PAR_OPTIMIZER)
+    step = parallel.make_sharded_train_step(model, tx, mesh, use_flip=False)
+    batches = parallel_batches()
+    reset_launches()
+    losses = []
+    for batch in batches:
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    out["train"] = {"losses": losses, "launches": read_launches(),
+                    "params": {n: whole_tensor(p).detach().float().cpu()
+                               for n, p in state.params.items()}}
+    shard = parallel.shard_batch(batches[0], mesh)
+    mesh.barrier()
+    start = time.perf_counter()
+    for _ in range(PAR_TIMED):
+        float(step(state, shard)[1]["loss"])
+    out["step_ms"] = (time.perf_counter() - start) / PAR_TIMED * 1e3
+    grads = [torch.zeros_like(p) for p in state.params.values()]
+    loss = torch.zeros((), device=mesh.device)
+    mean_over_data(loss, grads, mesh)
+    mesh.barrier()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(PAR_TIMED):
+        mean_over_data(loss, grads, mesh)
+    torch.cuda.synchronize()
+    out["allreduce_ms"] = (time.perf_counter() - start) / PAR_TIMED * 1e3
+    out["grad_floats"] = sum(g.numel() for g in grads)
+
+    inputs = parallel_inputs()
+    out["predict"] = {}
+    for name in ("gaze_grcn", "gaze_lstm"):
+        predict = parallel.make_sharded_predict(parallel_model(name), mesh)
+        reset_launches()
+        maps = predict(None, inputs["c3d"])
+        out["predict"][name] = {"maps": maps.float().cpu(),
+                                "launches": read_launches()}
+    runs = []
+    apply = c3d_model.apply
+
+    def counted(params, clips, **kw):
+        runs.append(clips.shape[0])
+        return apply(params, clips, **kw)
+
+    c3d_model.apply = counted
+    try:
+        fn = parallel.make_temporal_sharded_fused_predict(
+            parallel_model(), mesh)
+        if (FUSED_FRAMES // 16) % mesh.data == 0:
+            out["temporal"] = {"maps": fn(inputs["tower"], inputs["video"])
+                               .float().cpu(), "tower_clips": runs}
+    finally:
+        c3d_model.apply = apply
+    pred, gt, fix, other = inputs["maps"]
+    scores = parallel.make_sharded_evaluate(
+        mesh, metrics=metrics_torch.ALL_METRICS)(
+        pred, gt, fix, other_map=torch.from_numpy(other).cuda())
+    out["evaluate"] = {m: v.cpu().numpy() for m, v in scores.items()}
+    torch.save(out, f"{work}/rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def parallel_phase(card: str, runs: str, data: int = 2, model: int = 1,
+                   devices: tuple = ("cuda:0", "cuda:0"),
+                   cli: bool = True) -> dict:
+    """Phase 17, multi-rank: `data` x `model` ranks on `devices` (by
+    default two ranks on cuda:0 over gloo; `parallel_rank`) against one
+    process here, then (`cli`) the NCCL code path of `cli.train_gaze
+    --data_parallel -1` at world 1 under torchrun."""
+    world = data * model
+    label = f"{data}x{model} mesh on {len(set(devices))} card(s)"
+    work = f"{runs}/parallel_{data}x{model}"
+    os.makedirs(work)
+    with open(f"{work}/mesh.json", "w") as f:
+        json.dump({"data": data, "model": model, "devices": list(devices)},
+                  f)
+    start = time.perf_counter()
+    done = run_processes([[sys.executable, os.path.abspath(__file__),
+                           "--parallel-rank", str(r), work]
+                          for r in range(world)], rank_envs(world),
+                         timeout=300)
+    seconds = time.perf_counter() - start
+    rcs, logs = [rc for rc, _ in done], [log for _, log in done]
+    check(rcs == [0] * world, f"parallel ranks exited {rcs}:\n"
+                              + "\n".join(log[-4000:] for log in logs))
+    ranks = [torch.load(f"{work}/rank{r}.pt", weights_only=False)
+             for r in range(world)]
+    inputs = parallel_inputs()
+
+    # train: the same global batches in one process
+    model = parallel_model()
+    p0 = {n: p.detach().float().cpu().clone()
+          for n, p in model.named_parameters()}
+    state, tx = create_train_state(model, PAR_OPTIMIZER)
+    step = make_train_step(model, tx, use_flip=False)
+    dev = torch.device("cuda")
+    batches = [device_put_batch(b, dev) for b in parallel_batches()]
+    one = [float(step(state, b)[1]["loss"]) for b in batches]
+    p_one = {n: p.detach().float().cpu().clone()
+             for n, p in state.params.items()}
+    one_ms = cuda_ms(lambda: float(step(state, batches[0])[1]["loss"]),
+                     PAR_TIMED)
+    got = [r["train"]["losses"] for r in ranks]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got[0], one))
+    params = ranks[0]["train"]["params"]
+    p_corr = min(corr(params[n].numpy(), p_one[n].numpy()) for n in p_one
+                 if p_one[n].numel() > 1 and bool(p_one[n].std() > 0))
+    p_rel = max(max_rel(params[n].numpy(), p_one[n].numpy()) for n in p_one)
+    moved = {n: ((params[n] - p0[n]).numpy(), (p_one[n] - p0[n]).numpy())
+             for n in p_one}
+    # a parameter one process leaves unmoved (gaze_grcn's output bias: the
+    # 2-D softmax ignores a constant shift) has no ratio; its sharded update
+    # is held against the largest update of the model instead
+    still = sorted(n for n, (_, want) in moved.items() if not want.any())
+    largest = max(float(np.abs(want).max()) for _, want in moved.values())
+    check(all(float(np.abs(moved[n][0]).max()) <= MAP_MAX_REL_DELTA * largest
+              for n in still),
+          f"sharded steps moved parameters one process leaves: {still}")
+    u_corr = min(corr(*moved[n]) for n in moved
+                 if n not in still and moved[n][1].size > 1)
+    u_rel = max(max_rel(*moved[n]) for n in moved if n not in still)
+    print(f"parallel: {label} over {ranks[0]['backend']} ({seconds:.1f} s "
+          f"wall with start-up), {PAR_STEPS} sharded train steps at global "
+          f"B={TRAIN_BATCH} ({TRAIN_BATCH // data} per data rank), T={T}, "
+          f"bf16, SGD, flip and dropout off: losses by rank "
+          f"{[[round(x, 5) for x in g] for g in got]}, one process "
+          f"{[round(x, 5) for x in one]} (max rel {rel:.3g}); params after "
+          f"{PAR_STEPS} steps vs one process: min corr {p_corr:.6f}, max_rel "
+          f"{p_rel:.3g}; their updates: min corr {u_corr:.6f}, max_rel "
+          f"{u_rel:.3g} (unmoved in both: {still}); launches per rank "
+          f"{[r['train']['launches'] for r in ranks]} [{card}]", flush=True)
+    check(all(g == got[0] for g in got), f"the ranks' losses differ: {got}")
+    check(rel <= PAR_LOSS_MAX_REL, f"sharded losses {got[0]} vs one process "
+                                   f"{one} (max rel {rel})")
+    check(p_corr >= MIN_CORR and p_rel <= MAP_MAX_REL_DELTA
+          and u_corr >= MIN_CORR and u_rel <= MAP_MAX_REL_DELTA,
+          f"params after {PAR_STEPS} sharded steps: corr {p_corr}, max_rel "
+          f"{p_rel}; updates: corr {u_corr}, max_rel {u_rel}")
+    for r in ranks:
+        check(r["train"]["launches"] == {
+            "convgru_fwd": PAR_STEPS, "convgru_bwd": PAR_STEPS,
+            "convgru_bwd_mono": 0, **NO_PHASES, "convlstm_fwd": 0},
+            f"a rank's launches over {PAR_STEPS} sharded steps: "
+            f"{r['train']['launches']}")
+
+    # predict, both models, B=16 split over the data ranks
+    c3d = torch.from_numpy(inputs["c3d"]).cuda()
+    for name in ("gaze_grcn", "gaze_lstm"):
+        want = parallel_model(name).predict(None, c3d).float().cpu().numpy()
+        c = [corr(r["predict"][name]["maps"].numpy(), want) for r in ranks]
+        kernel = FORWARD_KERNEL[name]
+        launches = [r["predict"][name]["launches"][kernel] for r in ranks]
+        print(f"parallel: {name} sharded predict B={PAR_PREDICT_BATCH}, "
+              f"{label}, vs one process: corr {[round(x, 6) for x in c]}, "
+              f"{kernel} launches per rank {launches} [{card}]", flush=True)
+        check(min(c) >= MAP_MIN_CORR and launches == [1] * world,
+              f"{name} sharded predict: corr {c}, launches {launches}")
+
+    # temporal fused predict: one F=160 video, 10 windows over the data
+    # ranks (when they divide)
+    windows = FUSED_FRAMES // 16
+    if windows % data == 0:
+        want = pipeline.make_fused_predict(parallel_model(),
+                                           num_frames=FUSED_FRAMES)(
+            {k: v.cuda() for k, v in inputs["tower"].items()},
+            torch.from_numpy(inputs["video"]).cuda()).float().cpu().numpy()
+        c = [corr(r["temporal"]["maps"].numpy(), want) for r in ranks]
+        clips = [r["temporal"]["tower_clips"] for r in ranks]
+        print(f"parallel: temporal fused predict of one F={FUSED_FRAMES} "
+              f"video ({windows} windows), {label}, vs fused predict: corr "
+              f"{[round(x, 6) for x in c]}, tower clips per rank {clips} "
+              f"[{card}]", flush=True)
+        check(min(c) >= MAP_MIN_CORR
+              and clips == [[windows // data]] * world,
+              f"temporal fused predict: corr {c}, tower clips {clips}")
+
+    # sharded evaluate against the unsharded evaluate_batch
+    pred, gt, fix, other = inputs["maps"]
+    want = metrics_torch.evaluate_batch(
+        *(torch.from_numpy(x).cuda() for x in (pred, gt, fix)),
+        metrics=metrics_torch.ALL_METRICS,
+        other_map=torch.from_numpy(other).cuda())
+    worst = {}
+    for m, v in want.items():
+        v = v.cpu().numpy()
+        for r in ranks:
+            g = r["evaluate"][m]
+            check(g.shape == v.shape and np.array_equal(np.isnan(g),
+                                                         np.isnan(v)),
+                  f"sharded {m}: shape {g.shape} or NaNs differ")
+            ok = ~np.isnan(v)
+            if m == "AUC_Judd":  # frame 1 is constant: the jitter's toss
+                ok[1] = False
+            worst[m] = max(worst.get(m, 0.0),
+                           float(np.abs(g[ok] - v[ok]).max()))
+    print(f"parallel: sharded evaluate of {EVAL_FRAMES} frames, {label}, vs "
+          f"evaluate_batch, max |delta| per metric {json.dumps(worst)} "
+          f"[{card}]", flush=True)
+    check(max(worst.values()) <= PAR_METRIC_MAX_ABS,
+          f"sharded evaluate: {worst}")
+
+    out = {"train_rel": rel, "params_corr": p_corr,
+           "step_ms": [r["step_ms"] for r in ranks], "one_ms": one_ms,
+           "allreduce_ms": [r["allreduce_ms"] for r in ranks],
+           "grad_floats": ranks[0]["grad_floats"]}
+    if not cli:
+        return out
+    # NCCL at world 1: the CLI's mesh branch under torchrun against the
+    # same run without --data_parallel (28 clips: no test-split pass)
+    argv = ["--dataset", "synthetic", "--batch_size", str(TRAIN_BATCH),
+            "--synthetic_clips", str(TRAIN_BATCH), "--n_lstm_steps",
+            str(T), "--compute_dtype", "bfloat16", "--max_steps",
+            str(NCCL_STEPS), "--steps_per_logprint", "1", "--seed",
+            str(SEED)]
+    plain_env = {k: v for k, v in os.environ.items()
+                 if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                              "MASTER_ADDR", "MASTER_PORT")}
+    start = time.perf_counter()
+    (rc, stdout), = run_processes(
+        [[sys.executable, "-m", "torch.distributed.run", "--standalone",
+          "--nproc_per_node", "1", "-m",
+          "recurrent_gaze_prediction_tpu_torch.cli.train_gaze", *argv,
+          "--data_parallel", "-1", "--train_dir", f"{work}/nccl"]],
+        [plain_env], timeout=300)
+    nccl_s = time.perf_counter() - start
+    check(rc == 0, f"torchrun cli.train_gaze --data_parallel -1 returned "
+                   f"{rc}:\n{stdout[-4000:]}")
+    check(train_gaze.main(argv + ["--train_dir", f"{work}/plain"]) == 0,
+          "cli.train_gaze without --data_parallel failed")
+    nccl, steps = train_records(f"{work}/nccl")
+    plain, _ = train_records(f"{work}/plain")
+    nccl_rel = max(abs(a - b) / abs(b) for a, b in zip(nccl, plain))
+    mesh_line = [line for line in stdout.splitlines() if "mesh:" in line]
+    print(f"parallel: torchrun --nproc_per_node 1 cli.train_gaze "
+          f"--data_parallel -1 (NCCL, world 1; {nccl_s:.1f} s wall): "
+          f"{mesh_line[-1].split('INFOV')[-1].strip() if mesh_line else ''}"
+          f"; losses {[round(x, 5) for x in nccl]} vs without the mesh "
+          f"{[round(x, 5) for x in plain]} (max rel {nccl_rel:.3g}) "
+          f"[{card}]", flush=True)
+    check(steps == list(range(1, NCCL_STEPS + 1)) and len(plain) == len(nccl)
+          and nccl_rel <= PREFETCH_MAX_REL,
+          f"NCCL world-1 losses {nccl} vs {plain}")
+    check(bool(mesh_line) and "nccl" in mesh_line[-1],
+          f"the torchrun run built no NCCL mesh: {mesh_line}")
+    out["nccl_rel"] = nccl_rel
+    return out
+
+
 def fused_int8_timing(model, b: int) -> dict:
     """ms per `fused_int8` and per `fused` predict call of an exported
     bundle's model at B=b, F=FUSED_FRAMES uint8 on the card, in turns
@@ -3524,6 +3852,7 @@ def main() -> int:
     mfu_phase(card, tower, raw_batch, videos)  # 14.
     int8 = int8_phases(card, runs, videos)  # 15.
     interop_phase(card, runs)  # 16.
+    par = parallel_phase(card, runs)  # 17.
     runs_dir.cleanup()
 
     # 7. timings
@@ -3631,6 +3960,18 @@ def main() -> int:
 
     c4_timing, c4_bwd_timing = zoo_timings(card, zoo, timing_rng)
 
+    # 17.'s times: two ranks share one card, so they measure the program
+    # (its collectives and per-rank overhead), not the scaling
+    print(f"timing: sharded train step, 2 ranks sharing one card over gloo, "
+          f"global B={TRAIN_BATCH} (14 per rank), T={T}, bf16: "
+          f"{', '.join(f'{x:.3f}' for x in par['step_ms'])} ms per step on "
+          f"rank 0, 1 (both ranks in flight at once); one process at B="
+          f"{TRAIN_BATCH}: {par['one_ms']:.3f} ms per step; the gradient "
+          f"all-reduce ({par['grad_floats']} f32 over gloo, through the "
+          f"host): {', '.join(f'{x:.3f}' for x in par['allreduce_ms'])} ms "
+          f"per step on rank 0, 1. Two ranks on one card measure the "
+          f"program, not the scaling [{card}]", flush=True)
+
     # the int8 tower: Q1 and Q1-pool by layer, the towers, fused_int8
     int8_timed = int8_timings(card, int8["qparams"], int8["tower"],
                               int8["clips"])
@@ -3737,4 +4078,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -16,8 +16,10 @@ and `scores.txt` (one row per frame) under `--out_dir` (default
 input, gt and predicted map as PNG. Under `--numpy_protocol` the real-data
 fixation maps load at their original scale, as the reference scores them.
 
-Not ported yet: sharded scoring (`--data_parallel`, ROADMAP.md queue A
-item 6) exits with code 2.
+`--data_parallel N` (> 1) splits the on-device scoring's frames over a
+mesh of N ranks launched by torchrun (`parallel.make_sharded_evaluate`);
+every rank predicts the whole valid split first, as the JAX package's
+CLI predicts unsharded, and rank 0 alone writes the files.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ import torch
 from ..data import crc as crc_data
 from ..data import synthetic
 from ..eval import evaluator, metrics_np, metrics_torch
+from ..parallel import make_sharded_evaluate
+from ..parallel.mesh import cli_mesh, close_cli_meshes
 from ..registry import create_model
 from ..train import Checkpointer, create_train_state, make_predict_fn
 from ..train.loop import input_dtype_of
@@ -96,18 +100,24 @@ def _dump_images(out_dir: str, ret: dict, limit: int = 200) -> None:
 
 
 def main(argv: Optional[list[str]] = None) -> int:
+    try:
+        return _main(argv)
+    finally:
+        close_cli_meshes()
+
+
+def _main(argv: Optional[list[str]]) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.data_parallel > 1:
-        parser.error("--data_parallel > 1: sharded scoring is not ported "
-                     "yet (ROADMAP.md queue A item 6)")
     exp = Checkpointer.load_config(args.train_dir)
     if args.dataset:
         exp.dataset = args.dataset
     if exp.dataset != "synthetic" and not args.data_root:
         log.error("--data_root is required for dataset %s", exp.dataset)
         return 1
-    device = resolve_device(args.device)
+    mesh = (cli_mesh(args.data_parallel, 1, args.device)
+            if args.data_parallel > 1 else None)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
 
     model = create_model(exp.model.name, exp.model, device=device)
     state, _ = create_train_state(model, exp.optimizer)
@@ -146,11 +156,17 @@ def main(argv: Optional[list[str]] = None) -> int:
     if args.on_device:
         # one metric pass gives the per-frame scores (reference scores.txt,
         # evaluate_gaze.py:149-158); overall.txt is their nanmean
-        per_frame = metrics_torch.evaluate_batch(
-            *(torch.as_tensor(ret[k], device=device) for k in
-              ("pred_gazemaps", "gt_gazemaps", "fixationmaps")),
-            torch.Generator(device=device).manual_seed(0),
-            metrics=tuple(args.metrics), exact=args.exact)
+        maps = [torch.as_tensor(ret[k], device=device) for k in
+                ("pred_gazemaps", "gt_gazemaps", "fixationmaps")]
+        generator = torch.Generator(device=device).manual_seed(0)
+        if mesh is not None:
+            per_frame = make_sharded_evaluate(
+                mesh, metrics=tuple(args.metrics), exact=args.exact)(
+                    *maps, generator)
+        else:
+            per_frame = metrics_torch.evaluate_batch(
+                *maps, generator, metrics=tuple(args.metrics),
+                exact=args.exact)
         per_frame = {m: v.cpu().numpy() for m, v in per_frame.items()}
     else:
         # each frame scored once: overall.txt is the nanmean of the very
@@ -161,6 +177,8 @@ def main(argv: Optional[list[str]] = None) -> int:
             ret["fixationmaps"], rng=rng), np.float64)
             for m in args.metrics}
     scores = {m: float(np.nanmean(v)) for m, v in per_frame.items()}
+    if mesh is not None and mesh.rank != 0:
+        return 0  # rank 0 writes the files
     for metric, score in scores.items():
         log.infov("Saliency %s : %f", metric, score)
 

@@ -23,7 +23,10 @@ return, as the JAX package does.
 
 Frame files are read with Pillow; a clip folder with no frame file gives
 one zero frame, so a feature-fed model needs no Pillow on the card.
-`--data_parallel > 1` (the JAX package's mesh) exits with code 2.
+`--data_parallel N` (> 1) splits each batch's clips over a mesh of N
+ranks launched by torchrun (`parallel.make_sharded_predict`; a batch that
+does not divide is zero-padded, with a warning); rank 0 alone writes the
+maps, and which clips are done is rank 0's view.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ import torch
 
 from ..data import codec
 from ..data.prefetch import device_put_batch, stream_casts
+from ..parallel import make_sharded_predict
+from ..parallel.mesh import cli_mesh, close_cli_meshes
 from ..models import streaming
 from ..registry import create_model
 from ..train import Checkpointer, create_train_state, make_predict_fn
@@ -105,7 +110,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--reverse", action="store_true")
     parser.add_argument("--overwrite", action="store_true")
     parser.add_argument("--data_parallel", default=1, type=int,
-                        help="not ported: more than 1 exits with code 2")
+                        help="ranks to split each batch over (a torchrun "
+                             "job of that many processes)")
     parser.add_argument("--streaming", action="store_true",
                         help="carried-state chunked export of the whole "
                              "clip (gaze_grcn, gaze_lstm)")
@@ -176,14 +182,22 @@ def export_streaming(args, model, clips: list, c3d_root: str) -> int:
 
 
 def main(argv: Optional[list[str]] = None) -> int:
+    try:
+        return _main(argv)
+    finally:
+        close_cli_meshes()
+
+
+def _main(argv: Optional[list[str]]) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.data_parallel > 1:
-        parser.error("--data_parallel > 1: multi-GPU inference is not "
-                     "ported yet (ROADMAP.md queue A item 6)")
-    device = resolve_device(args.device)
+    mesh = (cli_mesh(args.data_parallel, 1, args.device)
+            if args.data_parallel > 1 else None)
+    lead = mesh is None or mesh.rank == 0
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     c3d_root = args.c3d_root or args.clips_root
-    mkdir_p(args.out_dir)
+    if lead:
+        mkdir_p(args.out_dir)
 
     exp = Checkpointer.load_config(args.train_dir)
     model = create_model(exp.model.name, exp.model, device=device,
@@ -202,10 +216,27 @@ def main(argv: Optional[list[str]] = None) -> int:
         clips = clips[::-1]
 
     if args.streaming:
+        if mesh is not None:
+            log.error("--streaming runs on one rank; drop --data_parallel")
+            return 1
         return export_streaming(args, model, clips, c3d_root)
 
-    predict = make_predict_fn(model)
     cast = stream_casts(input_dtype_of(model))
+    if mesh is not None:
+        predict = make_sharded_predict(model, mesh)
+        if args.batch_size % args.data_parallel:
+            log.warn("batch_size %d not divisible by data_parallel %d",
+                     args.batch_size, args.data_parallel)
+
+        def inputs_of(host: dict) -> dict:
+            # this rank's rows only are copied, inside the sharded predict
+            return {k: torch.from_numpy(v).to(cast[k]) if cast
+                    else torch.from_numpy(v) for k, v in host.items()}
+    else:
+        predict = make_predict_fn(model)
+
+        def inputs_of(host: dict) -> dict:
+            return device_put_batch(host, device, cast)
     pending, names = [], []
 
     def flush():
@@ -213,21 +244,26 @@ def main(argv: Optional[list[str]] = None) -> int:
             return
         while len(pending) < args.batch_size:  # pad the last batch
             pending.append(pending[-1])
-        batch = device_put_batch(
-            {k: np.stack([p[k] for p in pending]) for k in ("frames", "c3d")},
-            device, cast)
+        batch = inputs_of({k: np.stack([p[k] for p in pending])
+                           for k in ("frames", "c3d")})
         with torch.inference_mode():
             maps = predict(batch["frames"], batch["c3d"]).float().cpu()
-        for name, inputs, clip_maps in zip(names, pending, maps.numpy()):
-            _save(args.out_dir, name, clip_maps[:inputs["n_valid"]])
-            log.info("saved %s (%d frames)", name, inputs["n_valid"])
+        if lead:
+            for name, inputs, clip_maps in zip(names, pending, maps.numpy()):
+                _save(args.out_dir, name, clip_maps[:inputs["n_valid"]])
+                log.info("saved %s (%d frames)", name, inputs["n_valid"])
         pending.clear()
         names.clear()
+
+    def exists(path: str) -> bool:
+        # rank 0's view, so every rank batches the same clips
+        found = os.path.exists(path)
+        return found if mesh is None else mesh.broadcast_object(found)
 
     n_done = n_skipped = n_missing = 0
     for clip in clips:
         out_file = os.path.join(args.out_dir, f"{clip}.gazemap.npy")
-        if not args.overwrite and os.path.exists(out_file):
+        if not args.overwrite and exists(out_file):
             n_skipped += 1
             continue
         c3d_file = os.path.join(c3d_root, clip + ".c3d")

@@ -21,8 +21,10 @@ trainer, it trains unless this flag is given).
 host), the frames resized on the host to `--frame_hw` (default 128x171)
 by `train/fused.load_fused_corpus`.
 
-Not ported yet, and refused with exit code 2: `--data_parallel` /
-`--model_parallel` (ROADMAP.md queue A item 6).
+`--data_parallel N` / `--model_parallel M` (either > 1; data 0 or -1:
+every rank left after the model axis) train over a mesh of ranks launched
+by torchrun, as `cli.train_gaze` does: the video batch splits over
+"data", the tower is replicated, rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from ..bridge import c3d_params_from_jax
 from ..config import ExperimentConfig
 from ..models import c3d as c3d_model
 from ..models import pipeline
+from ..parallel.mesh import cli_mesh, close_cli_meshes
 from ..registry import available_models, create_model
 from ..train import (create_train_state, fused, restore_shallownet,
                      schedules)
@@ -125,23 +128,26 @@ def load_c3d_params(path: Optional[str], generator: torch.Generator,
     return {k: v.to(device) for k, v in params.items()}
 
 
-def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
-    """Exit 2, naming the ROADMAP item that brings each unported flag."""
-    if args.data_parallel > 1 or args.model_parallel > 1:
-        parser.error("--data_parallel / --model_parallel: multi-GPU is not "
-                     "ported yet (ROADMAP.md queue A item 6)")
-
-
 def main(argv: Optional[list[str]] = None) -> int:
+    try:
+        return _main(argv)
+    finally:
+        close_cli_meshes()
+
+
+def _main(argv: Optional[list[str]]) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    _refuse_unported(parser, args)
     if args.dataset == "videos" and not (args.videos_root and
                                          args.gaze_root):
         log.error("--videos_root and --gaze_root are required for "
                   "--dataset videos")
         return 1
-    device = resolve_device(args.device)
+    mesh = None
+    if args.data_parallel > 1 or args.model_parallel > 1:
+        mesh = cli_mesh(args.data_parallel or -1, args.model_parallel,
+                        args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
 
     t = pipeline.pipeline_timesteps(args.num_frames)
     if t <= 0:
@@ -213,13 +219,15 @@ def main(argv: Optional[list[str]] = None) -> int:
             finetune_c3d=args.finetune_c3d),
         c3d_params=c3d_params)
 
-    writer = MetricWriter(args.train_dir) if args.train_dir else None
+    lead = mesh is None or mesh.rank == 0
+    writer = MetricWriter(args.train_dir) if args.train_dir and lead \
+        else None
     try:
         state = fused.fit_fused(
             model, state, tx, train_data, exp, valid_data=valid_data,
             finetune_c3d=args.finetune_c3d, c3d_tx=c3d_tx,
             compute_dtype=compute_dtype, train_dir=args.train_dir,
-            metric_writer=writer)
+            mesh=mesh, metric_writer=writer)
     finally:
         if writer is not None:
             writer.close()

@@ -21,8 +21,20 @@ step 3 on into `{train_dir}/profile` (torch.profiler, TensorBoard-viewable
 `--pallas` and `--no_pallas` are accepted for the JAX command lines and
 change nothing: the route follows `kernel_takes` (a recurrence the kernels
 take runs through them on the card, any other through the cell's own
-scan). Not ported yet, and refused with exit code 2: `--data_parallel` /
-`--model_parallel` other than 1 (ROADMAP.md queue A item 6).
+scan).
+
+`--data_parallel N` / `--model_parallel M` other than 1 train over a mesh
+of ranks (`parallel.make_mesh`; -1 takes every rank left after the model
+axis), one process per rank, launched by torchrun:
+
+    torchrun --nproc_per_node 4 -m \
+        recurrent_gaze_prediction_tpu_torch.cli.train_gaze \
+        --data_parallel -1 --batch_size 28 --train_dir /tmp/rgp
+
+Each rank takes the card LOCAL_RANK picks (`--device cpu`: the CPU, over
+gloo), prefetches only its rows of each batch, and the final test-split
+evaluation is split over the mesh too; rank 0 alone writes. A mesh larger
+than the job raises.
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ from ..data import synthetic
 from ..data.datasets import DataSplits
 from ..data.prefetch import prefetch_batches, stream_casts
 from ..eval import evaluator
+from ..parallel.mesh import cli_mesh, close_cli_meshes
 from ..registry import available_models, create_model
 from ..train import (create_train_state, fit, make_predict_fn,
                      restore_shallownet)
@@ -120,34 +133,37 @@ def build_parser() -> argparse.ArgumentParser:
                         help="trace N train steps (after warm-up) into "
                              "{train_dir}/profile (TensorBoard-viewable)")
     parser.add_argument("--data_parallel", default=1, type=int,
-                        help="not ported yet (ROADMAP.md queue A item 6): "
-                             "other than 1 exits 2")
+                        help="ranks on the data axis of the mesh (-1: all "
+                             "left after the model axis); other than 1 "
+                             "with --model_parallel 1 builds a mesh")
     parser.add_argument("--model_parallel", default=1, type=int,
-                        help="not ported yet (ROADMAP.md queue A item 6): "
-                             "other than 1 exits 2")
+                        help="ranks on the model axis of the mesh (the "
+                             "wide products' weights split over it)")
     parser.add_argument("--device", default="cuda",
-                        help="torch device; the default needs a CUDA card")
+                        help="torch device; the default needs a CUDA card "
+                             "(under a mesh: the card LOCAL_RANK picks)")
     return parser
 
 
-def _refuse_unported(parser: argparse.ArgumentParser, args) -> None:
-    """Exit 2, naming the ROADMAP item that brings each unported flag."""
-    if args.data_parallel != 1 or args.model_parallel != 1:
-        parser.error("--data_parallel / --model_parallel: multi-GPU is not "
-                     "ported yet (ROADMAP.md queue A item 6)")
-
-
 def main(argv: Optional[list[str]] = None) -> int:
+    try:
+        return _main(argv)
+    finally:
+        close_cli_meshes()
+
+
+def _main(argv: Optional[list[str]]) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    _refuse_unported(parser, args)
     if args.use_pallas is not None:
         log.warn("--%spallas changes nothing here: the recurrence's route "
                  "follows kernel_takes", "" if args.use_pallas else "no_")
     if args.dataset != "synthetic" and not args.data_root:
         log.error("--data_root is required for dataset %s", args.dataset)
         return 1
-    device = resolve_device(args.device)
+    mesh = (cli_mesh(args.data_parallel, args.model_parallel, args.device)
+            if args.data_parallel != 1 or args.model_parallel != 1 else None)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
 
     exp = ExperimentConfig()
     exp.dataset = args.dataset
@@ -188,7 +204,8 @@ def main(argv: Optional[list[str]] = None) -> int:
     state, tx = create_train_state(model, exp.optimizer)
     if args.shallownet_pretrain:
         restore_shallownet(model, args.shallownet_pretrain)
-    writer = MetricWriter(exp.train_dir) if exp.train_dir else None
+    lead = mesh is None or mesh.rank == 0
+    writer = MetricWriter(exp.train_dir) if exp.train_dir and lead else None
     input_dtype = input_dtype_of(model)
 
     # max_batches bounds the worker; a resumed run stops consuming at
@@ -196,18 +213,29 @@ def main(argv: Optional[list[str]] = None) -> int:
     train_iter = (prefetch_batches(data.train, model.cfg.batch_size,
                                    device=device,
                                    cast=stream_casts(input_dtype),
-                                   max_batches=exp.schedule.max_steps)
+                                   max_batches=exp.schedule.max_steps,
+                                   mesh=mesh)
                   if args.prefetch else None)
+    model_parallel = (args.model_parallel > 1) if mesh else None
     log.warn("Start fitting ...")
     try:
         state = fit(model, state, tx, data, exp, train_dir=exp.train_dir,
                     metric_writer=writer, train_iterator=train_iter,
-                    profile_steps=args.profile_steps)
+                    profile_steps=args.profile_steps, mesh=mesh,
+                    model_parallel=model_parallel)
         if data.test is not None and len(data.test) >= model.cfg.batch_size:
             log.warn("Final test-split evaluation ...")
+            if mesh is not None:
+                from ..parallel import make_sharded_predict
+
+                predict = make_sharded_predict(model, mesh,
+                                               model_parallel=model_parallel)
+            else:
+                predict = make_predict_fn(model)
             _, scores = evaluator.generate_and_evaluate(
-                make_predict_fn(model), data.test, model.cfg.batch_size,
-                max_instances=None, input_cast=input_dtype, device=device)
+                predict, data.test, model.cfg.batch_size,
+                max_instances=None, input_cast=input_dtype, device=device,
+                mesh=mesh)
             if writer:
                 writer.scalars(state.step,
                                {f"test/{m}": s for m, s in scores.items()})

@@ -113,9 +113,8 @@ class ModelConfig:
 
 @dataclass
 class ShardingConfig:
-    """Device-mesh layout: batch ("data") as the primary parallel axis and
-    an optional "model" axis. Kept so configs from the JAX package load;
-    the port has no multi-device path yet (ROADMAP.md queue A)."""
+    """Rank-mesh layout: batch ("data") as the primary parallel axis and
+    an optional "model" axis (`parallel.mesh_from_config`)."""
 
     data_parallel: int = -1   # -1 = all devices
     model_parallel: int = 1

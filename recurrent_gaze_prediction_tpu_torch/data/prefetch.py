@@ -7,7 +7,8 @@ ahead of the train loop, so the host's cast and copy of batch k+1 overlap
 the step on batch k. On CUDA each batch is cast into pinned host memory in
 one pass and copied with `non_blocking=True` on a side stream; the
 consumer's stream waits on an event recorded after the copy. No model code
-runs on the worker thread.
+runs on the worker thread. Over a mesh the worker copies only this rank's
+rows (`parallel.shard_batch`) to its device.
 """
 
 from __future__ import annotations
@@ -58,19 +59,31 @@ def device_put_batch(batch: dict, device: torch.device,
 def prefetch_batches(dataset: ClipDataset, batch_size: int, *,
                      device: Optional[Union[str, torch.device]] = None,
                      buffer_size: int = 2, cast: Optional[dict] = None,
-                     max_batches: Optional[int] = None) -> Iterator[dict]:
+                     max_batches: Optional[int] = None,
+                     mesh=None) -> Iterator[dict]:
     """Batches of `dataset.next_batch(batch_size)` on `device` (None = the
     card; raises without CUDA), produced ahead by a worker thread that
     keeps at most `buffer_size` of them queued; at most `max_batches` in
     all (None: no end). A worker exception is raised in the consumer.
-    Closing the generator early (or dropping it) stops the worker."""
+    Closing the generator early (or dropping it) stops the worker. With a
+    `mesh` (`parallel.make_mesh`) each batch is this rank's rows of the
+    global batch on the mesh's device, which the mesh's steps take as they
+    are."""
+    if mesh is not None:
+        from ..parallel.mesh import shard_batch
+
+        return _prefetch(dataset, batch_size, mesh.device, buffer_size,
+                         lambda batch: shard_batch(batch, mesh, cast),
+                         max_batches)
     dev = resolve_device(device)
-    return _prefetch(dataset, batch_size, dev, buffer_size, cast, max_batches)
+    return _prefetch(dataset, batch_size, dev, buffer_size,
+                     lambda batch: device_put_batch(batch, dev, cast),
+                     max_batches)
 
 
 def _prefetch(dataset: ClipDataset, batch_size: int, device: torch.device,
-              buffer_size: int, cast: Optional[dict],
-              max_batches: Optional[int]) -> Iterator[dict]:
+              buffer_size: int, put, max_batches: Optional[int]
+              ) -> Iterator[dict]:
     q: queue.Queue = queue.Queue(maxsize=buffer_size)
     stop = threading.Event()
     cuda = device.type == "cuda"
@@ -97,12 +110,12 @@ def _prefetch(dataset: ClipDataset, batch_size: int, device: torch.device,
                 batch = dataset.next_batch(batch_size)
                 if cuda:
                     with torch.cuda.stream(side):
-                        tensors = device_put_batch(batch, device, cast)
+                        tensors = put(batch)
                         ready = torch.cuda.Event()
                         ready.record(side)
                     item = (tensors, ready)
                 else:
-                    item = (device_put_batch(batch, device, cast), None)
+                    item = (put(batch), None)
                 if not put_or_abandon(item):
                     return
                 produced += 1

@@ -9,10 +9,12 @@ original-scale fixation maps (`models/evaluate_gaze.py`). Inputs are cast
 on the host (`input_cast`) and copied as the trainer copies them
 (`data.prefetch.device_put_batch`).
 
-`predict_fn(frames, c3d)` is the port's predict (`train.make_predict_fn`):
-the model's weights live in the model, so there is no `params` argument.
-There is no `mesh` argument: sharded scoring waits for the multi-GPU port
-(ROADMAP.md queue A item 6).
+`predict_fn(frames, c3d)` is the port's predict (`train.make_predict_fn`,
+or `parallel.make_sharded_predict` over a mesh): the model's weights live
+in the model, so there is no `params` argument. `mesh` (a
+`parallel.make_mesh` mesh, every rank calling alike) splits the scoring's
+frames over its "data" axis (`parallel.make_sharded_evaluate`); the
+scores are the same on every rank.
 """
 
 from __future__ import annotations
@@ -92,13 +94,15 @@ def generate(predict_fn: Callable, dataset: ClipDataset, batch_size: int,
 def generate_on_device(predict_fn: Callable, dataset: ClipDataset,
                        batch_size: int, max_instances: Optional[int] = 50,
                        input_cast: Optional[torch.dtype] = None,
-                       device: Device = None) -> dict:
+                       device: Device = None, mesh=None) -> dict:
     """`generate`, but the maps never visit the host: per batch the inputs
     go up once, predict runs on `device`, and the pred / gt / fixation
     stacks stay there (concatenated at the end) for `evaluate` to score in
     place. No frame images (only dumps need them). Needs fixed-scale
-    fixation maps: raises `RaggedMapsError` for ragged ones."""
-    dev = resolve_device(device)
+    fixation maps: raises `RaggedMapsError` for ragged ones. With a `mesh`
+    the stacks are built on this rank's device (`predict_fn` returns the
+    whole batch's maps on every rank, as the sharded predict does)."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     pred_list, gt_list, fix_list, name_list = [], [], [], []
     for batch in dataset.iter_batches(batch_size, max_instances):
         if batch["fixationmaps"].dtype == object:
@@ -136,7 +140,7 @@ def evaluate(pred_gazemaps, gt_gazemaps, fixationmaps,
              metrics: Sequence[str] = AVAILABLE_METRICS,
              generator: Optional[torch.Generator] = None,
              on_device: bool = True, n_rep: int = 100, exact: bool = True,
-             device: Device = None) -> dict:
+             device: Device = None, mesh=None) -> dict:
     """Mean per-frame scores. `on_device=True` runs the batched metrics at
     map scale on the maps' device (tensors) or on `device` (NumPy stacks;
     None = the card), with `generator` (seed 0 when None);
@@ -144,12 +148,22 @@ def evaluate(pred_gazemaps, gt_gazemaps, fixationmaps,
     original-scale resize when fixation maps are larger), which ragged
     fixation maps fall back to. `exact` selects the closed-form
     AUC_Borji / AUC_shuffled expectation (default) or the reference's
-    samplers on the device path; the NumPy protocol always samples."""
+    samplers on the device path; the NumPy protocol always samples.
+    `mesh` splits the on-device scoring's frames over its "data" axis
+    (exact mode is deterministic: the same scores as one process)."""
     if on_device and _is_ragged(fixationmaps):
         log.warn("fixation maps are ragged (mixed resolutions): falling "
                  "back to the NumPy metric protocol")
         on_device = False
-    if on_device:
+    if on_device and mesh is not None:
+        from ..parallel import make_sharded_evaluate
+
+        scores = make_sharded_evaluate(
+            mesh, metrics=tuple(metrics), n_rep=n_rep, exact=exact)(
+            pred_gazemaps, gt_gazemaps, fixationmaps, generator)
+        out = {m: float(np.nanmean(v.cpu().numpy()))
+               for m, v in scores.items()}
+    elif on_device:
         dev = (pred_gazemaps.device if isinstance(pred_gazemaps, torch.Tensor)
                else resolve_device(device))
         scores = metrics_torch.evaluate_batch(
@@ -165,8 +179,9 @@ def evaluate(pred_gazemaps, gt_gazemaps, fixationmaps,
                                             list(gt_gazemaps),
                                             list(fixationmaps), rng=rng)
                for m in metrics}
-    for metric, score in out.items():
-        log.infov("Saliency %s : %f", metric, score)
+    if mesh is None or mesh.rank == 0:
+        for metric, score in out.items():
+            log.infov("Saliency %s : %f", metric, score)
     return out
 
 
@@ -176,27 +191,33 @@ def generate_and_evaluate(predict_fn: Callable, dataset: ClipDataset,
                           on_device: bool = True,
                           input_cast: Optional[torch.dtype] = None,
                           keep_maps: str = "device",
-                          device: Device = None) -> tuple[dict, dict]:
+                          device: Device = None,
+                          mesh=None) -> tuple[dict, dict]:
     """`gaze_rnn.py:677-680`. `keep_maps="device"` (default) scores without
     moving the maps to the host (falling back to the host path for ragged
     original-scale maps or `on_device=False`); `keep_maps="host"` returns
-    NumPy stacks with the frame images, as the reference's loop does."""
+    NumPy stacks with the frame images, as the reference's loop does.
+    `mesh`: every rank calls alike, `predict_fn` is the sharded predict,
+    and the scoring splits over the mesh (`evaluate`)."""
+    if mesh is not None:
+        device = mesh.device
     if keep_maps == "device" and on_device:
         try:
             ret = generate_on_device(predict_fn, dataset, batch_size,
                                      max_instances, input_cast=input_cast,
-                                     device=device)
+                                     device=device, mesh=mesh)
         except RaggedMapsError:
             ret = None
         if ret is not None:
             scores = evaluate(ret["pred_gazemaps"], ret["gt_gazemaps"],
-                              ret["fixationmaps"], metrics=metrics)
+                              ret["fixationmaps"], metrics=metrics,
+                              mesh=mesh)
             return ret, scores
     ret = generate(predict_fn, dataset, batch_size, max_instances,
                    input_cast=input_cast, device=device)
     scores = evaluate(ret["pred_gazemaps"], ret["gt_gazemaps"],
                       ret["fixationmaps"], metrics=metrics,
-                      on_device=on_device, device=device)
+                      on_device=on_device, device=device, mesh=mesh)
     return ret, scores
 
 

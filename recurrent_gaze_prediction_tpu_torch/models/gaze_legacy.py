@@ -21,7 +21,9 @@ package's `models/gaze_legacy.py`, registered as `gaze_pupil_grcn` and
     normalized to a probability map.
 
 As in the JAX package (PARITY.md), dropout acts on the output logits and
-only in training, where the prototypes apply it always. `batch["pupils"]`
+only in training, where the prototypes apply it always. Under a model
+axis `proj_out_W` holds this rank's columns (`linear` gathers its
+product); the tied transpose gathers the whole weight first. `batch["pupils"]`
 [B, T] is a loss target; the half-batch flip leaves it as it is.
 """
 
@@ -35,6 +37,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops import initializers as init
 from ..ops.cells import FlatGRU
+from ..ops.collectives import whole_weight
 from ..ops.layers import dropout, linear
 from ..ops.normalize import (normalize_probability_map,
                              softmax_cross_entropy_2d)
@@ -175,7 +178,7 @@ class PupilGRU2(PupilGazeModel):
         # e_t = (y_{t-1} - b_out) @ proj_out_W^T; step 0 sees zeros
         prev = targets.transpose(0, 1)[:-1]                 # [T-1, B, 50]
         embeds = linear((prev - self.proj_out_b).reshape(
-            (t - 1) * b, prev.shape[-1]), self.proj_out_W.t(),
+            (t - 1) * b, prev.shape[-1]), whole_weight(self.proj_out_W).t(),
             compute_dtype=cdt)
         embeds = torch.cat([embeds.new_zeros((1, b, state)),
                             embeds.reshape(t - 1, b, state)])

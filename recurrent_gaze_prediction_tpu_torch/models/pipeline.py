@@ -15,11 +15,11 @@ Temporal protocol (the reference's loader):
 
 The gaze model's weights live in its `nn.Module`, the tower's in a dict of
 tensors (`models/c3d.py`): where a JAX function takes `gaze_params`, the
-port's takes the model. Not ported yet: the JAX function's sharding hooks
-(`window_constraint`, `stream_constraint`), which come with multi-GPU
-(ROADMAP.md queue A item 6). The JAX package's `make_fused_raw_step` is the
-un-jitted body it shares with its mesh step; with no jit and no mesh here,
-`make_fused_train_step` is that body.
+port's takes the model. The JAX package's `make_fused_raw_step` is the
+un-jitted body it shares with its mesh step; with no jit here,
+`make_fused_train_step` is that body, and the mesh step
+(`parallel.make_sharded_fused_train_step`) is built from the same loss and
+gradient functions.
 """
 
 from __future__ import annotations
@@ -55,7 +55,9 @@ def extract_and_predict(c3d_params: dict, gaze_model: GazeModel,
                         compute_dtype=torch.bfloat16, logits: bool = False,
                         train: bool = False,
                         generator: Optional[torch.Generator] = None,
-                        c3d_forward: Optional[Callable] = None
+                        c3d_forward: Optional[Callable] = None,
+                        window_constraint: Optional[Callable] = None,
+                        stream_constraint: Optional[Callable] = None
                         ) -> torch.Tensor:
     """[B, F, H, W, 3] raw RGB pixels (0..255; uint8 or float, on the
     model's device) -> [B, T, GH, GW] gaze maps (logits when `logits`).
@@ -68,6 +70,14 @@ def extract_and_predict(c3d_params: dict, gaze_model: GazeModel,
     fine-tuning); a frozen tower runs under no_grad and keeps no
     activations. `c3d_forward(c3d_params, clips) -> [N, 512, 2, 7, 7]`
     replaces the tower (`quant.make_int8_c3d_forward`: the int8 tower).
+
+    Sharding hooks (`parallel/temporal.py` splits the WINDOW axis of one
+    long video over the ranks with them), both no-ops by default:
+    `window_constraint` maps the folded [B*W, 16, H, W, 3] clip batch to
+    the clips this rank runs through the tower (its strip);
+    `stream_constraint` maps the tower's features of those clips, folded
+    [strip, 1024, 7, 7], to all B*W (an all-gather) before the recurrence.
+    The frame stream is computed from the whole video on every rank.
     """
     b, f = video_frames.shape[:2]
     t = pipeline_timesteps(f)
@@ -83,6 +93,8 @@ def extract_and_predict(c3d_params: dict, gaze_model: GazeModel,
         n_windows = f // WINDOW
         clips = video_frames[:, :n_windows * WINDOW].reshape(
             b * n_windows, WINDOW, *video_frames.shape[2:])
+        if window_constraint is not None:
+            clips = window_constraint(clips)
         clips = c3d_model.preprocess_frames(clips, mean_cube=mean_cube)
         tower_grad = torch.is_grad_enabled() and any(
             p.requires_grad for p in c3d_params.values())
@@ -93,8 +105,10 @@ def extract_and_predict(c3d_params: dict, gaze_model: GazeModel,
                                         compute_dtype=compute_dtype)
             else:
                 feats = c3d_forward(c3d_params, clips)
-        feats = c3d_model.conv5b_to_rgp(feats).reshape(
-            b, n_windows, 1024, 7, 7)[:, :t]
+        feats = c3d_model.conv5b_to_rgp(feats)      # [B*W, 1024, 7, 7]
+        if stream_constraint is not None:
+            feats = stream_constraint(feats)
+        feats = feats.reshape(b, n_windows, 1024, 7, 7)[:, :t]
 
     # --- frame stream: [15::5], resized to 98x98, [0, 1] scale. Computed
     # only for a model whose forward reads frames (of the ten families,

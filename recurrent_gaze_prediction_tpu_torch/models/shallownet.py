@@ -101,7 +101,7 @@ def apply(params, images: torch.Tensor, *, dropout_keep_prob: float = 1.0,
     if images.dim() != 4:
         raise ValueError(f"images must be [B, H, W, 3], got "
                          f"{tuple(images.shape)}")
-    out_cells = params["fc2_w"].shape[-1] // 2
+    out_cells = params["fc2_b"].shape[-1] // 2  # the bias is never split
     out_hw = {2401: (49, 49), 49: (7, 7)}[out_cells]
     x = _conv_block(images, params, 1, 2, compute_dtype)
     x = _conv_block(x, params, 2, 3, compute_dtype)

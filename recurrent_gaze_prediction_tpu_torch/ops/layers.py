@@ -11,6 +11,10 @@ and only then is cast to f32 (or `out_dtype`). `linear` and the decoder's
 matmul accumulate in f32 and return f32, as `jnp.dot(...,
 preferred_element_type=f32)` does: their operands are rounded to the
 compute dtype and multiplied in f32.
+
+`linear` with a weight split over the "model" axis (`parallel.
+shard_params`) is column-parallel: the rank's product with its columns,
+gathered over the model group, then the whole bias.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from .collectives import gather_columns, shard_of, sum_cotangent
 
 
 def _cast(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -216,8 +222,16 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor,
 def linear(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None, *, compute_dtype=None,
            out_dtype=None) -> torch.Tensor:
-    """x @ w + b with fp32 accumulation (`tf.nn.xw_plus_b`)."""
-    out = matmul_f32(x, w, compute_dtype)
+    """x @ w + b with fp32 accumulation (`tf.nn.xw_plus_b`). A `w` that
+    holds this rank's columns (`ops/collectives.py`) gives the whole
+    product: the cotangent of `x` is summed over the model group and the
+    columns are gathered (the bias stays whole, as in the JAX package)."""
+    shard = shard_of(w)
+    if shard is None:
+        out = matmul_f32(x, w, compute_dtype)
+    else:
+        out = gather_columns(matmul_f32(sum_cotangent(x, shard), w,
+                                        compute_dtype), shard)
     if b is not None:
         out = out + b.float()
     return _cast(out, out_dtype)

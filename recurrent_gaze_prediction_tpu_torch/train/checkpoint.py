@@ -20,6 +20,16 @@ package's `train/checkpoint.py`, with its layout.
     model's `shallownet.*` parameters, the counterpart of the reference's
     per-variable assign surgery (`models/gaze_rnn.py:412-433`).
 
+Under a mesh (`parallel.make_mesh`) every rank calls `save` and
+`restore`: a weight split over the model axis is gathered whole, rank 0
+alone writes the same `state.pt`, and every rank restores the whole
+tensors and takes its own columns, so a checkpoint moves between
+topologies both ways. Rank 0 decides for every rank whether a step is
+already saved and which step `restore_latest` takes, so the ranks run
+the same collectives; the ranks read what rank 0 wrote, so `train_dir`
+must be on a filesystem they all see, and a rank that cannot see rank
+0's step makes every rank raise.
+
 The port reads no orbax checkpoint of the JAX package (it imports
 neither orbax nor jax, and the card's machine has no jax):
 `scripts/convert_jax_checkpoint.py`, run where jax is, turns a JAX run
@@ -38,6 +48,7 @@ import torch
 
 from ..bridge import jax_name
 from ..config import ExperimentConfig
+from ..ops.collectives import local_columns, whole_tensor
 from ..utils import log
 from .state import TrainState
 
@@ -45,7 +56,8 @@ _FILE = "state.pt"
 
 
 def _by_jax_name(tensors: dict) -> dict:
-    return {jax_name(n): t.detach().cpu() for n, t in tensors.items()}
+    return {jax_name(n): whole_tensor(t).detach().cpu()
+            for n, t in tensors.items()}
 
 
 def _opt_states(state: TrainState) -> tuple:
@@ -62,15 +74,33 @@ def _saved_opt(opt: dict) -> dict:
 
 class Checkpointer:
     """Save/restore a TrainState under `{train_dir}/model/<step>` with
-    retention, plus config.json beside it."""
+    retention, plus config.json beside it. With a `mesh`, every rank makes
+    one and calls its methods alike; rank 0 alone writes."""
 
-    def __init__(self, train_dir: str, max_to_keep: int = 3):
+    def __init__(self, train_dir: str, max_to_keep: int = 3, mesh=None):
         self.train_dir = os.path.abspath(train_dir)
         self.model_dir = os.path.join(self.train_dir, "model")
         self.max_to_keep = max_to_keep
-        os.makedirs(self.model_dir, exist_ok=True)
+        self.mesh = mesh
+        self.writer = mesh is None or mesh.rank == 0
+        if self.writer:
+            os.makedirs(self.model_dir, exist_ok=True)
+        self._barrier()
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def _rank0s(self, decide):
+        """Rank 0's `decide()` on every rank (the other ranks do not call
+        it): their filesystems may lag rank 0's writes, or not be its."""
+        if self.mesh is None:
+            return decide()
+        return self.mesh.broadcast_object(decide() if self.writer else None)
 
     def steps(self) -> list[int]:
+        if not os.path.isdir(self.model_dir):
+            return []
         return sorted(int(d) for d in os.listdir(self.model_dir)
                       if d.isdigit() and os.path.exists(
                           os.path.join(self.model_dir, d, _FILE)))
@@ -83,26 +113,39 @@ class Checkpointer:
         """Write the state at its step (once per step), then drop all but
         the newest `max_to_keep` checkpoints."""
         path = os.path.join(self.model_dir, str(state.step))
-        if os.path.exists(os.path.join(path, _FILE)):
+        if self._rank0s(lambda: os.path.exists(os.path.join(path, _FILE))):
             return
         saved = {"step": state.step, "params": _by_jax_name(state.params),
                  "opt_state": [_saved_opt(o) for o in _opt_states(state)]}
         c3d = getattr(state, "c3d_params", None)
         if c3d is not None:
             saved["c3d_params"] = _by_jax_name(c3d)
+        if self.writer:
+            self._write(path, saved, state.step)
+        self._barrier()  # no rank reads a checkpoint before it is whole
+
+    def _write(self, path: str, saved: dict, step: int) -> None:
         tmp = f"{path}.tmp{os.getpid()}"
         os.makedirs(tmp, exist_ok=True)
         torch.save(saved, os.path.join(tmp, _FILE))
         os.replace(tmp, path)
         for old in self.steps()[:-self.max_to_keep]:
             shutil.rmtree(os.path.join(self.model_dir, str(old)))
-        log.info(" [Checkpoint] saved step %d -> %s", state.step,
-                 self.model_dir)
+        log.info(" [Checkpoint] saved step %d -> %s", step, self.model_dir)
 
     def restore(self, step: int, state: TrainState) -> TrainState:
         """Load checkpoint `step` into `state` (in place: the model's
-        parameters, the moments, the step) and return it."""
+        parameters, the moments, the step) and return it. A tensor of the
+        state that is a column slice takes its columns of the whole."""
         path = os.path.join(self.model_dir, str(step), _FILE)
+        seen = os.path.exists(path)
+        if self.mesh is not None and self.mesh.any_rank(not seen):
+            raise FileNotFoundError(
+                f"checkpoint {path} is missing on some rank of the mesh "
+                f"(rank {self.mesh.rank} "
+                f"{'sees' if seen else 'does not see'} it); "
+                f"the ranks read what rank 0 writes, so train_dir must be "
+                f"on a filesystem they all see")
         saved = torch.load(path, map_location="cpu", weights_only=True)
 
         def copy_into(dst: dict, src: dict, what: str) -> None:
@@ -113,7 +156,7 @@ class Checkpointer:
                                  f"unexpected {sorted(set(src) - want)}")
             with torch.no_grad():
                 for n, t in dst.items():
-                    t.copy_(src[jax_name(n)])
+                    t.copy_(local_columns(src[jax_name(n)], t))
 
         copy_into(state.params, saved["params"], "params")
         c3d = getattr(state, "c3d_params", None)
@@ -136,15 +179,20 @@ class Checkpointer:
                 else:
                     opt[key] = value
         state.step = int(saved["step"])
-        log.info(" [Checkpoint] restored step %d from %s", step,
-                 self.model_dir)
+        if self.writer:
+            log.info(" [Checkpoint] restored step %d from %s", step,
+                     self.model_dir)
         return state
 
     def restore_latest(self, state: TrainState) -> Optional[TrainState]:
-        step = self.latest_step()
+        """`restore` of the newest step (rank 0's, under a mesh), or None
+        when there is none."""
+        step = self._rank0s(self.latest_step)
         return None if step is None else self.restore(step, state)
 
     def save_config(self, cfg: ExperimentConfig) -> None:
+        if not self.writer:
+            return
         config_file = os.path.join(self.train_dir, "config.json")
         if os.path.exists(config_file):
             log.warn("config_file %s already exists (skipped)", config_file)

@@ -11,10 +11,8 @@ and the tower can be fine-tuned jointly. This module holds what the CLI
     `.mat` records (h5py, and cv2 or imageio to decode), into one;
   * `make_synthetic_fused_corpus`: a learnable stand-in corpus, with the
     JAX package's numpy draws (the same seed gives the same arrays);
-  * `FusedTrainState` and `fit_fused`: the checkpointed, resumable loop.
-
-Not ported yet: the mesh branch of `fit_fused` (ROADMAP.md queue A item
-6).
+  * `FusedTrainState` and `fit_fused`: the checkpointed, resumable loop,
+    on one device or over a mesh (`parallel.make_mesh`).
 """
 
 from __future__ import annotations
@@ -330,19 +328,28 @@ class FusedTrainState(TrainState):
 
 
 def make_fused_eval_step(gaze_model: GazeModel, *,
-                         compute_dtype=torch.bfloat16) -> Callable:
+                         compute_dtype=torch.bfloat16, mesh=None) -> Callable:
     """Validation loss on raw-video batches (no dropout, no flip):
-    `eval_step(c3d_params, batch) -> {"loss"}`."""
+    `eval_step(c3d_params, batch) -> {"loss"}`. With a `mesh`, `batch` is
+    this rank's shard and the loss the mean over the data group."""
 
     @torch.no_grad()
     def eval_step(c3d_params: dict, batch: dict) -> dict:
+        if mesh is not None:
+            from ..parallel.sharding import mean_over_data
+
+            return {"loss": mean_over_data(local_loss(c3d_params, batch),
+                                           [], mesh)[0]}
+        return {"loss": local_loss(c3d_params, batch)}
+
+    def local_loss(c3d_params: dict, batch: dict) -> torch.Tensor:
         logits = pipeline.extract_and_predict(
             c3d_params, gaze_model, batch["video"],
             compute_dtype=compute_dtype, logits=True, train=False)
         gt = batch["gazemaps"]
         if gaze_model.cfg.loss_type in ("xentropy", "kld"):
             gt = normalize_probability_map(gt)
-        return {"loss": sequence_loss(logits, gt, gaze_model.cfg.loss_type)}
+        return sequence_loss(logits, gt, gaze_model.cfg.loss_type)
 
     return eval_step
 
@@ -352,6 +359,7 @@ def fit_fused(gaze_model: GazeModel, state: FusedTrainState, tx: Optimizer,
               valid_data: Optional[RawVideoDataset] = None,
               finetune_c3d: bool = False, c3d_tx: Optional[Optimizer] = None,
               compute_dtype=torch.bfloat16, train_dir: Optional[str] = None,
+              mesh=None,
               metric_writer: Optional[Callable[[int, dict], None]] = None
               ) -> FusedTrainState:
     """Train the fused raw-video step until `exp.schedule.max_steps`.
@@ -363,23 +371,58 @@ def fit_fused(gaze_model: GazeModel, state: FusedTrainState, tx: Optimizer,
     dropout draw from a generator on the model's device seeded from
     (exp.seed, step), so a resumed run at step N draws what the
     uninterrupted one would have.
+
+    `mesh` switches the step to `parallel.make_sharded_fused_train_step`
+    (every rank calls `fit_fused` alike): the video batch splits over
+    "data", the gaze model's wide weights follow the model-parallel rules,
+    the tower is replicated; batch_size must divide by the data size (and
+    by data size x accum_steps). Rank 0 alone logs and writes.
     """
     sched_cfg = exp.schedule
     batch_size = gaze_model.cfg.batch_size
-    device = next(gaze_model.parameters()).device
-    generator = torch.Generator(device=device)
     lr_schedule = build_schedule(exp.optimizer)
-    train_step = pipeline.make_fused_train_step(
-        gaze_model, tx, finetune_c3d=finetune_c3d, c3d_tx=c3d_tx,
-        compute_dtype=compute_dtype,
-        accum_steps=max(int(exp.optimizer.accum_steps or 1), 1))
-    eval_step = make_fused_eval_step(gaze_model, compute_dtype=compute_dtype)
+    accum = max(int(exp.optimizer.accum_steps or 1), 1)
+    lead = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        from ..parallel import (make_sharded_fused_train_step, place_state,
+                                shard_batch)
+
+        if batch_size % mesh.data:
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"the data axis ({mesh.data})")
+        if accum > 1 and batch_size % (mesh.data * accum):
+            # each microbatch has batch_size/accum rows; those rows must
+            # still split evenly over the data axis
+            raise ValueError(
+                f"batch_size {batch_size} not divisible by data axis * "
+                f"accum_steps ({mesh.data} * {accum}); microbatches would be "
+                f"unbalanced across data shards")
+        place_state(state, mesh)
+        train_step = make_sharded_fused_train_step(
+            gaze_model, tx, mesh, finetune_c3d=finetune_c3d, c3d_tx=c3d_tx,
+            compute_dtype=compute_dtype, accum_steps=accum)
+        device = mesh.device
+        metric_writer = metric_writer if lead else None
+
+        def put(batch: dict) -> dict:
+            return shard_batch(batch, mesh)
+    else:
+        train_step = pipeline.make_fused_train_step(
+            gaze_model, tx, finetune_c3d=finetune_c3d, c3d_tx=c3d_tx,
+            compute_dtype=compute_dtype, accum_steps=accum)
+        device = next(gaze_model.parameters()).device
+
+        def put(batch: dict) -> dict:
+            return device_put_batch(batch, device)
+    generator = torch.Generator(device=device)
+    eval_step = make_fused_eval_step(gaze_model, compute_dtype=compute_dtype,
+                                     mesh=mesh)
 
     ckpt = None
     if train_dir is not None:
-        ckpt = Checkpointer(train_dir)
+        ckpt = Checkpointer(train_dir, mesh=mesh)
         ckpt.save_config(exp)
-        if ckpt.restore_latest(state) is not None:
+        if ckpt.restore_latest(state) is not None and lead:
             log.info(" [Checkpoint] resumed fused run at step %d", state.step)
 
     stop_requested = {"flag": False}
@@ -397,19 +440,24 @@ def fit_fused(gaze_model: GazeModel, state: FusedTrainState, tx: Optimizer,
             pass
 
     has_valid = valid_data is not None and len(valid_data) >= batch_size
-    if valid_data is not None and not has_valid:
+    if valid_data is not None and not has_valid and lead:
         log.warn("validation set has %d clips < batch_size %d: validation "
                  "will never run", len(valid_data), batch_size)
     n_train = max(len(train_data), 1)
     step = state.step
     last_logged_step, t_logged = step, time.time()
     try:
-        while step < sched_cfg.max_steps and not stop_requested["flag"]:
-            batch = device_put_batch(train_data.next_batch(batch_size), device)
+        stop = False  # under a mesh, agreed by the ranks at each log
+        while step < sched_cfg.max_steps and not stop:
+            batch = put(train_data.next_batch(batch_size))
             generator.manual_seed(exp.seed * 1_000_003 + step)
             state, metrics = train_step(state, batch, generator)
             step = state.step
 
+            stop = stop_requested["flag"]
+            if mesh is not None:
+                stop = (step % sched_cfg.steps_per_logprint == 0
+                        and mesh.any_rank(stop))
             if step % sched_cfg.steps_per_logprint == 0:
                 loss = float(metrics["loss"])  # the card syncs HERE
                 t1 = time.time()
@@ -417,13 +465,14 @@ def fit_fused(gaze_model: GazeModel, state: FusedTrainState, tx: Optimizer,
                                                       1)
                 last_logged_step, t_logged = step, t1
                 lr = lr_schedule(step)
-                log.info(
-                    " [fused epoch %.1f / step %4d] %s loss: %.5f "
-                    "(%.3f sec/batch, %.3f instances/sec) (lr=%.3g)",
-                    step * batch_size / n_train, step,
-                    (exp.train_tag + " |" if exp.train_tag else ""),
-                    loss, sec_per_batch,
-                    batch_size / max(sec_per_batch, 1e-9), lr)
+                if lead:
+                    log.info(
+                        " [fused epoch %.1f / step %4d] %s loss: %.5f "
+                        "(%.3f sec/batch, %.3f instances/sec) (lr=%.3g)",
+                        step * batch_size / n_train, step,
+                        (exp.train_tag + " |" if exp.train_tag else ""),
+                        loss, sec_per_batch,
+                        batch_size / max(sec_per_batch, 1e-9), lr)
                 if metric_writer:
                     metric_writer(step, {"loss/train": loss,
                                          "learning_rate": lr})
@@ -432,10 +481,11 @@ def fit_fused(gaze_model: GazeModel, state: FusedTrainState, tx: Optimizer,
                 ckpt.save(state)
 
             if has_valid and step % sched_cfg.steps_per_validation == 0:
-                vbatch = device_put_batch(
-                    valid_data.next_batch(batch_size), device)
+                vbatch = put(valid_data.next_batch(batch_size))
                 vloss = float(eval_step(state.c3d_params, vbatch)["loss"])
-                log.infov(" [val   step %4d] fused loss: %.5f", step, vloss)
+                if lead:
+                    log.infov(" [val   step %4d] fused loss: %.5f", step,
+                              vloss)
                 if metric_writer:
                     metric_writer(step, {"loss/val": vloss})
 

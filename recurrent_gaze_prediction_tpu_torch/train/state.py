@@ -22,7 +22,8 @@ counterpart of the JAX package's `train/state.py`.
 The JAX package's `jax.random` keys become one `torch.Generator` on the
 model's device, which draws the flip permutation and the dropout masks; the
 two packages' random numbers differ, so the parity tests run with flip and
-dropout off.
+dropout off. The data-parallel step (`parallel/sharding.py`) shares the
+optimizer, the flip and `loss_and_grads` with this one.
 """
 
 from __future__ import annotations
@@ -91,13 +92,22 @@ class Optimizer:
                              if n not in self.frozen}
         return state
 
+    def trained(self, params: dict) -> list:
+        """The names of the parameters this optimizer updates."""
+        return [n for n in params if n not in self.frozen]
+
     @torch.no_grad()
-    def apply(self, params: dict, grads: dict, opt_state: dict) -> None:
-        """One update of `params` and `opt_state` from `grads`, in place."""
-        names = [n for n in params if n not in self.frozen]
+    def apply(self, params: dict, grads: dict, opt_state: dict,
+              norm: Optional[torch.Tensor] = None) -> None:
+        """One update of `params` and `opt_state` from `grads`, in place.
+        `norm` is the trained gradients' global norm when the caller has
+        it (a model-split run sums it over the model group), else it is
+        computed here."""
+        names = self.trained(params)
         g = {n: grads[n].float() for n in names}
         if self.max_grad_norm > 0 and g:  # g is empty when all is frozen
-            norm = global_norm(g.values())
+            if norm is None:
+                norm = global_norm(g.values())
             keep = norm < self.max_grad_norm
             g = {n: torch.where(keep, t, t / norm * self.max_grad_norm)
                  for n, t in g.items()}
@@ -159,18 +169,25 @@ def create_train_state(model: GazeModel, opt_cfg: OptimizerConfig,
 # ------------------------------------------------------------ augmentation
 
 def random_half_flip(batch: dict, generator: torch.Generator,
-                     axes: dict) -> dict:
+                     axes: dict, shards: int = 1, shard: int = 0) -> dict:
     """Mirror a random half of the batch along per-key axes, on the device.
 
     `axes` maps batch key -> flip axis; keys absent from the batch are
     skipped. Exactly floor(B/2) samples flip, like the reference
     (`gaze_rnn.py:502-510`): the first B//2 entries of a random permutation
     drawn from `generator` (which lives on the batch's device).
+
+    `batch` may be shard `shard` of `shards` equal row blocks of a global
+    batch (a data-parallel rank's rows): the choice is drawn for the
+    global batch, from a generator seeded alike on every rank, and the
+    shard's rows of it are applied.
     """
     b = next(iter(batch.values())).shape[0]
-    perm = torch.randperm(b, generator=generator, device=generator.device)
-    flip = torch.zeros(b, dtype=torch.bool, device=generator.device)
-    flip[perm[:b // 2]] = True
+    n = b * shards
+    perm = torch.randperm(n, generator=generator, device=generator.device)
+    flip = torch.zeros(n, dtype=torch.bool, device=generator.device)
+    flip[perm[:n // 2]] = True
+    flip = flip[shard * b:(shard + 1) * b]
     out = dict(batch)
     for key, axis in axes.items():
         if key in batch:
@@ -180,16 +197,30 @@ def random_half_flip(batch: dict, generator: torch.Generator,
     return out
 
 
+FLIP_AXES = {"frames": 3, "gazemaps": 3, "c3d": 4, "fixationmaps": 3}
+
+
 def flip_half_batch(batch: dict, generator: torch.Generator) -> dict:
     """Mirror a random half of the batch horizontally: frames [B,T,H,W,3]
     on W, gazemaps/fixationmaps [B,T,GH,GW] on W, and c3d [B,T,1024,7,7]
     on its last axis (`gaze_rnn.py:502-510`). Other keys (pupils [B,T], a
     scalar per frame) pass as they are."""
-    return random_half_flip(batch, generator, {"frames": 3, "gazemaps": 3,
-                                               "c3d": 4, "fixationmaps": 3})
+    return random_half_flip(batch, generator, FLIP_AXES)
 
 
 # ------------------------------------------------------------------ steps
+
+def loss_and_grads(model: GazeModel, params: dict, batch: dict,
+                   generator: Optional[torch.Generator]
+                   ) -> tuple[torch.Tensor, list]:
+    """The train loss on `batch` (detached) and its gradient for each of
+    `params` in order (zeros for a parameter it does not reach)."""
+    loss, _ = model.loss(batch, train=True, generator=generator)
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if gr is None else gr
+                           for p, gr in zip(params.values(), grads)]
+
 
 def make_train_step(model: GazeModel, tx: Optimizer,
                     use_flip: Optional[bool] = None,
@@ -207,19 +238,13 @@ def make_train_step(model: GazeModel, tx: Optimizer,
     """
     flip = model.cfg.use_flip_batch if use_flip is None else use_flip
 
-    def grads_of(params: dict, batch: dict, generator):
-        loss, _ = model.loss(batch, train=True, generator=generator)
-        grads = torch.autograd.grad(loss, list(params.values()),
-                                    allow_unused=True)
-        return loss.detach(), [torch.zeros_like(p) if gr is None else gr
-                               for p, gr in zip(params.values(), grads)]
-
     def step(state: TrainState, batch: dict,
              generator: Optional[torch.Generator] = None):
         if flip:
             batch = flip_half_batch(batch, generator)
         if accum_steps == 1:
-            loss, grads = grads_of(state.params, batch, generator)
+            loss, grads = loss_and_grads(model, state.params, batch,
+                                         generator)
         else:
             b = next(iter(batch.values())).shape[0]
             if b % accum_steps:
@@ -229,8 +254,8 @@ def make_train_step(model: GazeModel, tx: Optimizer,
                                   *v.shape[1:]) for k, v in batch.items()}
             loss, grads = 0.0, None
             for i in range(accum_steps):
-                mb_loss, mb_grads = grads_of(
-                    state.params, {k: v[i] for k, v in micro.items()},
+                mb_loss, mb_grads = loss_and_grads(
+                    model, state.params, {k: v[i] for k, v in micro.items()},
                     generator)
                 loss = loss + mb_loss
                 grads = mb_grads if grads is None else [

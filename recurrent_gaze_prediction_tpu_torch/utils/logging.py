@@ -62,6 +62,11 @@ class _Log:
     def error(self, msg, *args) -> None:
         self._logger.error(msg, *args)
 
+    def errors_only(self) -> None:
+        """Keep only errors (the ranks but the first of a multi-rank CLI
+        run, so the job logs once)."""
+        self._logger.setLevel(logging.ERROR)
+
 
 log = _Log()
 

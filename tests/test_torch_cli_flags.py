@@ -1,15 +1,19 @@
 """Fault C3: every flag of the JAX package's `cli.train_gaze`,
 `cli.evaluate_gaze`, `cli.pretrain_shallownet` and `cli.export_serving` is
 known to the port's counterpart, so no JAX command line fails there as
-"unrecognized arguments". A flag the port does not carry out yet exits 2
-naming the ROADMAP item that brings it; the others parse as in the JAX
-package.
+"unrecognized arguments", and each parses as in the JAX package.
+
+The mesh flags (`--data_parallel`, `--model_parallel`) are taken by all
+four CLIs that have them: in this process (a world of one) a mesh larger
+than the world raises the JAX package's ValueError, and a mesh of one
+rank trains. Their multi-rank runs: tests/test_torch_parallel.py.
 """
 
 import os
 
 import pytest
 import torch
+import torch.distributed as dist
 
 from recurrent_gaze_prediction_tpu.cli import evaluate_gaze as jeval
 from recurrent_gaze_prediction_tpu.cli import export_serving as jexport
@@ -41,16 +45,54 @@ def _no_card():
         pytest.skip("this host has a CUDA card")
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--data_parallel", "2"], "item 6"),
-    (["--data_parallel", "-1"], "item 6"),
-    (["--model_parallel", "2"], "item 6"),
+@pytest.mark.parametrize("argv,error", [
+    (["--data_parallel", "2"], "mesh 2x1 needs 2 devices, have 1"),
+    (["--data_parallel", "-1"], None),
+    (["--model_parallel", "2"], "mesh 1x2 needs 2 devices, have 1"),
 ])
-def test_train_gaze_refuses_unported_flags_by_name(argv, item, capsys):
-    with pytest.raises(SystemExit) as exc:
-        train_gaze.main(argv + ["--device", "cpu"])
-    assert exc.value.code == 2
-    assert item in capsys.readouterr().err
+def test_train_gaze_refuses_unported_flags_by_name(argv, error, monkeypatch):
+    """The mesh flags are taken: a mesh larger than this one-rank world
+    raises the JAX package's error; `--data_parallel -1` trains on a mesh
+    of one rank (and leaves no process group behind)."""
+    made = []
+    real = train_gaze.cli_mesh
+    monkeypatch.setattr(train_gaze, "cli_mesh",
+                        lambda *a: made.append(a) or real(*a))
+    argv = argv + ["--device", "cpu"]
+    if error is not None:
+        with pytest.raises(ValueError, match=error):
+            train_gaze.main(argv)
+    else:
+        assert train_gaze.main(argv + [
+            "--max_steps", "1", "--n_lstm_steps", "2", "--batch_size", "2",
+            "--synthetic_clips", "2", "--compute_dtype", "float32",
+            "--no_prefetch"]) == 0
+    assert len(made) == 1 and made[0][2] == "cpu"
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("cli,argv", [
+    ("train_fused", ["--dataset", "synthetic", "--data_parallel", "2"]),
+    ("train_fused", ["--dataset", "synthetic", "--model_parallel", "2"]),
+    ("evaluate_gaze", ["--data_parallel", "3"]),
+    ("extract_map", ["--clips_root", ".", "--out_dir", ".",
+                     "--data_parallel", "2"]),
+])
+def test_mesh_flags_are_taken_by_every_cli(cli, argv, tmp_path):
+    """No CLI exits 2 for the mesh flags: each builds its mesh, which is
+    larger than this one-rank world."""
+    from recurrent_gaze_prediction_tpu_torch.cli import (extract_map,
+                                                         train_fused)
+    from recurrent_gaze_prediction_tpu_torch.config import ExperimentConfig
+
+    ExperimentConfig().dump(str(tmp_path / "config.json"))
+    module = {"train_fused": train_fused, "evaluate_gaze": evaluate_gaze,
+              "extract_map": extract_map}[cli]
+    if cli != "train_fused":
+        argv = argv + ["--train_dir", str(tmp_path)]
+    with pytest.raises(ValueError, match="devices, have 1"):
+        module.main(argv + ["--device", "cpu"])
+    assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("flag,value", [("--pallas", True),

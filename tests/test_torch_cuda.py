@@ -965,3 +965,63 @@ def test_fused_int8_predict_launches_q1(cuda_no_tf32, tmp_path):
     assert got.shape == ref.shape == (2, 2, 49, 49)
     a, r = got.cpu().numpy().ravel(), ref.cpu().numpy().ravel()
     assert np.isfinite(a).all() and np.corrcoef(a, r)[0, 1] >= 0.98
+
+
+def test_two_ranks_on_one_card_train_and_predict(cuda_no_tf32, tmp_path):
+    """Two gloo ranks on cuda:0 (`torch_parallel_worker.py`): 3 sharded
+    train steps of full-width gaze_grcn (bf16, T=42, SGD, flip and dropout
+    off) at a global B=8, and sharded predict at B=8, against one process
+    on the same inputs: chip_smoke.py's phase-17 gates (the loss equal on
+    both ranks and within rel 2e-3, params and their updates at corr >=
+    0.999 and max_rel <= 0.05, maps at corr >= 0.999)."""
+    from recurrent_gaze_prediction_tpu_torch import registry
+    from recurrent_gaze_prediction_tpu_torch.config import OptimizerConfig
+    from recurrent_gaze_prediction_tpu_torch.data import synthetic
+    from recurrent_gaze_prediction_tpu_torch.train import (
+        create_train_state, make_train_step)
+    from torch_parallel_worker import launch, results_of
+
+    widths = dict(dim_cnn_proj=512, rnn_state_size=128, n_lstm_steps=42,
+                  compute_dtype="bfloat16", dropout_keep_prob=1.0,
+                  use_flip_batch=False)
+    gen = torch.Generator().manual_seed(0)
+    model = registry.create_model("gaze_grcn", device="cpu", generator=gen,
+                                  **widths)
+    with torch.no_grad():
+        for p in model.cell.values():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+    state_dict = {k: v.clone() for k, v in model.state_dict().items()}
+    data = synthetic.make_clip_windows(24, 42, seed=3)
+    batches = [{k: v for k, v in data.next_batch(8).items()
+                if k != "clipnames"} for _ in range(3)]
+    c3d = np.random.RandomState(4).randn(8, 42, 1024, 7, 7).astype(
+        np.float32)
+    spec = dict(name="gaze_grcn", state=state_dict, widths=widths)
+    inputs = {"mesh": (2, 1), "devices": ["cuda:0", "cuda:0"],
+              "train": dict(spec, opt=dict(method="sgd"), batches=batches),
+              "predict": dict(spec, frames=None, c3d=c3d)}
+    results = launch(str(tmp_path), 2, inputs, ["train", "predict"])
+
+    model = model.to("cuda")
+    p0 = {n: p.detach().float().cpu().numpy().copy()
+          for n, p in model.named_parameters()}
+    state, tx = create_train_state(model, OptimizerConfig(method="sgd"))
+    step = make_train_step(model, tx, use_flip=False)
+    losses = [float(step(state, {k: torch.from_numpy(v).cuda()
+                                 for k, v in b.items()})[1]["loss"])
+              for b in batches]
+    ranks = results_of(results, "train")
+    assert ranks[0]["loss"] == ranks[1]["loss"]
+    np.testing.assert_allclose(ranks[0]["loss"], losses, rtol=2e-3)
+    from recurrent_gaze_prediction_tpu_torch.bridge import jax_name
+    for name, p in state.params.items():
+        want = p.detach().float().cpu().numpy()
+        got = ranks[0]["params"][-1][jax_name(name)]
+        for a, b in ((got, want), (got - p0[name], want - p0[name])):
+            if b.size > 1:
+                assert np.corrcoef(a.ravel(), b.ravel())[0, 1] >= 0.999
+            assert np.abs(a - b).max() <= 0.05 * np.abs(b).max()
+    want = model.predict(None, torch.from_numpy(c3d).cuda()).float().cpu()
+    for rank in results_of(results, "predict"):
+        assert np.corrcoef(rank["maps"].ravel(),
+                           want.numpy().ravel())[0, 1] >= 0.999

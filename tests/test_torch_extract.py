@@ -245,11 +245,12 @@ def test_extract_map_matches_jax(tmp_path, clips, name, streaming):
 
 def test_extract_map_refusals_and_helpers(tmp_path, clips):
     _, tdir = _run_dirs(tmp_path, "gaze_grcn")
-    with pytest.raises(SystemExit) as info:
+    # the mesh is ported: in this one-rank world a mesh of 2 raises the
+    # JAX package's error (multi-rank: tests/test_torch_parallel.py)
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices"):
         extract_map.main(["--train_dir", tdir, "--clips_root", str(clips),
                           "--out_dir", str(tmp_path / "m"),
                           "--data_parallel", "2"] + CPU)
-    assert info.value.code == 2
     empty = tmp_path / "no_checkpoint"
     empty.mkdir()
     ExperimentConfig().dump(str(empty / "config.json"))
