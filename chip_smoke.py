@@ -18,11 +18,13 @@ In order, failing (exit 1) on the first check that does not hold:
      B2 `convgru_bwd` (`backward_parity`, the same shapes, on inputs from a
      real forward) at B=8, and B1 and B2 also at B=1 (one cluster: the
      streaming shape) and B=28 (two waves of clusters: the train batch);
-     B4 `convgru_bwd_mono` (G + B2 + W) and its phases G
+     B4 `convgru_bwd_mono` (G + B2 + W) at B=8 and 16, and its phases G
      `convgru_bwd_gates` (against `recompute_gates`) and W `convgru_wgrad`
-     (against `wgrad_plain`) at B=8 and 16; then the peephole ConvLSTM
-     forward B3 (`convlstm_parity`, nonzero carries, the final c checked
-     too) at B=8, 1 and 16 (two waves of clusters: the serving batch);
+     (against `wgrad_plain`) at B=8, 16 and 28 (and at U=64 with the
+     zoo: V2's backward, the train path, runs G, B2 and W); then the
+     peephole ConvLSTM forward B3 (`convlstm_parity`, nonzero carries, the
+     final c checked too) at B=8, 1 and 16 (two waves of clusters: the
+     serving batch);
   4. serves full-width gaze_grcn, then gaze_lstm (1024->512->128, T=42,
      49x49 maps, bf16, seeded random weights) over HTTP from a bundle:
      concurrent single-clip POSTs, each reply checked against a plain-scan
@@ -159,12 +161,15 @@ In order, failing (exit 1) on the first check that does not hold:
      (NCCL, world 1): the same losses (rel 1e-6) as without the flag;
   7. times the kernels and their plain versions (B=8, B=16; B1 and B2 also
      at B=1 and 28, B3 also at B=1, in us per step beside the bound; B4's
-     phases G and W beside the cuDNN calls that compute the same functions,
-     B4 beside its B2 launch and V2's backward, and B4's device time by
-     kernel from torch.profiler), the
+     phases G and W also at B=28 and U=64, beside the cuDNN calls that
+     compute the same functions, B4 beside its B2 launch and V2's backward
+     on its library stages, and B4's device time by kernel from
+     torch.profiler; V2's backward at B=28 on its library stages and on
+     G + B2 + W in turns), the
      feature-fed predict of both models (B=16) with a breakdown, the HTTP
      requests, the streaming chunk steps (B=1), and the train step (B=28)
-     through the kernels and through plain autograd with a breakdown; the
+     through the kernels, through V2 on its library stages and through
+     plain autograd, in turns, with a breakdown; the
      gaze_lstm train step; the C3D tower NCDHW against channels-last-3d;
      the fused predict at B=8 and 16 with its stages, the fused train step
      (frozen, fine-tuned) and the fused HTTP latency; Q1 and Q1-pool layer
@@ -183,6 +188,7 @@ In order, failing (exit 1) on the first check that does not hold:
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import io
 import os
@@ -255,8 +261,9 @@ TRAIN_BATCH = 28  # the reference's training batch (cli/train_gaze.py:135)
 TRAIN_STEPS = 20
 MONO_STEPS = 3    # train steps through the B4 backward
 # B4 and its phases G and W: gated and timed at the flagship B=8 and the
-# serving batch B=16
+# serving batch B=16; G and W also at the reference's training batch
 B4_BATCHES = (8, 16)
+GW_BATCHES = (8, 16, TRAIN_BATCH)
 # what B4's timing lines print beside the kernel: the library calls that
 # compute the same functions, and B4's share of B2
 B4_EXTRA_TIMES = ("library_ms", "b2_in_b4_ms", "v2_backward_ms")
@@ -614,8 +621,8 @@ def backward_timing(kernel: str, b: int, seed: int, t: int = T,
 
 
 # kernels of a B4 call by the name the profiler gives them
-B4_PARTS = (("gates_kernel", "G"), ("convgru_bwd_kernel", "B2"),
-            ("wgrad_kernel", "W"), ("wgrad_reduce", "W slice sum"))
+B4_PARTS = (("gates_wgmma", "G"), ("convgru_bwd_kernel", "B2"),
+            ("wgrad_wgmma", "W"), ("wgrad_reduce", "W slice sum"))
 
 
 def b4_breakdown(b: int, calls: int = 5) -> dict:
@@ -645,6 +652,38 @@ def b4_breakdown(b: int, calls: int = 5) -> dict:
     check(all(out[label] > 0 for _, label in B4_PARTS),
           f"B4's profile at B={b} misses a kernel: {out}")
     return out
+
+
+@contextlib.contextmanager
+def v2_stages(route: str):
+    """V2's backward through its kernels (phase G, B2, phase W: the port's
+    route) or, as a yardstick, through its library stages (cuDNN convs for
+    G, matmuls for W: `recompute_gates`, `wgrad_plain`), for the span of
+    the block."""
+    saved = (v2.bwd_gates, v2.wgrad)
+    if route == "library":
+        v2.bwd_gates, v2.wgrad = v2.recompute_gates, v1.wgrad_plain
+    try:
+        yield
+    finally:
+        v2.bwd_gates, v2.wgrad = saved
+
+
+def v2_route_timing(b: int) -> dict:
+    """V2's backward (`convgru_bwd_phased` as `ConvGRUFusedV2` calls it) at
+    T=42, U=128 in bf16 through its library stages and through G + B2 + W,
+    in turns (library, kernels, kernels, library)."""
+    x = backward_inputs(T, b, 512, UNITS, torch.bfloat16, SEED + b, "cuda")
+    args = (x["uzr"], x["uc"], x["wx"], x["ys"], x["h0"], x["g"])
+    runs = {"library": [], "kernels": []}
+    with torch.no_grad():
+        for label in ("library", "kernels", "kernels", "library"):
+            with v2_stages(label):
+                runs[label].append(cuda_ms(lambda: v1.convgru_bwd_phased(
+                    *args, gates=v2.bwd_gates, recursion=v2.dh_bwd,
+                    tail=v2.wgrad), 10))
+    return {"library_ms": statistics.mean(runs["library"]),
+            "kernels_ms": statistics.mean(runs["kernels"]), "runs": runs}
 
 
 def plain_logits(model, c3d: torch.Tensor) -> torch.Tensor:
@@ -707,8 +746,10 @@ def read_launches() -> dict:
             "convlstm_fwd": klstm.launches}
 
 
-# B4's phases G and W, launched only inside B4: none on the other paths
-NO_PHASES = {"convgru_bwd_gates": 0, "convgru_wgrad": 0}
+def v2_backwards(n: int) -> dict:
+    """The launches of n V2 backwards (`ConvGRUFusedV2`, the train path):
+    phase G, B2 and phase W once each."""
+    return {"convgru_bwd_gates": n, "convgru_bwd": n, "convgru_wgrad": n}
 
 
 # the forward kernel each served or streamed model runs
@@ -905,8 +946,8 @@ def train_through_cli(card: str, run: str, prefetch: bool = True) -> dict:
           f"{statistics.mean(losses[-5:])}")
     # B1 once per step and once for the test split's batch, B2 per step
     check(launches == {"convgru_fwd": TRAIN_STEPS + 1,
-                       "convgru_bwd": TRAIN_STEPS, "convgru_bwd_mono": 0,
-                       **NO_PHASES, "convlstm_fwd": 0},
+                       **v2_backwards(TRAIN_STEPS), "convgru_bwd_mono": 0,
+                       "convlstm_fwd": 0},
           f"launches over {TRAIN_STEPS} train steps and the test split: "
           f"{launches}")
     check(saved == [TRAIN_STEPS], f"checkpoints written: {saved}")
@@ -1073,8 +1114,8 @@ def evaluation_cadence(card: str) -> dict:
               and -1 <= scores["cc"] <= 1,
               f"evaluation scores at step {step}: {scores}")
     check(launches == {"convgru_fwd": TRAIN_STEPS + n_evals,
-                       "convgru_bwd": TRAIN_STEPS, "convgru_bwd_mono": 0,
-                       **NO_PHASES, "convlstm_fwd": 0},
+                       **v2_backwards(TRAIN_STEPS), "convgru_bwd_mono": 0,
+                       "convlstm_fwd": 0},
           f"launches over {TRAIN_STEPS} steps and {n_evals} evaluations: "
           f"{launches}")
     return {"evals": evals, "launches": launches}
@@ -1167,7 +1208,7 @@ def gradient_check(model, batch: dict) -> dict:
     out = {}
     try:
         for label, scan in (("plain", ConvGRU.scan),
-                            ("v2 (B2)", v2.convgru_scan_trainable_v2),
+                            ("v2 (G, B2, W)", v2.convgru_scan_trainable_v2),
                             ("v1 (B4)", v1.convgru_scan_trainable)):
             model.train_scan = scan
             loss, _ = model.loss(batch, train=True)
@@ -1217,12 +1258,16 @@ def train_step_timing(model, raw: dict) -> dict:
     state, tx = create_train_state(model, OptimizerConfig())
     step = make_train_step(model, tx)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    runs = {"plain": [], "kernels": []}
+    runs = {"plain": [], "kernels": [], "v2 library stages": []}
     try:
-        for label in ("plain", "kernels", "kernels", "plain"):
+        for label in ("plain", "kernels", "v2 library stages",
+                      "v2 library stages", "kernels", "plain"):
             model.train_scan = (ConvGRU.scan if label == "plain"
                                 else v2.convgru_scan_trainable_v2)
-            runs[label].append(cuda_ms(lambda: step(state, batch, gen), 5))
+            with v2_stages("library" if label == "v2 library stages"
+                           else "kernels"):
+                runs[label].append(cuda_ms(lambda: step(state, batch, gen),
+                                           5))
     finally:
         del model.train_scan
     params = list(state.params.values())
@@ -1251,18 +1296,18 @@ def train_step_timing(model, raw: dict) -> dict:
         uzr, uc = fused["Uh_zr"], fused["U_c"]
         stages["  B1 convgru_fwd (in forward)"] = cuda_ms(
             lambda: kconv.convgru_recurrence(fused, wx, h0), 5)
-        stages["  backward stage 1: gate recompute (library convs)"] = \
-            cuda_ms(lambda: v2.recompute_gates(uzr, uc, wx, h0, ys), 5)
-        u, r, c, hprev, rh = v2.recompute_gates(uzr, uc, wx, h0, ys)
+        stages["  backward stage 1: phase G convgru_bwd_gates"] = cuda_ms(
+            lambda: v1.bwd_gates(uzr, uc, wx, h0, ys), 5)
+        u, r, c, hprev, rh = v1.bwd_gates(uzr, uc, wx, h0, ys)
         stages["  backward stage 2: B2 convgru_bwd"] = cuda_ms(
             lambda: v2.dh_bwd(u, r, c, hprev, g, uzr, uc, cdt), 5)
         dzr, da, _ = v2.dh_bwd(u, r, c, hprev, g, uzr, uc, cdt)
-        stages["  backward stage 3: weight grads (2 matmuls)"] = cuda_ms(
-            lambda: (v1.kernel_grad(hprev, dzr, cdt),
-                     v1.kernel_grad(rh, da, cdt)), 5)
+        stages["  backward stage 3: phase W convgru_wgrad"] = cuda_ms(
+            lambda: v1.wgrad(hprev, dzr, rh, da, cdt), 5)
     kernels_ms = statistics.mean(runs["kernels"])
     plain_ms = statistics.mean(runs["plain"])
     return {"kernels_ms": kernels_ms, "plain_ms": plain_ms, "runs": runs,
+            "library_stages_ms": statistics.mean(runs["v2 library stages"]),
             "clips_per_s": TRAIN_BATCH / kernels_ms * 1e3,
             "plain_clips_per_s": TRAIN_BATCH / plain_ms * 1e3,
             "stages": stages}
@@ -1526,9 +1571,8 @@ def train_fused_through_cli(card: str) -> dict:
                   f"{[r['step'] for r in records]}")
             check(all(np.isfinite(losses)), f"{label}: non-finite loss "
                                             f"{losses}")
-            check(launches == {"convgru_fwd": steps, "convgru_bwd": steps,
-                               "convgru_bwd_mono": 0, **NO_PHASES,
-                               "convlstm_fwd": 0},
+            check(launches == {"convgru_fwd": steps, **v2_backwards(steps),
+                               "convgru_bwd_mono": 0, "convlstm_fwd": 0},
                   f"{label}: launches over {steps} steps: {launches}")
             check(saved == [steps], f"{label}: checkpoints {saved}")
             if label == "frozen":
@@ -1729,8 +1773,8 @@ def zoo_kernel_launches(name: str, calls: int = 1) -> dict:
     """The launches of `calls` forwards: B1 for gaze_pupil_grcn, none for
     the other families of the zoo."""
     fwd = calls if name == "gaze_pupil_grcn" else 0
-    return {"convgru_fwd": fwd, "convgru_bwd": 0, "convgru_bwd_mono": 0,
-            **NO_PHASES, "convlstm_fwd": 0}
+    return {"convgru_fwd": fwd, **v2_backwards(0), "convgru_bwd_mono": 0,
+            "convlstm_fwd": 0}
 
 
 def c4_kernel_gates(card: str) -> dict:
@@ -1766,6 +1810,24 @@ def c4_kernel_gates(card: str) -> dict:
         check(backward_parity_ok(stats32, max_rel_delta=F32_MAX_REL_DELTA),
               f"U=64 convgru_bwd f32 parity failed at B={b}: {stats32}")
         out[b] = {"fwd": bf16, "bwd": stats}
+    # phases G and W at the registry batch: V2's backward runs them here too
+    for kernel in ("convgru_bwd_gates", "convgru_wgrad"):
+        b = C4_BATCHES[0]
+        stats = backward_parity(kernel, t=C4_T, b=b, c=C4_C, units=C4_UNITS,
+                                device="cuda")
+        with tf32_off():
+            stats32 = backward_parity(kernel, t=C4_T, b=b, c=C4_C,
+                                      units=C4_UNITS,
+                                      compute_dtype=torch.float32,
+                                      device="cuda")
+        print(f"parity {kernel} U={C4_UNITS} T={C4_T} B={b}: bf16 "
+              f"{json.dumps(stats['outputs'])}; f32 "
+              f"{json.dumps(stats32['outputs'])}", flush=True)
+        check(backward_parity_ok(stats), f"U=64 {kernel} bf16 gate failed "
+                                         f"at B={b}: {stats}")
+        check(backward_parity_ok(stats32, max_rel_delta=F32_MAX_REL_DELTA),
+              f"U=64 {kernel} f32 parity failed at B={b}: {stats32}")
+        out[kernel] = stats
     return out
 
 
@@ -1964,8 +2026,7 @@ def zoo_train_through_cli(card: str, run: str, name: str,
     if name == "gaze_pupil_grcn":
         test_batches = -(-ZOO_TEST_CLIPS // 7)
         want = {"convgru_fwd": TRAIN_STEPS + test_batches,
-                "convgru_bwd": TRAIN_STEPS,
-                "convgru_bwd_mono": 0, **NO_PHASES,
+                **v2_backwards(TRAIN_STEPS), "convgru_bwd_mono": 0,
                 "convlstm_fwd": 0}
     else:
         want = zoo_kernel_launches(name, 0)
@@ -2007,8 +2068,8 @@ def pupil_gradient_check(card: str) -> dict:
     rel = abs(loss - plain_loss) / abs(plain_loss)
     corrs = {n: corr(k, a) for n, a, k in zip(names, plain_grads, grads)}
     joint = parts["gaze_loss"] + 0.01 * parts["pupil_loss"]
-    print(f"gradient check gaze_pupil_grcn (B=7, T={C4_T}, bf16, B1 + B2 at "
-          f"U=64 vs plain autograd): loss {loss} vs {plain_loss} (rel "
+    print(f"gradient check gaze_pupil_grcn (B=7, T={C4_T}, bf16, B1 + G, B2, "
+          f"W at U=64 vs plain autograd): loss {loss} vs {plain_loss} (rel "
           f"{rel:.3g}), gaze {parts['gaze_loss']:.5f} + 0.01 x pupil "
           f"{parts['pupil_loss']:.5f}, min grad corr "
           f"{min(corrs.values()):.6f} ({min(corrs, key=corrs.get)}), "
@@ -2017,9 +2078,8 @@ def pupil_gradient_check(card: str) -> dict:
     check(rel <= LOSS_MAX_REL, f"pupil grcn loss rel {rel}")
     for n, c in corrs.items():
         check(c >= GRAD_MIN_CORR, f"pupil grcn grad {n} corr {c}")
-    check(launches == {"convgru_fwd": 1, "convgru_bwd": 1,
-                       "convgru_bwd_mono": 0, **NO_PHASES,
-                "convlstm_fwd": 0}
+    check(launches == {"convgru_fwd": 1, **v2_backwards(1),
+                       "convgru_bwd_mono": 0, "convlstm_fwd": 0}
           and sum(plain_launches.values()) == 0,
           f"pupil grcn launches {launches}, plain {plain_launches}")
     check(parts["pupil_loss"] > 0 and abs(loss - joint) <= 1e-5 * abs(loss),
@@ -2184,6 +2244,13 @@ def zoo_timings(card: str, zoo: dict, timing_rng) -> tuple:
         print(f"timing: convgru_bwd T={C4_T} B={b} U={C4_UNITS} (C=4) bf16: "
               f"{per_step(k, C4_T)}; co-resident clusters "
               f"{c4_clusters['convgru_bwd']['bf16']['max_active_clusters']} "
+              f"[{card}]", flush=True)
+    for kernel in ("convgru_bwd_gates", "convgru_wgrad"):
+        b = C4_BATCHES[0]
+        k = c4_bwd_timing[kernel, b] = backward_timing(
+            kernel, b, SEED + b, t=C4_T, c=C4_C, units=C4_UNITS)
+        print(f"timing: {kernel} T={C4_T} B={b} U={C4_UNITS} bf16: "
+              f"{per_step(k, C4_T)}, library_ms {k['library_ms']:.4f} ms "
               f"[{card}]", flush=True)
     for name in ZOO:
         m = zoo_model(name)
@@ -2960,9 +3027,10 @@ def mfu_phase(card: str, tower: dict, raw_batch: dict,
         plain = mfu.flop_counts(step, state, batch, gen)
     finally:
         del model.train_scan
-    # V2's backward recomputes the gates (two library convs) and B2 forms
-    # dh0 through U_zr's transposed conv, which plain autograd skips (h0
-    # takes no gradient): both counted on lines of their own
+    # V2's backward recomputes the gates (phase G, the contractions of
+    # `recompute_gates`) and B2 forms dh0 through U_zr's transposed conv,
+    # which plain autograd skips (h0 takes no gradient): both counted on
+    # lines of their own
     with torch.no_grad():
         fused = ConvGRU.fuse(model.cell)
         xs = apply_c3d_projection(
@@ -2977,9 +3045,9 @@ def mfu_phase(card: str, tower: dict, raw_batch: dict,
     check(sum(kernel.values()) == sum(plain.values()) + recompute + dh0,
           f"train step counts: kernel route {kernel}, plain {plain}, "
           f"recompute {recompute}, dh0 {dh0}")
-    check(kernel.get("convgru_bwd")
-          == kconv.flops(T, TRAIN_BATCH, 7, 7, UNITS, 3),
-          f"B2's count {kernel}")
+    for name in ("convgru_bwd_gates", "convgru_bwd", "convgru_wgrad"):
+        check(kernel.get(name) == kconv.flops(T, TRAIN_BATCH, 7, 7, UNITS, 3),
+              f"{name}'s count {kernel}")
     out["train"] = flop_line(
         f"train step B={TRAIN_BATCH} T={T}", kernel, plain,
         cuda_ms(lambda: step(state, batch, gen), 5), card,
@@ -3598,8 +3666,8 @@ def parallel_phase(card: str, runs: str, data: int = 2, model: int = 1,
           f"{p_rel}; updates: corr {u_corr}, max_rel {u_rel}")
     for r in ranks:
         check(r["train"]["launches"] == {
-            "convgru_fwd": PAR_STEPS, "convgru_bwd": PAR_STEPS,
-            "convgru_bwd_mono": 0, **NO_PHASES, "convlstm_fwd": 0},
+            "convgru_fwd": PAR_STEPS, **v2_backwards(PAR_STEPS),
+            "convgru_bwd_mono": 0, "convlstm_fwd": 0},
             f"a rank's launches over {PAR_STEPS} sharded steps: "
             f"{r['train']['launches']}")
 
@@ -3757,8 +3825,8 @@ def main() -> int:
         fwd_parity[b] = bf16
     bwd_parity = {}
     for kernel, batches in (("convgru_bwd", CLUSTER_BATCHES),
-                            ("convgru_bwd_gates", B4_BATCHES),
-                            ("convgru_wgrad", B4_BATCHES),
+                            ("convgru_bwd_gates", GW_BATCHES),
+                            ("convgru_wgrad", GW_BATCHES),
                             ("convgru_bwd_mono", B4_BATCHES)):
         for b in batches:
             stats = backward_parity(kernel, t=T, b=b, device="cuda")
@@ -3865,8 +3933,8 @@ def main() -> int:
               f"[{card}]", flush=True)
     bwd_timing = {}
     for kernel, batches in (("convgru_bwd", CLUSTER_TIMED),
-                            ("convgru_bwd_gates", B4_BATCHES),
-                            ("convgru_wgrad", B4_BATCHES),
+                            ("convgru_bwd_gates", GW_BATCHES),
+                            ("convgru_wgrad", GW_BATCHES),
                             ("convgru_bwd_mono", B4_BATCHES)):
         for b in batches:
             k = bwd_timing[kernel, b] = backward_timing(kernel, b, SEED + b)
@@ -3880,6 +3948,11 @@ def main() -> int:
               f"per call by kernel (torch.profiler, ms): " + ", ".join(
                   f"{k} {v:.4f}" for k, v in parts.items()) + f" [{card}]",
               flush=True)
+    route = v2_route_timing(TRAIN_BATCH)
+    print(f"timing: V2 backward T={T} B={TRAIN_BATCH} U=128 bf16, in turns "
+          f"(ms): library stages (2 cuDNN convs + B2 + 2 matmuls) "
+          f"{route['library_ms']:.4f}, G + B2 + W {route['kernels_ms']:.4f}; "
+          f"runs {json.dumps(route['runs'])} [{card}]", flush=True)
     lstm_fused = ConvLSTM.fuse({k: v.detach()
                                 for k, v in lstm_model.cell.items()})
     lstm_timing = {}
@@ -3907,7 +3980,8 @@ def main() -> int:
     step = train_step_timing(full_width_model(), raw_batch)
     print(f"timing: train step B={TRAIN_BATCH} T={T} bf16 (fwd + bwd + "
           f"clip + adam, flip, dropout): kernels {step['kernels_ms']:.3f} "
-          f"ms ({step['clips_per_s']:.1f} clips/s), plain autograd "
+          f"ms ({step['clips_per_s']:.1f} clips/s), V2 through its library "
+          f"stages {step['library_stages_ms']:.3f} ms, plain autograd "
           f"{step['plain_ms']:.3f} ms ({step['plain_clips_per_s']:.1f} "
           f"clips/s); runs {json.dumps(step['runs'])} [{card}]", flush=True)
     print("timing: train step B=28 breakdown, kernel path (ms): " + ", ".join(
@@ -4043,11 +4117,11 @@ def main() -> int:
               bwd_timing["convgru_bwd_mono", 8],
               phases=["convgru_bwd_gates", "convgru_bwd", "convgru_wgrad"]),
         entry("convgru_bwd_gates", "csrc/convgru_bwd_gates.cu",
-              "convgru_vjp.py:102", mono["launches"]["convgru_bwd_gates"],
+              "convgru_vjp.py:102", trained["launches"]["convgru_bwd_gates"],
               max_err(bwd_parity["convgru_bwd_gates", 8]),
               bwd_timing["convgru_bwd_gates", 8]),
         entry("convgru_wgrad", "csrc/convgru_wgrad.cu", "convgru_vjp.py:113",
-              mono["launches"]["convgru_wgrad"],
+              trained["launches"]["convgru_wgrad"],
               max_err(bwd_parity["convgru_wgrad", 8]),
               bwd_timing["convgru_wgrad", 8]),
         entry("convlstm_fwd", "csrc/convlstm_fwd.cu", "convlstm.py:23",

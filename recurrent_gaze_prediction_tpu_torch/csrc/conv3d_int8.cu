@@ -79,9 +79,11 @@
 // the FP32 pipe. The outputs go through shared memory to 16-byte stores, a
 // box row of bw positions being one contiguous run of bw * 64 bytes.
 
-#include <cuda.h>  // CUtensorMap and the encoder's type; the encoder is fetched at run time
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"  // mbarriers, TMA, the encoder, wgmma fence / commit / wait
+
+using namespace rgpc;
 
 namespace {
 
@@ -89,10 +91,6 @@ constexpr int kBoxRows = 128;  // the M tile: one box of output positions
 
 __host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
 __host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 1.5 * 2^23: adding it to a float in [-2^22, 2^22] rounds that float to an
 // integer (ulp 1, ties to even), which its low mantissa bits then hold
@@ -222,67 +220,6 @@ struct Geo {
   int nk;             // K steps: 27 * Cin / BK
 };
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Waits for the phase of parity `parity` of `bar` to complete. A wait that
-// outlasts ~10 s of clocks traps (the launch fails with an error) rather
-// than hang the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  long long start = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start == 0) {
-      start = clock64();
-    } else if (clock64() - start > 20000000000LL) {
-      __trap();
-    }
-  }
-}
-
-__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3, int c4) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(c4)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
 // A wgmma shared-memory descriptor for a K-major tile of BK-byte rows,
 // swizzled as TMA wrote it (128B for BK = 128, 64B for BK = 64): start
 // address, leading offset 1 (unused when swizzled), 8-row groups 8 * BK
@@ -292,17 +229,6 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
   constexpr uint64_t layout = BK == 128 ? 1 : 2;
   return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(8 * BK / 16) << 32) |
          (layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // D[64 x N] += A[64 x 32] * B[N x 32]^T, s8 x s8 -> s32, both from shared
@@ -777,28 +703,6 @@ __global__ void __launch_bounds__(256)
     }
   }
   *reinterpret_cast<uint4*>(y + i * 16) = best;
-}
-
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, a driver function, through the runtime's entry
-// point query (no link against libcuda).
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess) {
-      return static_cast<EncodeTiled>(nullptr);
-    }
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
 }
 
 // A tiled map over a uint8 tensor of `rank` dims (innermost first, strides

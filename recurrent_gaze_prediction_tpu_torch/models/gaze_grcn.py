@@ -11,11 +11,11 @@ and `gaze_grcn77`: the same trunk at 7x7 with a per-cell 128->1 linear
 head and no upsampling. Inference runs the recurrence through the forward
 kernel's wrapper (`ops/kernels/convgru.py`); training runs it through the
 autograd Function `convgru_scan_trainable_v2` (forward kernel B1, backward
-kernel B2, `ops/kernels/convgru_vjp2.py`). On a CPU tensor both use their
-kernels' plain versions. A width the kernels do not take (U not a multiple
-of 16, or a CTA's slice too large for shared memory, e.g. U=256) or
-kernel size (not 3x3) runs `ConvGRU.scan` instead, on any device
-(`convgru_route`); the forward records the route it took in
+B4's phase G, kernel B2 and phase W, `ops/kernels/convgru_vjp2.py`). On a
+CPU tensor both use their kernels' plain versions. A width the kernels do
+not take (U not a multiple of 16, or a CTA's slice too large for shared
+memory, e.g. U=256) or kernel size (not 3x3) runs `ConvGRU.scan` instead,
+on any device (`convgru_route`); the forward records the route it took in
 `last_route`.
 
 gaze_grcn does not read `frames`, so the raw-video pipeline skips their
@@ -37,7 +37,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops import initializers as init
 from ..ops.cells import ConvGRU
-from ..ops.kernels import convgru, convgru_vjp2
+from ..ops.kernels import convgru, convgru_vjp
 from ..ops.kernels.convgru_vjp2 import convgru_scan_trainable_v2
 from ..ops.layers import dropout, linear
 from .common import (GazeModel, apply_c3d_projection, apply_decoder,
@@ -48,15 +48,16 @@ def convgru_route(cell, hw: tuple[int, int], compute_dtype: torch.dtype,
                   train: bool) -> str:
     """"kernel" when the kernels take a ConvGRU cell (params `cell`) on an
     `hw` grid, judged from its kernel size and units (B1 to predict, B1 and
-    B2 to train), else "scan": the cell's own `ConvGRU.scan`, which runs
-    any width and kernel size, as the JAX package's default path does.
+    the backward's G, B2 and W to train), else "scan": the cell's own
+    `ConvGRU.scan`, which runs any width and kernel size, as the JAX
+    package's default path does.
     Decided from the shapes alone, before any launch."""
     kernel = ConvGRU.kernel_size(cell)
     units = cell["U"].shape[-1]
     takes = convgru.kernel_takes(*hw, units, compute_dtype, kernel)
     if train:
-        takes = takes and convgru_vjp2.kernel_takes(*hw, units,
-                                                    compute_dtype, kernel)
+        takes = takes and convgru_vjp.kernel_takes(*hw, units,
+                                                   compute_dtype, kernel)
     return "kernel" if takes else "scan"
 
 

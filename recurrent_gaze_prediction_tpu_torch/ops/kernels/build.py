@@ -70,15 +70,18 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.conv3d_int8_ctas_per_sm.restype = i
     lib.maxpool3d_int8.argtypes = [vp] * 2 + [i] * 17 + [vp]
     for name in ("convgru_fwd_smem_bytes", "convgru_bwd_smem_bytes",
-                 "convgru_bwd_gates_smem_bytes", "convlstm_fwd_smem_bytes"):
+                 "convgru_bwd_gates_smem_bytes", "convgru_wgrad_smem_bytes",
+                 "convlstm_fwd_smem_bytes"):
         getattr(lib, name).argtypes = [i, i, i, i]
         getattr(lib, name).restype = size
     for name in ("convgru_fwd_max_clusters", "convgru_bwd_max_clusters",
                  "convlstm_fwd_max_clusters"):
         getattr(lib, name).argtypes = [i, i, i, i]
         getattr(lib, name).restype = i
-    lib.convgru_wgrad_tiles.argtypes = [i]
-    lib.convgru_wgrad_tiles.restype = i
+    lib.convgru_wgrad_tiles.argtypes = [i] * 4
+    lib.convgru_wgrad_slices.argtypes = [i] * 5
+    for name in ("convgru_wgrad_tiles", "convgru_wgrad_slices"):
+        getattr(lib, name).restype = i
     for name in ("convgru_fwd", "convgru_bwd", "convgru_bwd_gates",
                  "convgru_wgrad", "convlstm_fwd", "conv3d_int8",
                  "maxpool3d_int8"):

@@ -12,18 +12,23 @@ recursion is serial, so on the card B4 is three launches on one stream
 
   phase G (`csrc/convgru_bwd_gates.cu`, `bwd_gates`): u, r, c, h_{t-1} and
       r*h_{t-1} for all T*B frames at once (the recompute reads only wx and
-      h_{t-1} = [h0, ys[:-1]]);
+      h_{t-1} = [h0, ys[:-1]]); in bf16 wgmma with the weights streamed
+      through a TMA ring, two frames per CTA;
   B2 (`csrc/convgru_bwd.cu`, `convgru_vjp2.dh_bwd`, unchanged): the
       reverse-time recursion -> dzr = [du_pre|dr_pre], da, dh0;
   phase W (`csrc/convgru_wgrad.cu`, `wgrad`): dU_zr = sum patches(h)^T
       dzr and dU_c = sum patches(r*h)^T da as one split-K implicit GEMM
-      with a deterministic sum of the slices;
+      with a deterministic sum of the slices; in bf16 wgmma on tiles that
+      share one staged frame across all nine taps;
 
-and dwx = [dzr|da] is one concatenation (a copy, no arithmetic).
+and dwx = [dzr|da] is one concatenation (a copy, no arithmetic). The
+decomposed backward V2 (`convgru_vjp2.ConvGRUFusedV2`, the default train
+path) runs the same three kernels.
 
 Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s) at T=42, U=128 in bf16:
-operations, each phase 14.57 / 29.13 GFLOP at B=8 / 16, 43.70 / 87.40 in
-all (44.2 / 88.4 us).
+operations, each phase 14.57 / 29.13 / 50.98 GFLOP at B=8 / 16 / 28,
+43.70 / 87.40 / 152.9 in all (44.2 / 88.4 / 154.6 us); phase G alone is
+bound by its bytes (19 / 38 / 67 us).
 
 Numerics rule (as in the forward kernel): all elementwise math is f32; in
 bf16 mode (wx in bf16) every conv and weight-gradient operand is rounded to
@@ -57,8 +62,8 @@ from ..cells import ConvGRU
 from ..layers import conv2d
 from ...utils import mfu
 from . import build
-from .convgru import (SMEM_LIMIT, aligned, convgru_recurrence, flops,
-                      pack_slices, pad_bytes, padded_grid)
+from .convgru import (SMEM_LIMIT, align128, aligned, convgru_recurrence,
+                      flops, pad_bytes)
 
 # Launches in this process: of B4 as a whole, and of its phases G and W;
 # chip_smoke.py resets them to 0 before driving a path and reads them after.
@@ -182,44 +187,136 @@ def convgru_bwd_phased(uzr, uc, wx, ys, h0, g, *, gates, recursion, tail
     return torch.cat([dzr, da], dim=-1), dh0, duzr, duc
 
 
+# Phase G's bf16 plan (csrc/convgru_bwd_gates.cu, `make_ggeo`): K chunks
+# of 64 bf16 weights (128-byte rows) through a ring of at most 4 stages
+GATES_CHUNK, GATES_MAX_STAGES = 64, 4
+
+
+def n_tile(columns: int) -> int:
+    """The N tile of one of phase G's convs (a wgmma width): the widest of
+    128, 64, 32 and 16 that divides `columns`."""
+    bn = 128
+    while columns % bn:
+        bn //= 2
+    return bn
+
+
+def gates_plan(h: int, w: int, units: int) -> dict:
+    """Phase G's bf16 plan, as `make_ggeo` reckons it: the N tiles of the
+    two convs, frame buffers per warpgroup (1 when r*h overwrites h in
+    place: one 64-row M tile per frame and the r columns in the first
+    conv's last N tile), bytes of a frame buffer and of a frame's h (f32)
+    and wx (bf16) staged, and the weight ring's depth (as many stages of
+    the widest tile as fit, 2..4)."""
+    wp = w + 2
+    m_tiles = -(-h * wp // 64)
+    bn1 = n_tile(2 * units)
+    nbuf = 1 if m_tiles == 1 and bn1 >= units else 2
+    padb = align128((64 * m_tiles + 2 * wp + 2) * (units + 8) * 2)
+    hsb, wxb = align128(h * w * units * 4), align128(h * w * 3 * units * 2)
+    fixed = 1024 + 2 * (nbuf * padb + hsb + wxb) + 64
+    stages = (SMEM_LIMIT - fixed) // (128 * bn1 + 16)
+    return dict(bn1=bn1, bn2=n_tile(units), nbuf=nbuf, padb=padb, hsb=hsb,
+                wxb=wxb, stages=min(GATES_MAX_STAGES, max(2, stages)))
+
+
 def gates_smem_bytes(h: int, w: int, units: int, elem: int) -> int:
     """Shared memory of one CTA of phase G, as `csrc/convgru_bwd_gates.cu`
-    lays it out: hpad and rhpad for each of its frames (in bf16 as many as
-    give 8 row tiles of 16, 2 at 7x7; in f32 one)."""
-    tiles = padded_grid(h, w)[0] // 16
-    frames = 8 // tiles if elem == 2 and tiles < 8 else 1
-    return frames * 2 * pad_bytes(h, w, units, elem)
+    lays it out: in bf16 the 1024-byte alignment slack, the weight ring,
+    two frames' padded buffers, staged h and staged wx, and the barriers;
+    in f32 hpad and rhpad of one frame."""
+    if elem == 4:
+        return 2 * pad_bytes(h, w, units, 4)
+    p = gates_plan(h, w, units)
+    return (1024 + p["stages"] * 128 * p["bn1"]
+            + 2 * (p["nbuf"] * p["padb"] + p["hsb"] + p["wxb"])
+            + 16 * p["stages"] + 64)
 
 
 def kernel_takes(h: int, w: int, units: int, dtype: torch.dtype,
                  kernel: tuple[int, int] = (3, 3)) -> bool:
-    """Whether B4 takes U units on an H x W grid in `dtype` (wx's): exactly
-    when B2 takes it (`convgru_vjp2.kernel_takes`) and phase G's shared
-    memory fits. Phase W takes every U that is a multiple of 16."""
+    """Whether B4 takes U units on an H x W grid in `dtype` (wx's): when B2
+    takes it (`convgru_vjp2.kernel_takes`) and phases G and W fit. This is
+    also the rule of V2's backward, which runs the same three kernels."""
     from . import convgru_vjp2
 
+    elem = _DTYPES.get(dtype)
     return (convgru_vjp2.kernel_takes(h, w, units, dtype, kernel)
-            and gates_smem_bytes(h, w, units, _DTYPES[dtype]) <= SMEM_LIMIT)
+            and gates_smem_bytes(h, w, units, elem) <= SMEM_LIMIT
+            and wgrad_takes(h, w, units, elem))
 
 
-# CTAs of phase W that an H100 holds at once (two per SM on 132 SMs): the
-# split-K slices fill them, a function of the shapes alone
-WGRAD_SLOTS = 264
-WGRAD_TILE, WGRAD_CHUNK = 128, 32  # its output tile and K chunk
+# Phase W's plan (csrc/convgru_wgrad.cu). bf16: tiles of 64 input channels
+# (all nine taps) by 64 output columns, one CTA per SM; f32: 128 x 128
+# single-tap tiles, two CTAs per SM. The split-K slices fill the card's
+# slots, a function of the shapes alone.
+WGRAD_BLOCK, WGRAD_STAGES, WGRAD_SLOTS = 64, 3, 132
+WGRAD_F32_TILE, WGRAD_F32_CHUNK, WGRAD_F32_SLOTS = 128, 32, 264
 
 
-def wgrad_tiles(units: int) -> int:
-    """Output tiles of 128 x 128 of phase W: dU_zr [9U, 2U] and dU_c
-    [9U, U]."""
-    rows = -(-9 * units // WGRAD_TILE)
-    return rows * (-(-2 * units // WGRAD_TILE) + -(-units // WGRAD_TILE))
+def wgrad_grid(h: int, w: int) -> tuple[int, int, int]:
+    """(RS, P, XR) of phase W's bf16 K grid: positions per row (W + 1
+    rounded up to 8, so a row shift is whole swizzle atoms), K rows per
+    frame ((H + 1) rows, rounded up to 16), rows of a shifted input copy
+    (P and a zero block of RS rows above and below)."""
+    rs = -(-(w + 1) // 8) * 8
+    p = -(-(h + 1) * rs // 16) * 16
+    return rs, p, p + 2 * rs
 
 
-def wgrad_slices(units: int, frames: int, hw: int) -> int:
-    """Phase W's split of K = frames * H * W: as many slices as fill
-    WGRAD_SLOTS, none emptier than one K chunk."""
-    chunks = -(-frames * hw // WGRAD_CHUNK)
-    return max(1, min(chunks, WGRAD_SLOTS // wgrad_tiles(units)))
+def wgrad_tiles(h: int, w: int, units: int, elem: int) -> int:
+    """Output tiles of phase W: in bf16 channel blocks x (column blocks of
+    dU_zr [.., 2U] + of dU_c [.., U]), blocks of 64; in f32 128 x 128
+    tiles of dU_zr [9U, 2U] and dU_c [9U, U]."""
+    if elem == 2:
+        def blocks(n):
+            return -(-n // WGRAD_BLOCK)
+        return blocks(units) * (blocks(2 * units) + blocks(units))
+    rows = -(-9 * units // WGRAD_F32_TILE)
+    return rows * (-(-2 * units // WGRAD_F32_TILE)
+                   + -(-units // WGRAD_F32_TILE))
+
+
+def wgrad_slices(frames: int, h: int, w: int, units: int, elem: int) -> int:
+    """Phase W's split of K: as many slices as fill the card's slots with
+    the tiles, in bf16 no more than the frames (a slice is whole frames),
+    in f32 no more than the K chunks of 32 positions."""
+    limit = (frames if elem == 2
+             else -(-frames * h * w // WGRAD_F32_CHUNK))
+    slots = WGRAD_SLOTS if elem == 2 else WGRAD_F32_SLOTS
+    return max(1, min(limit, slots // wgrad_tiles(h, w, units, elem)))
+
+
+def wgrad_smem_bytes(h: int, w: int, units: int, elem: int) -> int:
+    """Shared memory of one CTA of phase W: in bf16 the alignment slack,
+    two operand buffers (three shifted input copies and the cotangent tile
+    in 128-byte rows), the f32 ring of input and cotangent boxes and its
+    barriers; in f32 two stages of 32-row A and B chunks."""
+    if elem == 4:
+        return 2 * 2 * WGRAD_F32_CHUNK * (WGRAD_F32_TILE + 4) * 4
+    _, p, xr = wgrad_grid(h, w)
+    return (1024 + 2 * (3 * xr + p) * 128
+            + WGRAD_STAGES * 2 * h * w * WGRAD_BLOCK * 4 + 8 * WGRAD_STAGES)
+
+
+def wgrad_takes(h: int, w: int, units: int, elem: int) -> bool:
+    """Whether phase W takes the shapes: every U that is a multiple of 16;
+    in bf16 a frame must fit one TMA box (H*W <= 256) and the buffers
+    shared memory."""
+    if units < 16 or units % 16:
+        return False
+    return elem == 4 or (h * w <= 256 and wgrad_smem_bytes(h, w, units, 2)
+                         <= SMEM_LIMIT)
+
+
+def gates_weight(kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A [3,3,U,N] weight as phase G reads it: in bf16 [N][9U], each
+    output column's K = (dy, dx, cin) contiguous (the K-major tile TMA
+    brings); in f32 the plain [9U][N]."""
+    units, n = kernel.shape[2], kernel.shape[3]
+    flat = kernel.to(dtype).reshape(9 * units, n)
+    return aligned((flat.t() if dtype == torch.bfloat16 else flat)
+                   .contiguous())
 
 
 def _launch_gates(uzr, uc, wx, h0, ys) -> tuple[torch.Tensor, ...]:
@@ -252,8 +349,7 @@ def _launch_gates(uzr, uc, wx, h0, ys) -> tuple[torch.Tensor, ...]:
     wx = aligned(wx.contiguous())
     h0 = aligned(h0.float().contiguous())
     ys = aligned(ys.float().contiguous())
-    wzr = pack_slices(uzr, 1, wx.dtype)
-    wc = pack_slices(uc, 1, wx.dtype)
+    wzr, wc = (gates_weight(k, wx.dtype) for k in (uzr, uc))
     outs = [torch.empty((t, b, hh, ww, units), dtype=torch.float32,
                         device=device) for _ in range(5)]
     build.launch("convgru_bwd_gates", device, wx.data_ptr(), h0.data_ptr(),
@@ -299,14 +395,19 @@ def _launch_wgrad(hprev, dzr, rh, da, compute_dtype
             f"dzr {tuple(dzr.shape)}, rh {tuple(rh.shape)}, da "
             f"{tuple(da.shape)}")
     device = build.same_device("convgru_wgrad", hprev, dzr, rh, da)
-    slices = wgrad_slices(units, frames, hh * ww)
+    elem = _DTYPES[wdt]
+    if not wgrad_takes(hh, ww, units, elem):
+        raise ValueError(f"convgru_wgrad does not take H={hh} W={ww} "
+                         f"U={units} in {wdt}: a frame must fit one TMA box "
+                         f"(H*W <= 256) and its buffers shared memory")
+    slices = wgrad_slices(frames, hh, ww, units, elem)
     ins = [aligned(x.float().contiguous()) for x in (hprev, dzr, rh, da)]
     f32 = dict(dtype=torch.float32, device=device)
     workspace = torch.empty(slices * 27 * units * units, **f32)
     out = torch.empty(27 * units * units, **f32)
     build.launch("convgru_wgrad", device, *(x.data_ptr() for x in ins),
                  workspace.data_ptr(), out.data_ptr(), frames, slices, hh,
-                 ww, units, _DTYPES[wdt])
+                 ww, units, elem)
     with _count_lock:
         wgrad_launches += 1
     mfu.add_kernel_flops("convgru_wgrad", flops(frames, 1, hh, ww, units, 3))

@@ -1,20 +1,21 @@
 """ConvGRU custom backward, v2 (decomposed): the hand-written CUDA kernel of
 its sequential stage, that stage's plain version, and the autograd Function
-the trainer runs.
+the trainer runs, whose three stages are B4's three kernels.
 
 Replaces the TPU kernel `_dh_bwd_kernel` of the JAX package's
 `ops/pallas/convgru_vjp2.py` (`_dh_bwd_pallas`, custom VJP `convgru_fused`,
-entry point `convgru_scan_trainable_v2`). As there, only the inherently
-sequential piece is a kernel:
+entry point `convgru_scan_trainable_v2`). There only the inherently
+sequential piece is a kernel and XLA computes stages 1 and 3; here all
+three are hand-written kernels, the phases of B4 (`convgru_vjp.py`):
 
-  stage 1 (library convs, batched over T*B): recompute u, r, c from the
-      stored hidden states;
+  stage 1 (phase G, `convgru_vjp.bwd_gates`, all T*B frames at once):
+      recompute u, r, c from the stored hidden states;
   stage 2 (kernel `csrc/convgru_bwd.cu`, reverse time, one thread-block
       cluster per batch element with the output channels split over its
       CTAs, as kernel B1): propagate dh_{t-1} = dh_t.u + drh.r +
       conv_T(dzr, U_zr), emitting dzr = [du_pre|dr_pre] and da per step;
-  stage 3 (one matmul each): dU_zr = sum_t patches(h_{t-1})^T dzr_t,
-      dU_c = sum_t patches(r.h)^T da_t, and dwx = [dzr|da].
+  stage 3 (phase W, `convgru_vjp.wgrad`): dU_zr = sum_t patches(h_{t-1})^T
+      dzr_t, dU_c = sum_t patches(r.h)^T da_t; and dwx = [dzr|da].
 
 Bound of the kernel on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s) at T=42,
 U=128 in bf16: bytes, eight f32 [T,B,7,7,U] streams plus the weights (68 MB
@@ -27,7 +28,9 @@ f32). The stage-1 recompute rounds h_{t-1} and r*h_{t-1} exactly as the
 forward kernel did, so it sees the forward's gates.
 
 On a CUDA tensor `dh_bwd` launches the kernel or raises (no fallback); on
-a CPU tensor it runs the plain version, `dh_bwd_plain`.
+a CPU tensor it runs the plain version, `dh_bwd_plain`. So V2's backward
+launches G, B2 and W once each on the card, and on the CPU runs
+`recompute_gates`, `dh_bwd_plain` and `wgrad_plain`.
 """
 
 from __future__ import annotations
@@ -42,8 +45,9 @@ from . import build
 from .convgru import (SMEM_LIMIT, acc_bytes, align128, aligned, check_fits,
                       cluster_size, convgru_recurrence, flops, pack_slices,
                       pad_bytes)
-from .convgru_vjp import (conv3x3, conv3x3_transpose, convgru_bwd_phased,
-                          hprev_of, mode_of, transposed_weight, wgrad_plain)
+from .convgru_vjp import (bwd_gates, conv3x3, conv3x3_transpose,
+                          convgru_bwd_phased, hprev_of, mode_of,
+                          transposed_weight, wgrad)
 
 # Launches of the CUDA kernel in this process; chip_smoke.py resets it to
 # 0 before driving a path and reads it after.
@@ -151,8 +155,9 @@ def dh_bwd(u, r, c, hprev, g, uzr, uc, compute_dtype=None
 
 
 def recompute_gates(uzr, uc, wx, h0, ys) -> tuple[torch.Tensor, ...]:
-    """Stage 1: u, r, c, h_{t-1} and r*h_{t-1} [T,B,H,W,U] in f32 from the
-    forward's wx, h0 and ys, as two library convs over all T*B frames.
+    """Stage 1's plain version (phase G's): u, r, c, h_{t-1} and r*h_{t-1}
+    [T,B,H,W,U] in f32 from the forward's wx, h0 and ys, as two convs over
+    all T*B frames.
     The conv operands round as the forward kernel's did (by wx's dtype),
     so these are the gates the forward saw."""
     cdt = mode_of(wx)
@@ -177,7 +182,8 @@ def recompute_gates(uzr, uc, wx, h0, ys) -> tuple[torch.Tensor, ...]:
 class ConvGRUFusedV2(torch.autograd.Function):
     """The differentiable recurrence over precomputed gates, the port of
     `convgru_fused`: forward is kernel B1 (`convgru_recurrence`), backward
-    the three stages above. Saves only ys, like the JAX custom VJP."""
+    the three stages above (phase G, B2, phase W). Saves only ys, like the
+    JAX custom VJP."""
 
     @staticmethod
     def forward(ctx, uzr, uc, wx, h0):
@@ -188,10 +194,11 @@ class ConvGRUFusedV2(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         uzr, uc, wx, h0, ys = ctx.saved_tensors
-        # stage 1 and 3 library calls, stage 2 kernel B2; dwx = [dzr|da]
+        # phase G, kernel B2, phase W (on a CPU tensor their plain
+        # versions); dwx = [dzr|da]
         dwx, dh0, duzr, duc = convgru_bwd_phased(
-            uzr, uc, wx, ys, h0, g, gates=recompute_gates, recursion=dh_bwd,
-            tail=wgrad_plain)
+            uzr, uc, wx, ys, h0, g, gates=bwd_gates, recursion=dh_bwd,
+            tail=wgrad)
         return (duzr.to(uzr.dtype), duc.to(uc.dtype), dwx.to(wx.dtype),
                 dh0.to(h0.dtype))
 
@@ -200,8 +207,8 @@ def convgru_scan_trainable_v2(params, x_tbhwc: torch.Tensor,
                               h0: torch.Tensor, compute_dtype=torch.bfloat16
                               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Drop-in for `ConvGRU.scan`: kernel B1 forward, decomposed backward
-    with kernel B2. The input-side conv stays one library conv,
-    differentiated by autograd. Returns (ys[-1], ys)."""
+    (phase G, kernel B2, phase W). The input-side conv stays one library
+    conv, differentiated by autograd. Returns (ys[-1], ys)."""
     fused = ConvGRU.fuse(params)
     wx_all = ConvGRU.input_gates(fused, x_tbhwc, compute_dtype)
     ys = ConvGRUFusedV2.apply(fused["Uh_zr"], fused["U_c"], wx_all,

@@ -123,16 +123,22 @@ def test_b4_takes_exactly_what_b2_takes(hw, dtype):
                 == v2.kernel_takes(*hw, units, dtype)), units
 
 
-def test_wgrad_slices_are_a_function_of_the_shapes():
-    """Phase W's split-K: 27 tiles at U=128, 9 slices at T*B = 336 and 672
-    frames (243 CTAs: one wave at two per SM); never more slices than K
+@pytest.mark.parametrize("elem", [2, 4])
+def test_wgrad_slices_are_a_function_of_the_shapes(elem):
+    """Phase W's split-K. bf16: 12 tiles of 64 channels (nine taps) by 64
+    columns at U=128, 11 slices at T*B = 336 and 672 frames (132 CTAs: one
+    wave at one per SM), never more slices than frames. f32: 27 tiles of
+    128 x 128, 9 slices (243 CTAs, two per SM), never more slices than K
     chunks of 32."""
-    assert v1.wgrad_tiles(128) == 27
-    assert v1.wgrad_slices(128, 336, 49) == v1.wgrad_slices(128, 672, 49) == 9
-    assert v1.wgrad_slices(16, 1, 49) == 2
-    for units in (16, 32, 48, 64, 128):
-        tiles = v1.wgrad_tiles(units)
-        assert tiles * v1.wgrad_slices(units, 1000, 49) <= v1.WGRAD_SLOTS
+    tiles, slots, slices, few = {2: (12, 132, 11, 1), 4: (27, 264, 9, 2)}[elem]
+    assert v1.wgrad_tiles(7, 7, 128, elem) == tiles
+    assert (v1.wgrad_slices(336, 7, 7, 128, elem)
+            == v1.wgrad_slices(672, 7, 7, 128, elem) == slices)
+    assert v1.wgrad_slices(1, 7, 7, 16, elem) == few
+    for units in (16, 32, 48, 64, 128, 256):
+        for hw in ((7, 7), (5, 9)):
+            n = v1.wgrad_tiles(*hw, units, elem)
+            assert n * v1.wgrad_slices(1000, *hw, units, elem) <= slots
 
 
 def test_conv_helpers_match_jax():
@@ -215,6 +221,48 @@ def test_trainable_scan_bf16_tracks_plain_autograd(version):
         a, b = grads[0][k].ravel(), grads[1][k].ravel()
         assert np.corrcoef(a, b)[0, 1] >= 0.999, k
         assert np.abs(a - b).max() <= 0.05 * np.abs(a).max(), k
+
+
+def test_v2_backward_runs_phases_g_and_w_and_matches_jax_v2(monkeypatch):
+    """V2's backward composes phase G (`bwd_gates`), B2 and phase W
+    (`wgrad`), once each; on the CPU those are `recompute_gates`,
+    `dh_bwd_plain` and `wgrad_plain`, so the loss and every gradient stay
+    those of the JAX V2 (`convgru_scan_trainable_v2`, `_dh_bwd_pallas` in
+    interpret mode)."""
+    params, xs, h0, target = _scan_problem(seed=9)
+
+    def j_loss(p):
+        _, ys = jv2.convgru_scan_trainable_v2(
+            p, jnp.asarray(xs), jnp.asarray(h0), compute_dtype=jnp.float32,
+            interpret=True)
+        return jnp.sum((ys - jnp.asarray(target)) ** 2)
+
+    j_val, j_grads = jax.value_and_grad(j_loss)(
+        {k: jnp.asarray(v) for k, v in params.items()})
+
+    calls = []
+
+    def recording(name, fn):
+        def wrapped(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(v2, "bwd_gates", recording("G", v1.bwd_gates))
+    monkeypatch.setattr(v2, "dh_bwd", recording("B2", v2.dh_bwd))
+    monkeypatch.setattr(v2, "wgrad", recording("W", v1.wgrad))
+    tparams = {k: torch.from_numpy(v).requires_grad_()
+               for k, v in params.items()}
+    _, ys = v2.convgru_scan_trainable_v2(
+        tparams, torch.from_numpy(xs), torch.from_numpy(h0),
+        compute_dtype=torch.float32)
+    loss = ((ys - torch.from_numpy(target)) ** 2).sum()
+    loss.backward()
+    assert calls == ["G", "B2", "W"]
+    np.testing.assert_allclose(loss.item(), float(j_val), rtol=1e-5)
+    for k, p in tparams.items():
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(j_grads[k]),
+                                   err_msg=k, **GRAD_TOL)
 
 
 def test_backward_wrappers_on_cpu_are_the_plain_versions():

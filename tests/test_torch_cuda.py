@@ -195,6 +195,9 @@ def test_convgru_bwd_kernel_matches_plain(cuda_no_tf32, t, b, hw, units,
 
 # B4 and its phases: SHAPES and the U=64 shapes, and B=16 at U=128
 B4_SHAPES = SHAPES + C4_SHAPES + [(3, 16, (7, 7), 128)]
+# phases G and W also at the reference's training batch (B=28, U=128) and
+# at gaze_pupil_grcn's shape (U=64, T=35, B=7)
+GW_SHAPES = B4_SHAPES + [(4, 28, (7, 7), 128), (35, 7, (7, 7), 64)]
 
 
 def _b4_inputs(t, b, hw, units, dtype, device):
@@ -226,7 +229,7 @@ def test_convgru_bwd_mono_kernel_matches_plain(cuda_no_tf32, t, b, hw, units,
         _assert_close(k, a, dtype)
 
 
-@pytest.mark.parametrize("t,b,hw,units", B4_SHAPES)
+@pytest.mark.parametrize("t,b,hw,units", GW_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_convgru_bwd_gates_kernel_matches_recompute_gates(
         cuda_no_tf32, t, b, hw, units, dtype):
@@ -243,7 +246,7 @@ def test_convgru_bwd_gates_kernel_matches_recompute_gates(
         _assert_close(k, a, dtype)
 
 
-@pytest.mark.parametrize("t,b,hw,units", B4_SHAPES)
+@pytest.mark.parametrize("t,b,hw,units", GW_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_convgru_wgrad_kernel_matches_plain(cuda_no_tf32, t, b, hw, units,
                                             dtype):
@@ -272,14 +275,25 @@ def test_convgru_bwd_mono_is_bitwise_repeatable(cuda_no_tf32, dtype):
         assert torch.equal(a, k)
 
 
-def test_convgru_bwd_mono_runs_no_library_product(cuda_no_tf32, monkeypatch):
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_convgru_bwd_mono_runs_no_library_product(cuda_no_tf32, monkeypatch,
+                                                  version):
     """With every library product that could stand in for B4's convs and
-    contractions made to raise, B4 still runs on the card: its products are
-    all in the hand-written kernels."""
+    contractions made to raise, B4 (v1) and V2's backward (G, B2 and W
+    inside `ConvGRUFusedV2`) still run on the card: their products are all
+    in the hand-written kernels."""
     from recurrent_gaze_prediction_tpu_torch.ops import layers
 
     args = _b4_inputs(4, 8, (7, 7), 128, torch.bfloat16, cuda_no_tf32)
     want = v1.convgru_bwd_plain(*args)
+    uzr, uc, wx, ys, h0, g = args
+
+    def v2_backward():
+        leaves = [x.detach().requires_grad_() for x in (uzr, uc, wx, h0)]
+        with torch.enable_grad():
+            out = v2.ConvGRUFusedV2.apply(*leaves)
+        duzr, duc, dwx, dh0 = torch.autograd.grad(out, leaves, g)
+        return dwx.float(), dh0, duzr, duc
 
     def refuse(*_, **__):
         raise AssertionError("a library product ran on B4's path")
@@ -291,9 +305,13 @@ def test_convgru_bwd_mono_runs_no_library_product(cuda_no_tf32, monkeypatch):
                          (v1, "conv3x3"), (v2, "conv3x3"),
                          (v2, "conv3x3_transpose")):
         monkeypatch.setattr(target, name, refuse)
-    got = v1.convgru_bwd(*args)
+    before = _b4_counts()
+    got = v1.convgru_bwd(*args) if version == "v1" else v2_backward()
     torch.cuda.synchronize()
     monkeypatch.undo()
+    # G, B2 and W once each (and B4 as a whole for v1)
+    assert _b4_counts() == tuple(
+        n + (version == "v1" or i > 0) for i, n in enumerate(before))
     for k, a in zip(got, want):
         _assert_close(k, a, torch.bfloat16)
 
@@ -301,13 +319,21 @@ def test_convgru_bwd_mono_runs_no_library_product(cuda_no_tf32, monkeypatch):
 @pytest.mark.parametrize("units", [16, 32, 48, 64, 128])
 @pytest.mark.parametrize("hw", [(7, 7), (5, 9)])
 def test_b4_phase_reckoning_matches_the_sources(cuda_no_tf32, units, hw):
+    """Phase G's shared memory and phase W's plan (tiles, slices, shared
+    memory), reckoned in Python, against the C sources' own."""
     from recurrent_gaze_prediction_tpu_torch.ops.kernels import build
 
     lib = build.load()
     for elem in (2, 4):
         assert v1.gates_smem_bytes(*hw, units, elem) == \
             lib.convgru_bwd_gates_smem_bytes(*hw, units, elem)
-    assert v1.wgrad_tiles(units) == lib.convgru_wgrad_tiles(units)
+        assert v1.wgrad_tiles(*hw, units, elem) == \
+            lib.convgru_wgrad_tiles(*hw, units, elem)
+        assert v1.wgrad_smem_bytes(*hw, units, elem) == \
+            lib.convgru_wgrad_smem_bytes(*hw, units, elem)
+        for frames in (1, 7, 336, 1176):
+            assert v1.wgrad_slices(frames, *hw, units, elem) == \
+                lib.convgru_wgrad_slices(frames, *hw, units, elem)
 
 
 @pytest.mark.parametrize("version", ["v1", "v2"])
@@ -734,7 +760,8 @@ def test_kernel_route_counts_the_plain_route_contractions(cuda_no_tf32):
     adds its own count: at T=42, B=8, 512 -> 128 in bf16 the kernel route
     counts what the plain route counts, B1's and B2's share each
     T*B*49*9*U*3U*2 (14.57 GFLOP), B3's T*B*49*9*U*4U*2; training adds
-    only ConvGRUFusedV2's gate recompute."""
+    only ConvGRUFusedV2's gate recompute (phase G; phase W counts what the
+    plain route's weight gradients count)."""
     from recurrent_gaze_prediction_tpu_torch.ops.kernels.convgru_vjp2 import (
         convgru_scan_trainable_v2)
 
@@ -771,6 +798,7 @@ def test_kernel_route_counts_the_plain_route_contractions(cuda_no_tf32):
     recompute = _flops(v2.recompute_gates, fused["Uh_zr"], fused["U_c"], wx,
                        h0, ys)
     assert kernel["convgru_fwd"] == kernel["convgru_bwd"] == want
+    assert kernel["convgru_bwd_gates"] == kernel["convgru_wgrad"] == want
     assert sum(recompute.values()) == want
     assert sum(kernel.values()) == sum(plain.values()) + want
 
