@@ -13,6 +13,7 @@ rows (`parallel.shard_batch`) to its device.
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from typing import Iterator, Optional, Union
@@ -20,6 +21,7 @@ from typing import Iterator, Optional, Union
 import numpy as np
 import torch
 
+from ..train.profiler import count, span
 from ..utils import resolve_device
 from .datasets import ClipDataset
 
@@ -53,6 +55,7 @@ def device_put_batch(batch: dict, device: torch.device,
             out[key] = staged.copy_(host).to(device, non_blocking=True)
         else:
             out[key] = host.to(device=device, dtype=dtype)
+    count("input.bytes", sum(t.nbytes for t in out.values()))
     return out
 
 
@@ -108,14 +111,15 @@ def _prefetch(dataset: ClipDataset, batch_size: int, device: torch.device,
                 if max_batches is not None and produced >= max_batches:
                     break
                 batch = dataset.next_batch(batch_size)
-                if cuda:
-                    with torch.cuda.stream(side):
-                        tensors = put(batch)
-                        ready = torch.cuda.Event()
-                        ready.record(side)
-                    item = (tensors, ready)
-                else:
-                    item = (put(batch), None)
+                with span("input.put", request=produced):
+                    if cuda:
+                        with torch.cuda.stream(side):
+                            tensors = put(batch)
+                            ready = torch.cuda.Event()
+                            ready.record(side)
+                        item = (tensors, ready)
+                    else:
+                        item = (put(batch), None)
                 if not put_or_abandon(item):
                     return
                 produced += 1
@@ -128,20 +132,22 @@ def _prefetch(dataset: ClipDataset, batch_size: int, device: torch.device,
                               name="prefetch_batches")
     thread.start()
     try:
-        while True:
-            item = q.get()
-            if item is None:
-                break
-            if isinstance(item, Exception):
-                raise item
-            tensors, ready = item
-            if ready is not None:
-                consumer = torch.cuda.current_stream(device)
-                consumer.wait_event(ready)
-                for t in tensors.values():
-                    # copied on the side stream, read on this one: the
-                    # allocator must not reuse it before this stream is done
-                    t.record_stream(consumer)
+        for taken in itertools.count():  # the worker's `produced`, in order
+            with span("input.wait", request=taken):
+                item = q.get()
+                if item is None:
+                    break
+                if isinstance(item, Exception):
+                    raise item
+                tensors, ready = item
+                if ready is not None:
+                    consumer = torch.cuda.current_stream(device)
+                    consumer.wait_event(ready)
+                    for t in tensors.values():
+                        # copied on the side stream, read on this one: the
+                        # allocator must not reuse it before this stream
+                        # is done
+                        t.record_stream(consumer)
             yield tensors
     finally:
         stop.set()

@@ -26,6 +26,7 @@ from ..ops.layers import (conv2d_transpose, dropout, frozen_batch_norm,
                           linear, matmul_f32)
 from ..ops.normalize import (kl_divergence_2d, normalize_probability_map,
                              softmax_2d, softmax_cross_entropy_2d)
+from ..train.profiler import span
 
 
 def compute_dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -49,15 +50,16 @@ def apply_c3d_projection(params, c3d: torch.Tensor, *, keep_prob: float,
                          compute_dtype=None) -> torch.Tensor:
     """[B,T,1024,7,7] -> [B,T,7,7,dim_proj] with dropout. Casts to the
     compute dtype FIRST, then swaps (C, HW), then one matmul."""
-    b, t, c = c3d.shape[:3]
-    xb = c3d.reshape(b * t, c, 49)
-    if compute_dtype is not None:
-        xb = xb.to(compute_dtype)
-    flat = xb.transpose(1, 2).reshape(-1, c)  # [B*T*49, C]
-    proj = linear(flat, params["proj_c3d_W"], params["proj_c3d_b"],
-                  compute_dtype=compute_dtype, out_dtype=compute_dtype)
-    proj = dropout(proj, keep_prob, generator, deterministic=not train)
-    return proj.reshape(b, t, 7, 7, -1)
+    with span("gaze.projection"):
+        b, t, c = c3d.shape[:3]
+        xb = c3d.reshape(b * t, c, 49)
+        if compute_dtype is not None:
+            xb = xb.to(compute_dtype)
+        flat = xb.transpose(1, 2).reshape(-1, c)  # [B*T*49, C]
+        proj = linear(flat, params["proj_c3d_W"], params["proj_c3d_b"],
+                      compute_dtype=compute_dtype, out_dtype=compute_dtype)
+        proj = dropout(proj, keep_prob, generator, deterministic=not train)
+        return proj.reshape(b, t, 7, 7, -1)
 
 
 # ----------------------------------------------------------------- decoder
@@ -173,8 +175,9 @@ def apply_decoder(params, x: torch.Tensor, *, keep_prob: float,
     up to float reassociation."""
     fn = (apply_decoder_stagewise if x.shape[0] < _COMPOSE_MIN_N
           else apply_decoder_composed)
-    return fn(params, x, keep_prob=keep_prob, generator=generator,
-              train=train, compute_dtype=compute_dtype)
+    with span("gaze.decoder"):
+        return fn(params, x, keep_prob=keep_prob, generator=generator,
+                  train=train, compute_dtype=compute_dtype)
 
 
 # ------------------------------------------------------------------ losses

@@ -40,6 +40,7 @@ from ..ops.cells import ConvGRU
 from ..ops.kernels import convgru, convgru_vjp
 from ..ops.kernels.convgru_vjp2 import convgru_scan_trainable_v2
 from ..ops.layers import dropout, linear
+from ..train.profiler import span
 from .common import (GazeModel, apply_c3d_projection, apply_decoder,
                      compute_dtype_of, init_c3d_projection, init_decoder)
 
@@ -103,7 +104,8 @@ class _GRCNTrunk(GazeModel):
             scan = ConvGRU.scan
         else:
             scan = self.train_scan if train else convgru.convgru_scan
-        _, ys = scan(self.cell, xs, h0, compute_dtype=cdt)
+        with span("gaze.recurrence"):
+            _, ys = scan(self.cell, xs, h0, compute_dtype=cdt)
         return ys.transpose(0, 1).reshape(b * t, 7, 7, units)
 
 

@@ -26,6 +26,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops.cells import ConvLSTM
 from ..ops.kernels import convlstm
+from ..train.profiler import span
 from .common import (GazeModel, apply_c3d_projection, apply_decoder,
                      compute_dtype_of, init_c3d_projection, init_decoder)
 
@@ -72,7 +73,8 @@ class GazeLSTM(GazeModel):
         self.last_route = self.recurrence_route(train)
         scan = (convlstm.convlstm_scan if self.last_route == "kernel"
                 else ConvLSTM.scan)
-        _, ys = scan(self.cell, xs, carry0, compute_dtype=cdt)
+        with span("gaze.recurrence"):
+            _, ys = scan(self.cell, xs, carry0, compute_dtype=cdt)
         folded = ys.transpose(0, 1).reshape(b * t, 7, 7, units)
         maps = apply_decoder(self.decoder, folded, keep_prob=keep,
                              generator=generator, train=train,

@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.layers import resize_bilinear
 from ..ops.normalize import normalize_probability_map
+from ..train.profiler import span
 from . import c3d as c3d_model
 from .common import GazeModel, sequence_loss
 
@@ -90,39 +91,42 @@ def extract_and_predict(c3d_params: dict, gaze_model: GazeModel,
     # gaze_framewise_shallownet)
     feats = None
     if gaze_model.reads_c3d:
-        n_windows = f // WINDOW
-        clips = video_frames[:, :n_windows * WINDOW].reshape(
-            b * n_windows, WINDOW, *video_frames.shape[2:])
-        if window_constraint is not None:
-            clips = window_constraint(clips)
-        clips = c3d_model.preprocess_frames(clips, mean_cube=mean_cube)
-        tower_grad = torch.is_grad_enabled() and any(
-            p.requires_grad for p in c3d_params.values())
-        with torch.set_grad_enabled(tower_grad):
-            if c3d_forward is None:
-                feats = c3d_model.apply(c3d_params, clips,
-                                        feature_layer="conv5b",
-                                        compute_dtype=compute_dtype)
-            else:
-                feats = c3d_forward(c3d_params, clips)
-        feats = c3d_model.conv5b_to_rgp(feats)      # [B*W, 1024, 7, 7]
-        if stream_constraint is not None:
-            feats = stream_constraint(feats)
-        feats = feats.reshape(b, n_windows, 1024, 7, 7)[:, :t]
+        with span("pipeline.tower"):
+            n_windows = f // WINDOW
+            clips = video_frames[:, :n_windows * WINDOW].reshape(
+                b * n_windows, WINDOW, *video_frames.shape[2:])
+            if window_constraint is not None:
+                clips = window_constraint(clips)
+            clips = c3d_model.preprocess_frames(clips, mean_cube=mean_cube)
+            tower_grad = torch.is_grad_enabled() and any(
+                p.requires_grad for p in c3d_params.values())
+            with torch.set_grad_enabled(tower_grad):
+                if c3d_forward is None:
+                    feats = c3d_model.apply(c3d_params, clips,
+                                            feature_layer="conv5b",
+                                            compute_dtype=compute_dtype)
+                else:
+                    feats = c3d_forward(c3d_params, clips)
+            feats = c3d_model.conv5b_to_rgp(feats)  # [B*W, 1024, 7, 7]
+            if stream_constraint is not None:
+                feats = stream_constraint(feats)
+            feats = feats.reshape(b, n_windows, 1024, 7, 7)[:, :t]
 
     # --- frame stream: [15::5], resized to 98x98, [0, 1] scale. Computed
     # only for a model whose forward reads frames (of the ten families,
     # gaze_framewise_shallownet): the others ignore them, and the JAX
     # package's compiled program drops this dead resize for them too.
-    sub = None
-    if gaze_model.reads_frames:
-        sub = video_frames[:, FRAME_OFFSET::FRAME_STRIDE][:, :t].float()
-        sub = resize_bilinear(sub.reshape(b * t, *sub.shape[2:]),
-                              FRAME_HW).reshape(b, t, *FRAME_HW, 3) / 255.0
+    with span("pipeline.head"):
+        sub = None
+        if gaze_model.reads_frames:
+            sub = video_frames[:, FRAME_OFFSET::FRAME_STRIDE][:, :t].float()
+            sub = resize_bilinear(sub.reshape(b * t, *sub.shape[2:]),
+                                  FRAME_HW).reshape(b, t, *FRAME_HW, 3)
+            sub = sub / 255.0
 
-    if logits:
-        return gaze_model(sub, feats, train=train, generator=generator)
-    return gaze_model.predict(sub, feats)
+        if logits:
+            return gaze_model(sub, feats, train=train, generator=generator)
+        return gaze_model.predict(sub, feats)
 
 
 def make_fused_predict(gaze_model: GazeModel, *, num_frames: int,
@@ -258,9 +262,11 @@ def make_fused_grads_fn(loss_fn: Callable, *, finetune_c3d: bool,
         else:
             c3d_params = {k: v.detach() for k, v in c3d_params.items()}
             wrt = {("gaze", k): v for k, v in gaze_params.items()}
-        loss = loss_fn(c3d_params, batch, generator)
-        grads = torch.autograd.grad(loss, list(wrt.values()),
-                                    allow_unused=True)
+        with span("train.forward"):
+            loss = loss_fn(c3d_params, batch, generator)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, list(wrt.values()),
+                                        allow_unused=True)
         by_tree: dict = {"gaze": {}, "c3d": {}}
         for (tree, name), p, g in zip(wrt, wrt.values(), grads):
             by_tree[tree][name] = torch.zeros_like(p) if g is None else g
@@ -326,16 +332,22 @@ def make_fused_train_step(gaze_model: GazeModel, tx, *,
                                    accum_steps=accum_steps)
 
     def step(state, batch: dict, generator: Optional[torch.Generator] = None):
+        with span("train.step", request=state.step + 1):
+            return _step(state, batch, generator)
+
+    def _step(state, batch: dict, generator: Optional[torch.Generator]):
         if flip:
-            batch = flip_half_video_batch(batch, generator)
+            with span("train.flip"):
+                batch = flip_half_video_batch(batch, generator)
         loss, grads = grads_fn(state.params, state.c3d_params, batch,
                                generator)
-        if finetune_c3d:
-            gaze_opt, c3d_opt = state.opt_state
-            tx.apply(state.params, grads[0], gaze_opt)
-            c3d_tx.apply(state.c3d_params, grads[1], c3d_opt)
-        else:
-            tx.apply(state.params, grads, state.opt_state)
+        with span("train.optimizer"):
+            if finetune_c3d:
+                gaze_opt, c3d_opt = state.opt_state
+                tx.apply(state.params, grads[0], gaze_opt)
+                c3d_tx.apply(state.c3d_params, grads[1], c3d_opt)
+            else:
+                tx.apply(state.params, grads, state.opt_state)
         state.step += 1
         return state, {"loss": loss, "step": state.step}
 

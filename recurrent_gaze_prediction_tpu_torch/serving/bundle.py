@@ -25,6 +25,7 @@ in the JAX package's layout (`bridge.qparams_to_jax`), so either package's
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 from typing import Optional
@@ -41,6 +42,7 @@ from ..models.gaze_grcn import GazeGRCN
 from ..models.pipeline import make_fused_predict
 from ..models.quant import make_int8_c3d_forward
 from ..models.streaming import grcn_stream_step
+from ..train.profiler import span
 
 MANIFEST = "manifest.json"
 PARAMS = "params.npz"
@@ -202,8 +204,13 @@ def fused_predict_fn(model: GazeModel):
     dev = next(model.parameters()).device
     c3d_params = model.bundle_c3d_params
 
+    calls = itertools.count()
+
     def predict(video) -> torch.Tensor:
-        return fn(c3d_params, torch.as_tensor(video).to(dev))
+        with span("serve.predict", request=next(calls)):
+            with span("serve.upload"):
+                video = torch.as_tensor(video).to(dev)
+            return fn(c3d_params, video)
 
     return predict
 
@@ -223,8 +230,13 @@ def fused_int8_predict_fn(model: GazeModel):
                             c3d_forward=make_int8_c3d_forward(qparams))
     dev = next(model.parameters()).device
 
+    calls = itertools.count()
+
     def predict(video) -> torch.Tensor:
-        return fn(qparams, torch.as_tensor(video).to(dev))
+        with span("serve.predict", request=next(calls)):
+            with span("serve.upload"):
+                video = torch.as_tensor(video).to(dev)
+            return fn(qparams, video)
 
     return predict
 

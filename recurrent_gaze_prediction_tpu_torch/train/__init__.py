@@ -1,32 +1,38 @@
 """Training: state and optimizer, schedules, the fit loops (feature-fed and
 from raw video), checkpoints and the metric writer (the port's counterpart
-of the JAX package's `train/`)."""
+of the JAX package's `train/`).
 
-from . import schedules
-from .checkpoint import (Checkpointer, load_params, restore_shallownet,
-                         save_params)
-from .fused import FusedTrainState, fit_fused
-from .loop import fit
-from .state import (Optimizer, TrainState, build_optimizer, build_schedule,
-                    create_train_state, flip_half_batch, make_eval_step,
-                    make_predict_fn, make_train_step)
+The names below load with their module on first use, so that the models
+and the input pipeline can import `train.profiler` (spans) without this
+package importing them back."""
 
-__all__ = [
-    "schedules",
-    "TrainState",
-    "Optimizer",
-    "create_train_state",
-    "build_optimizer",
-    "build_schedule",
-    "flip_half_batch",
-    "make_train_step",
-    "make_eval_step",
-    "make_predict_fn",
-    "fit",
-    "FusedTrainState",
-    "fit_fused",
-    "Checkpointer",
-    "save_params",
-    "load_params",
-    "restore_shallownet",
-]
+import importlib
+
+_MODULE_OF = {
+    "Checkpointer": "checkpoint", "load_params": "checkpoint",
+    "restore_shallownet": "checkpoint", "save_params": "checkpoint",
+    "FusedTrainState": "fused", "fit_fused": "fused",
+    "fit": "loop",
+    "Optimizer": "state", "TrainState": "state", "build_optimizer": "state",
+    "build_schedule": "state", "create_train_state": "state",
+    "flip_half_batch": "state", "make_eval_step": "state",
+    "make_predict_fn": "state", "make_train_step": "state",
+}
+
+__all__ = ["schedules", *_MODULE_OF]
+
+
+def __getattr__(name: str):
+    if name in _MODULE_OF:
+        value = getattr(importlib.import_module(
+            f".{_MODULE_OF[name]}", __name__), name)
+    else:
+        try:
+            value = importlib.import_module(f".{name}", __name__)
+        except ModuleNotFoundError as exc:
+            if exc.name != f"{__name__}.{name}":
+                raise
+            raise AttributeError(
+                f"module {__name__!r} has no attribute {name!r}") from None
+    globals()[name] = value
+    return value

@@ -36,6 +36,7 @@ import torch
 from ..config import OptimizerConfig
 from ..models.common import GazeModel
 from . import schedules
+from .profiler import span
 
 
 @dataclasses.dataclass
@@ -215,9 +216,11 @@ def loss_and_grads(model: GazeModel, params: dict, batch: dict,
                    ) -> tuple[torch.Tensor, list]:
     """The train loss on `batch` (detached) and its gradient for each of
     `params` in order (zeros for a parameter it does not reach)."""
-    loss, _ = model.loss(batch, train=True, generator=generator)
-    grads = torch.autograd.grad(loss, list(params.values()),
-                                allow_unused=True)
+    with span("train.forward"):
+        loss, _ = model.loss(batch, train=True, generator=generator)
+    with span("train.backward"):
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
     return loss.detach(), [torch.zeros_like(p) if gr is None else gr
                            for p, gr in zip(params.values(), grads)]
 
@@ -240,8 +243,14 @@ def make_train_step(model: GazeModel, tx: Optimizer,
 
     def step(state: TrainState, batch: dict,
              generator: Optional[torch.Generator] = None):
+        with span("train.step", request=state.step + 1):
+            return _step(state, batch, generator)
+
+    def _step(state: TrainState, batch: dict,
+              generator: Optional[torch.Generator]):
         if flip:
-            batch = flip_half_batch(batch, generator)
+            with span("train.flip"):
+                batch = flip_half_batch(batch, generator)
         if accum_steps == 1:
             loss, grads = loss_and_grads(model, state.params, batch,
                                          generator)
@@ -262,9 +271,10 @@ def make_train_step(model: GazeModel, tx: Optimizer,
                     a + g for a, g in zip(grads, mb_grads)]
             loss = loss / accum_steps
             grads = [g / accum_steps for g in grads]
-        named = dict(zip(state.params, grads))
-        grad_norm = global_norm(grads)
-        tx.apply(state.params, named, state.opt_state)
+        with span("train.optimizer"):
+            named = dict(zip(state.params, grads))
+            grad_norm = global_norm(grads)
+            tx.apply(state.params, named, state.opt_state)
         state.step += 1
         return state, {"loss": loss, "grad_norm": grad_norm,
                        "step": state.step}

@@ -1,0 +1,10 @@
+"""The host's time to issue a train step's backward, ms per step: the
+program's `train.backward` spans (`torch.autograd.grad` over the loss)
+under its recorded `train.step` spans in the traced window."""
+
+from rgp_bench import spans
+
+
+def read(ctx):
+    return spans.per_unit_ms(spans.program_records(), "train.step",
+                             "train.backward")
