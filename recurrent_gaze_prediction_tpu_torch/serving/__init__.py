@@ -1,5 +1,5 @@
-"""Serving: bundles and their stream and fused programs, micro-batching,
-HTTP server."""
+"""Serving: bundles and their stream and fused programs, the fused
+programs' staged video upload, micro-batching, HTTP server."""
 
 from .batcher import DynamicBatcher
 from .bundle import (fused_int8_predict_fn, fused_predict_fn,

@@ -42,7 +42,8 @@ from ..models.gaze_grcn import GazeGRCN
 from ..models.pipeline import make_fused_predict
 from ..models.quant import make_int8_c3d_forward
 from ..models.streaming import grcn_stream_step
-from ..train.profiler import span
+from ..train.profiler import count, span
+from .upload import LanePool, stage_to_device
 
 MANIFEST = "manifest.json"
 PARAMS = "params.npz"
@@ -201,18 +202,8 @@ def fused_predict_fn(model: GazeModel):
     fn = make_fused_predict(
         model, num_frames=int(meta["num_frames"]),
         compute_dtype=None if cdt == "float32" else WIRE_DTYPES[cdt])
-    dev = next(model.parameters()).device
-    c3d_params = model.bundle_c3d_params
-
-    calls = itertools.count()
-
-    def predict(video) -> torch.Tensor:
-        with span("serve.predict", request=next(calls)):
-            with span("serve.upload"):
-                video = torch.as_tensor(video).to(dev)
-            return fn(c3d_params, video)
-
-    return predict
+    return _served_video(fn, model.bundle_c3d_params,
+                         next(model.parameters()).device)
 
 
 def fused_int8_predict_fn(model: GazeModel):
@@ -228,15 +219,23 @@ def fused_int8_predict_fn(model: GazeModel):
     fn = make_fused_predict(model, num_frames=int(meta["num_frames"]),
                             compute_dtype=None,
                             c3d_forward=make_int8_c3d_forward(qparams))
-    dev = next(model.parameters()).device
+    return _served_video(fn, qparams, next(model.parameters()).device)
 
+
+def _served_video(fn, tower, dev: torch.device):
+    """`fn(tower, video)` served: each call uploads its video through the
+    program's upload lanes (`serving.upload`; directly on a CPU model or
+    for a video already on the card) and counts the bytes staged under
+    `serve.predict` as `upload.staged_bytes`."""
+    pool = LanePool(dev)
     calls = itertools.count()
 
     def predict(video) -> torch.Tensor:
         with span("serve.predict", request=next(calls)):
             with span("serve.upload"):
-                video = torch.as_tensor(video).to(dev)
-            return fn(qparams, video)
+                video, staged = stage_to_device(video, dev, pool)
+            count("upload.staged_bytes", staged)
+            return fn(tower, video)
 
     return predict
 

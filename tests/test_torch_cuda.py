@@ -12,7 +12,9 @@ prefetched trainer against the inline one; and observability (the FLOP
 count of the kernel route against the plain route's, a profiled train
 step naming B1 and B2); and the int8 C3D tower (kernel Q1 and Q1-pool
 bitwise against their plain versions, the int8 tower and fused_int8
-predict with their launch counts). They skip without a card. This
+predict with their launch counts); and the served video's upload (the
+staged maps bitwise the direct upload's, two callers, a lane's copy beside
+a kernel of the compute stream). They skip without a card. This
 file imports torch only (no jax), so on a machine with a card it runs
 without the JAX test harness:
 
@@ -993,6 +995,134 @@ def test_fused_int8_predict_launches_q1(cuda_no_tf32, tmp_path):
     assert got.shape == ref.shape == (2, 2, 49, 49)
     a, r = got.cpu().numpy().ravel(), ref.cpu().numpy().ravel()
     assert np.isfinite(a).all() and np.corrcoef(a, r)[0, 1] >= 0.98
+
+
+# ------------------------------------------------ the served video's upload
+
+def _served_programs(device, path):
+    """Both raw-video programs of one full-width gaze_grcn bundle (F=32)
+    on the card: {"fused": fn, "fused_int8": fn}."""
+    from recurrent_gaze_prediction_tpu_torch import registry
+    from recurrent_gaze_prediction_tpu_torch.models import quant
+    from recurrent_gaze_prediction_tpu_torch.serving import (
+        fused_int8_predict_fn, fused_predict_fn, load_bundle, save_bundle)
+
+    model = registry.create_model("gaze_grcn", n_lstm_steps=2,
+                                  compute_dtype="bfloat16", device=device)
+    tower = _sane_tower(device)
+    save_bundle(path, model, c3d_params=tower, num_frames=32,
+                int8_qparams=quant.quantize_for_pipeline(tower),
+                video_dtype="uint8")
+    bundle = load_bundle(path, device=device)
+    return {"fused": fused_predict_fn(bundle),
+            "fused_int8": fused_int8_predict_fn(bundle)}
+
+
+def _videos(n, batch=3):
+    return [np.random.RandomState(20 + k).randint(
+        0, 256, (batch, 32, 128, 171, 3)).astype(np.uint8)
+        for k in range(n)]
+
+
+@pytest.mark.parametrize("program", ["fused", "fused_int8"])
+def test_staged_upload_serves_the_direct_uploads_maps(cuda_no_tf32, tmp_path,
+                                                      program):
+    """A video in host memory goes through an upload lane (its bytes
+    counted as `upload.staged_bytes`), the same video already on the card
+    directly (0 counted); the maps are bitwise equal."""
+    from recurrent_gaze_prediction_tpu_torch.train import profiler
+
+    fn = _served_programs(cuda_no_tf32, str(tmp_path))[program]
+    (video,) = _videos(1)
+    fn(video)   # warm: kernels, the lane and its buffer
+    profiler.clear()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            staged = fn(video).cpu()
+            direct = fn(torch.from_numpy(video).to(cuda_no_tf32)).cpu()
+        counts = [r["counts"] for r in profiler.records()
+                  if r["name"] == "serve.predict"]
+    finally:
+        profiler.clear()
+    assert counts == [{"upload.staged_bytes": video.nbytes},
+                      {"upload.staged_bytes": 0}]
+    assert staged.shape == (3, 2, 49, 49)
+    assert torch.equal(staged, direct)
+
+
+def test_two_callers_get_each_videos_own_maps(cuda_no_tf32, tmp_path):
+    """Two threads send 20 `fused_int8` requests each over 4 seeded videos,
+    on the one compute stream they share: every reply is bitwise that
+    video's single-threaded reply (a lane reused too early, or a staged
+    video freed before its tower read it, would break this)."""
+    import threading
+
+    fn = _served_programs(cuda_no_tf32, str(tmp_path))["fused_int8"]
+    videos = _videos(4)
+    want = [fn(v).cpu() for v in videos]
+    wrong, failures = [], []
+
+    def caller(c):
+        try:
+            for k in range(20):
+                i = (k + 2 * c) % len(videos)
+                if not torch.equal(fn(videos[i]).cpu(), want[i]):
+                    wrong.append((c, k, i))
+        except Exception as exc:  # reported by the assert below
+            failures.append(repr(exc))
+
+    threads = [threading.Thread(target=caller, args=(c,)) for c in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads)
+    assert failures == [] and wrong == []
+
+
+def test_lane_copy_overlaps_a_kernel_on_the_compute_stream(cuda_no_tf32,
+                                                           tmp_path):
+    """With 72 ms of matmuls queued on the caller's stream, a staged
+    upload's host-to-device copies run on the lane's stream while they do:
+    in the device trace a copy and a kernel on another stream overlap in
+    time. The bytes arrive whole."""
+    import json
+
+    from recurrent_gaze_prediction_tpu_torch.serving import upload
+
+    dev = cuda_no_tf32
+    pool = upload.LanePool(dev)
+    video = np.random.RandomState(9).randint(0, 256, (8, 8 << 20),
+                                             dtype=np.uint8)
+    a = torch.randn(8192, 8192, device=dev, dtype=torch.bfloat16)
+    upload.stage_to_device(video, dev, pool)   # warm: the lane, its buffer
+    (a @ a).sum()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(40):
+            a @ a
+        out, staged = upload.stage_to_device(video, dev, pool)
+        torch.cuda.synchronize()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+
+    def stream(e):
+        return (e.get("args") or {}).get("stream", e.get("tid"))
+
+    copies = [e for e in events
+              if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert len(copies) == 8 and kernels
+    assert len(pool.lanes) == 1 and staged == video.nbytes
+    assert any(c["ts"] < k["ts"] + k["dur"] and k["ts"] < c["ts"] + c["dur"]
+               and stream(c) != stream(k) for c in copies for k in kernels)
+    assert torch.equal(out.cpu(), torch.from_numpy(video))
 
 
 def test_two_ranks_on_one_card_train_and_predict(cuda_no_tf32, tmp_path):
