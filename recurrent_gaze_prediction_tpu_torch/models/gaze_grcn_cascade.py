@@ -22,6 +22,10 @@ for parity (`has_shallownet`, frozen by default) and it runs only for a
 caller's `net` introspection dict. The top cell takes the 64 upsampled
 channels where the reference declares 65 (a latent shape bug there,
 `gaze_grcn_cascade.py:17-20`), as in the JAX package.
+
+Spans (`train.profiler`): `gaze.projection`, `gaze.recurrence` (the
+bottom scan), `gaze.upsample`, `gaze.top_recurrence`, `gaze.decoder` (the
+maxout head); each scan counts its steps in `recurrence.plain_steps`.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from ..config import ModelConfig
 from ..ops import initializers as init
 from ..ops.cells import ConvGRU
 from ..ops.layers import conv2d_transpose, dropout, linear, maxout2
+from ..train.profiler import span
 from . import shallownet
 from .common import (GazeModel, apply_c3d_projection, compute_dtype_of,
                      init_c3d_projection)
@@ -98,24 +103,30 @@ class GazeGRCNCascade(GazeModel):
                                         generator=None, train=False,
                                         compute_dtype=cdt)
         # bottom recurrence at 7x7
-        h0 = ConvGRU.zero_state(b, (7, 7), BOTTOM_UNITS, device=c3d.device)
-        _, ys = ConvGRU.scan(self.bottom_cell, embedded.transpose(0, 1), h0,
-                             compute_dtype=cdt, remat=remat)
+        with span("gaze.recurrence"):
+            h0 = ConvGRU.zero_state(b, (7, 7), BOTTOM_UNITS,
+                                    device=c3d.device)
+            _, ys = ConvGRU.scan(self.bottom_cell, embedded.transpose(0, 1),
+                                 h0, compute_dtype=cdt, remat=remat)
         # upsample every step at once: [T*B,7,7,256] -> [T*B,49,49,64]
-        up = conv2d_transpose(ys.reshape(t * b, 7, 7, BOTTOM_UNITS),
-                              self.up_w, stride=7, padding="SAME",
-                              compute_dtype=cdt)
+        with span("gaze.upsample"):
+            up = conv2d_transpose(ys.reshape(t * b, 7, 7, BOTTOM_UNITS),
+                                  self.up_w, stride=7, padding="SAME",
+                                  compute_dtype=cdt)
         # top recurrence at 49x49
-        g0 = ConvGRU.zero_state(b, (49, 49), TOP_UNITS, device=c3d.device)
-        _, gs = ConvGRU.scan(self.top_cell,
-                             up.reshape(t, b, 49, 49, UP_CHANNELS), g0,
-                             compute_dtype=cdt, remat=remat)
+        with span("gaze.top_recurrence"):
+            g0 = ConvGRU.zero_state(b, (49, 49), TOP_UNITS,
+                                    device=c3d.device)
+            _, gs = ConvGRU.scan(self.top_cell,
+                                 up.reshape(t, b, 49, 49, UP_CHANNELS), g0,
+                                 compute_dtype=cdt, remat=remat)
         # per-frame maxout head over T*B
-        x = torch.relu(linear(gs.reshape(t * b, -1), self.fc1_w, self.fc1_b,
-                              compute_dtype=cdt))
-        x = maxout2(dropout(x, keep, generator, deterministic=not train))
-        x = maxout2(torch.relu(linear(x, self.fc2_w, self.fc2_b,
-                                      compute_dtype=cdt)))
+        with span("gaze.decoder"):
+            x = torch.relu(linear(gs.reshape(t * b, -1), self.fc1_w,
+                                  self.fc1_b, compute_dtype=cdt))
+            x = maxout2(dropout(x, keep, generator, deterministic=not train))
+            x = maxout2(torch.relu(linear(x, self.fc2_w, self.fc2_b,
+                                          compute_dtype=cdt)))
         return x.reshape(t, b, 49, 49).transpose(0, 1)
 
 

@@ -25,7 +25,9 @@ time loop. No TPU kernel covers it, so it has no CUDA kernel either.
 `ConvGRU.scan` and `ConvLSTM.scan` are the PLAIN versions of the
 hand-written CUDA kernels (`ops/kernels/convgru.py`,
 `ops/kernels/convlstm.py`): the tests hold the kernels against them, and
-the kernels' wrappers run them for tensors that lie on the CPU.
+the kernels' wrappers run them for tensors that lie on the CPU. Each call
+of their step loops counts its T steps in `recurrence.plain_steps`
+(`train.profiler.count`, on the innermost recorded span).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..train.profiler import count
 from . import initializers as init
 from .layers import conv2d, linear
 
@@ -109,6 +112,7 @@ class ConvGRU:
             return ConvGRU.step_precomputed(fused, h, wx,
                                             compute_dtype=compute_dtype)[0]
 
+        count("recurrence.plain_steps", len(wx_all))
         h = h0
         ys = []
         for wx in wx_all:
@@ -242,6 +246,7 @@ class ConvLSTM:
         """The recurrence over precomputed input gates gx_all
         [T, B, H, W, 4U] -> ((c_T, h_T), ys [T, B, H, W, U]): the plain
         version of exactly what the CUDA kernel computes."""
+        count("recurrence.plain_steps", len(gx_all))
         carry = carry0
         ys = []
         for gx in gx_all:

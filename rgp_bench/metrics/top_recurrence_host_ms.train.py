@@ -1,0 +1,11 @@
+"""The host's time in the program's `gaze.top_recurrence` spans, ms per train step:
+the spans at any depth under its recorded `train.step` spans in the
+traced window (the cascade's top ConvGRU at 49x49, under
+`train.forward`), per step."""
+
+from rgp_bench import span_tree, spans
+
+
+def read(ctx):
+    return span_tree.per_unit_ms(spans.program_records(), "train.step",
+                                 "gaze.top_recurrence")

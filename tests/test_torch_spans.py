@@ -1,7 +1,8 @@
 """The port's spans and counters (`train/profiler.py`) on the CPU: off
 while no profiler records, the records' tree, requests and threads while
 one does, their times against the trace's ranges, and the spans that the
-train steps, the served fused program and the prefetch thread open."""
+train steps (gaze_grcn's, the cascade's and the raw-video one), the served
+fused program and the prefetch thread open."""
 
 import json
 import threading
@@ -297,6 +298,65 @@ def test_fused_train_step_tree(recording):
         **{n: ("pipeline.head", 1) for n in GAZE},
         "train.backward": ("train.step", 1),
         "train.optimizer": ("train.step", 1)}
+
+
+CASCADE = ("gaze.projection", "gaze.recurrence", "gaze.upsample",
+           "gaze.top_recurrence", "gaze.decoder")
+
+
+def _cascade_batch(t=2):
+    rng = np.random.RandomState(2)
+    return {"c3d": torch.from_numpy(rng.rand(2, t, 1024, 7, 7)).float(),
+            "gazemaps": torch.from_numpy(rng.rand(2, t, 49, 49)).float()}
+
+
+def test_cascade_train_step_tree_and_plain_steps(recording):
+    """One `make_train_step` step of gaze_grcn_cascade (both cells on
+    `ConvGRU.scan`, rematerialized): its five spans under the forward, and
+    `recurrence.plain_steps` counted once per scan, on the scan's span:
+    2 T a step, none from the backward's recomputed steps."""
+    model = _model("gaze_grcn_cascade", loss_type="l2", n_lstm_steps=3)
+    state, tx = create_train_state(model, OptimizerConfig())
+    step = make_train_step(model, tx)
+    step(state, _cascade_batch(t=3), torch.Generator().manual_seed(0))
+    recording.stop()
+    recs = profiler.records()
+    assert model.last_route == "scan" and model.cfg.remat_cells
+    assert _tree(recs) == {
+        "train.step": (None, 1), "train.flip": ("train.step", 1),
+        "train.forward": ("train.step", 1),
+        "train.backward": ("train.step", 1),
+        "train.optimizer": ("train.step", 1),
+        **{n: ("train.forward", 1) for n in CASCADE}}
+    counted = {r["name"]: r["counts"] for r in recs if r["counts"]}
+    assert counted == {"gaze.recurrence": {"recurrence.plain_steps": 3},
+                       "gaze.top_recurrence": {"recurrence.plain_steps": 3}}
+    assert profiler.counts() == {"recurrence.plain_steps": 6}
+
+
+def test_cascade_outputs_bitwise_with_spans_on_and_off():
+    """The cascade's train-mode maps (dropout drawn from one seed) and
+    their gradient, with no profiler recording and with one recording:
+    bitwise equal."""
+    model = _model("gaze_grcn_cascade", loss_type="l2")
+    c3d = _cascade_batch()["c3d"]
+
+    def forward():
+        model.zero_grad()
+        out = model(None, c3d, train=True,
+                    generator=torch.Generator().manual_seed(4))
+        out.square().sum().backward()
+        return out.detach(), model.up_w.grad.clone()
+
+    assert not profiler.enabled()
+    off = forward()
+    profiler.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        on = forward()
+    assert {r["name"] for r in profiler.records()} == set(CASCADE)
+    profiler.clear()
+    assert torch.equal(off[0], on[0]) and torch.equal(off[1], on[1])
 
 
 def test_fused_predict_tree(tmp_path):
