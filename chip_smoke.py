@@ -24,7 +24,12 @@ In order, failing (exit 1) on the first check that does not hold:
      zoo: V2's backward, the train path, runs G, B2 and W); then the
      peephole ConvLSTM forward B3 (`convlstm_parity`, nonzero carries, the
      final c checked too) at B=8, 1 and 16 (two waves of clusters: the
-     serving batch);
+     serving batch); then B5 `convgru_small`, the cascade's top cell
+     (B=28, T=42, U=3, 5x5, 49x49, bf16, three seeds): ys against
+     `forward_plain` within 1e-6 of its largest magnitude, each gradient
+     against `backward_plain` by norm, the backward bitwise repeatable,
+     and the plain versions with their sums rounded to bf16 (the control)
+     refused;
   4. serves full-width gaze_grcn, then gaze_lstm (1024->512->128, T=42,
      49x49 maps, bf16, seeded random weights) over HTTP from a bundle:
      concurrent single-clip POSTs, each reply checked against a plain-scan
@@ -75,19 +80,22 @@ In order, failing (exit 1) on the first check that does not hold:
      gaze_rnn, gaze_rnn77, gaze_c3d_conv, gaze_framewise_shallownet,
      gaze_grcn_cascade, gaze_pupil_grcn and gaze_pupil_gru2 at their
      registry batch and T and at B=16 (finite, corr >= 0.999 vs f32 with
-     TF32 off; B1 once per call for gaze_pupil_grcn, no launch for the
-     others); gaze_pupil_grcn and gaze_framewise_shallownet served over
-     HTTP (8 concurrent POSTs vs the plain path; B1 once per batcher call /
-     none); one fused predict of gaze_framewise_shallownet (B=8, F=160
-     uint8, the frame stream resized on the card, the tower skipped) vs
-     the host-resized plain path; `cli.pretrain_shallownet` (20 steps,
+     TF32 off; B1 once per call for gaze_pupil_grcn, B5 once per call for
+     gaze_grcn_cascade, no launch for the others); gaze_pupil_grcn and
+     gaze_framewise_shallownet served over HTTP (8 concurrent POSTs vs the
+     plain path; B1 once per batcher call / none); one fused predict of
+     gaze_framewise_shallownet (B=8, F=160 uint8, the frame stream resized
+     on the card, the tower skipped) vs the host-resized plain path;
+     `cli.pretrain_shallownet` (20 steps,
      B=128), then `cli.train_gaze` 20 steps each of gaze_pupil_grcn (B1 and
-     B2 once per step), gaze_grcn_cascade (remat on), gaze_rnn with
+     B2 once per step), gaze_grcn_cascade (B5 once each way per step,
+     the bottom cell rematerialized), gaze_rnn with
      `--shallownet_pretrain` (its frozen ShallowNet bitwise the file's
      after training) and gaze_framewise_shallownet (its ShallowNet moves),
      each loss falling; gaze_pupil_grcn's gradients through B1 + B2 vs
-     plain autograd (and its pupil term), the cascade's with remat vs
-     without (and the peak memory of each); then times B1 and B2 at U=64
+     plain autograd (and its pupil term), the cascade's with the bottom
+     cell rematerialized vs without (and the peak memory of each); then
+     times B1 and B2 at U=64
      beside their bounds, each family's predict at B=16 and train step at
      its registry batch, a ShallowNet pretraining step at B=128, the
      cascade's step without remat, and the two zoo HTTP latencies;
@@ -165,7 +173,9 @@ In order, failing (exit 1) on the first check that does not hold:
      compute the same functions, B4 beside its B2 launch and V2's backward
      on its library stages, and B4's device time by kernel from
      torch.profiler; V2's backward at B=28 on its library stages and on
-     G + B2 + W in turns), the
+     G + B2 + W in turns; B5 forward and backward at B=28 beside their
+     bounds and plain versions, and the cascade's top cell through B5 and
+     through the rematerialized scan in turns), the
      feature-fed predict of both models (B=16) with a breakdown, the HTTP
      requests, the streaming chunk steps (B=1), and the train step (B=28)
      through the kernels, through V2 on its library stages and through
@@ -182,7 +192,7 @@ In order, failing (exit 1) on the first check that does not hold:
      beside the one-process step, and the gradient all-reduce (phase 17);
      with CUDA events or the host clock after warm-up;
   8. prints the kernels' JSON line (B1-B4, B4's phases G and W, B1 and B2
-     at U=64, and Q1 and Q1-pool), then,
+     at U=64, Q1 and Q1-pool, and B5), then,
      last, the device JSON line.
 """
 
@@ -232,6 +242,8 @@ from recurrent_gaze_prediction_tpu_torch.models.common import (
 from recurrent_gaze_prediction_tpu_torch.ops.cells import ConvGRU, ConvLSTM
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import build
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru as kconv
+from recurrent_gaze_prediction_tpu_torch.ops.kernels import (
+    convgru_small as ks)
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp as v1
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp2 as v2
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convlstm as klstm
@@ -344,6 +356,24 @@ PRETRAIN_BATCH = 128
 REMAT_GRAD_MIN_CORR = 0.9999
 REMAT_LOSS_MAX_REL = 1e-6
 CELLS = ("cell", "bottom_cell", "top_cell")
+# kernel B5, the cascade's top cell (5x5 state convs, U=3, 49x49), gated
+# and timed at the cascade's train shape, on SMALL_SEEDS
+SMALL_HW, SMALL_UNITS, SMALL_K = (49, 49), 3, 5
+SMALL_SEEDS = (SEED, SEED + 1, SEED + 2)
+SMALL_GRADS = ("dwx", "dh0", "dU_zr", "dU_c")
+# B5's forward makes each conv's f32 sum in its plain version's order, so
+# ys is held to the plain version's bits (the largest difference over the
+# largest magnitude). Its backward sums in its own order; where that flips
+# the bf16 rounding of a conv operand, the flip spreads through the
+# remaining steps, so each gradient (dwx in bf16, as the wrapper returns
+# it) is held by its norm, ||kernel - plain|| / ||plain||. Each limit lies
+# between the largest sound reading and the smallest reading of the control
+# (the plain versions with every conv's sum rounded to bf16), seeds 0-2 at
+# B=28, T=42 on an H100: dwx 1.66e-3 / 2.95e-3, dh0 1.63e-3 / 2.66e-3,
+# dU_zr 1.98e-3 / 3.48e-3, dU_c 1.69e-3 / 3.22e-3.
+SMALL_FWD_MAX_REL = 1e-6
+SMALL_BWD_L2_REL = {"dwx": 2.2e-3, "dh0": 2.1e-3, "dU_zr": 2.6e-3,
+                    "dU_c": 2.4e-3}
 # the research loop: extract_features over 4 seeded videos of 176 uint8
 # frames (11 windows each) at 240x320; extract_map at its CLI defaults
 # (T=105, B=4) over 8 clips of 105..300 windows, streamed in chunks of 42;
@@ -492,6 +522,169 @@ def bound(flops: float, nbytes: float) -> dict:
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+
+
+# ------------------------------------------------------------ kernel B5
+
+def small_inputs(seed: int) -> tuple:
+    """B5's inputs at the cascade's train shape (T=42, B=28) on the card:
+    weights whose state convs reach O(1) (std 0.2), wx ~ N(0, 1) in bf16,
+    h0 ~ N(0, 0.25), a cotangent ~ N(0, 1)."""
+    rng = np.random.RandomState(seed)
+
+    def f32(*shape, std=1.0):
+        return torch.from_numpy((rng.randn(*shape) * std).astype(
+            np.float32)).cuda()
+
+    k, u = SMALL_K, SMALL_UNITS
+    return (f32(k, k, u, 2 * u, std=0.2), f32(k, k, u, u, std=0.2),
+            f32(T, TRAIN_BATCH, *SMALL_HW, 3 * u).to(torch.bfloat16),
+            f32(TRAIN_BATCH, *SMALL_HW, u, std=0.5),
+            f32(T, TRAIN_BATCH, *SMALL_HW, u))
+
+
+def l2_rel(a: np.ndarray, b: np.ndarray) -> float:
+    """||a - b|| / ||b||."""
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@contextlib.contextmanager
+def bf16_sums():
+    """B5's plain versions with every conv's sum (the state convs, the
+    transposed convs, the weight products) rounded to bf16: the control
+    that B5's gates must refuse."""
+    conv, wgrad = ks.state_conv, ks.weight_grad
+    ks.state_conv = lambda *a: conv(*a).to(torch.bfloat16).float()
+    ks.weight_grad = lambda *a: wgrad(*a).to(torch.bfloat16).float()
+    try:
+        yield
+    finally:
+        ks.state_conv, ks.weight_grad = conv, wgrad
+
+
+def small_readings(ys, grads, want_ys, want) -> dict:
+    """ys by its largest difference, each gradient (dwx in wx's dtype, as
+    the wrapper returns it) by its norm, against the plain versions'."""
+    def host(x):
+        return x.float().cpu().numpy().astype(np.float64)
+
+    return {"ys": max_rel(host(ys), host(want_ys)),
+            **{n: l2_rel(host(a), host(w))
+               for n, a, w in zip(SMALL_GRADS, grads, want)}}
+
+
+def small_kernel_gates(card: str) -> dict:
+    """Kernel B5 at the cascade's top cell and train shape (B=28, T=42,
+    U=3, 5x5, 49x49, bf16) on each of SMALL_SEEDS: the forward against
+    `forward_plain` within SMALL_FWD_MAX_REL, the backward (on the
+    kernel's ys) against `backward_plain`, each gradient within its
+    SMALL_BWD_L2_REL; a second backward bitwise the first; the control
+    (`bf16_sums`) outside the forward's limit and some gradient's."""
+    out = {"max_abs_err": 0.0}
+    for seed in SMALL_SEEDS:
+        uzr, uc, wx, h0, g = small_inputs(seed)
+        with torch.no_grad():
+            ys = ks.recurrence(uzr, uc, wx, h0)
+            got = ks.recurrence_bwd(uzr, uc, wx, h0, ys, g)
+            again = ks.recurrence_bwd(uzr, uc, wx, h0, ys, g)
+            want_ys = ks.forward_plain(uzr, uc, wx, h0)
+            want = ks.backward_plain(uzr, uc, wx, h0, ys, g)
+            with bf16_sums():
+                ctl_ys = ks.forward_plain(uzr, uc, wx, h0)
+                ctl = ks.backward_plain(uzr, uc, wx, h0, ys, g)
+        torch.cuda.synchronize()
+        want = (want[0].to(wx.dtype), *want[1:])
+        sound = small_readings(ys, got, want_ys, want)
+        control = small_readings(ctl_ys, (ctl[0].to(wx.dtype), *ctl[1:]),
+                                 want_ys, want)
+        repeatable = all(torch.equal(a, b) for a, b in zip(got, again))
+        out["max_abs_err"] = max(
+            [out["max_abs_err"], float((ys - want_ys).abs().max())]
+            + [float((a.float() - w.float()).abs().max())
+               for a, w in zip(got, want)])
+        print(f"parity convgru_small (B5) bf16 B={TRAIN_BATCH} T={T} U="
+              f"{SMALL_UNITS} {SMALL_K}x{SMALL_K} {SMALL_HW} seed {seed}: "
+              f"ys max_rel, gradients l2_rel {json.dumps(sound)}; control "
+              f"(sums rounded to bf16) {json.dumps(control)}; backward "
+              f"bitwise repeatable {repeatable} [{card}]", flush=True)
+        check(sound["ys"] <= SMALL_FWD_MAX_REL,
+              f"B5 forward seed {seed}: max_rel {sound['ys']}")
+        for n in SMALL_GRADS:
+            check(sound[n] <= SMALL_BWD_L2_REL[n],
+                  f"B5 backward seed {seed}: {n} l2_rel {sound[n]}")
+        check(repeatable, f"B5 backward seed {seed} not bitwise repeatable")
+        check(control["ys"] > SMALL_FWD_MAX_REL
+              and any(control[n] > SMALL_BWD_L2_REL[n]
+                      for n in SMALL_GRADS),
+              f"B5's gates pass the control (bf16 sums) at seed {seed}: "
+              f"{control}")
+        out[seed] = {"sound": sound, "control": control}
+    return out
+
+
+def small_kernel_timing(card: str) -> dict:
+    """B5 at the cascade's train shape: each launch by CUDA events beside
+    its bound and its plain version; then the top cell's whole recurrence,
+    forward + backward with its input conv, through B5 and through the
+    rematerialized `ConvGRU.scan` it replaces, in turns, on the host's
+    clock (ms a pass)."""
+    uzr, uc, wx, h0, g = small_inputs(SEED + 3)
+    t, b, k, u = T, TRAIN_BATCH, SMALL_K, SMALL_UNITS
+    hw = SMALL_HW[0] * SMALL_HW[1]
+    flops = ks.flops(t, b, *SMALL_HW, k, u)
+    with torch.no_grad():
+        ys = ks.recurrence(uzr, uc, wx, h0)
+        out = {
+            "fwd": {"ms": cuda_ms(lambda: ks.recurrence(uzr, uc, wx, h0),
+                                  20),
+                    "plain_ms": cuda_ms(lambda: ks.forward_plain(
+                        uzr, uc, wx, h0), 3, warmup=1),
+                    # wx and h0 read, ys written
+                    **bound(flops, t * b * hw * (3 * u * 2 + u * 4)
+                            + b * hw * u * 4)},
+            "bwd": {"ms": cuda_ms(lambda: ks.recurrence_bwd(
+                uzr, uc, wx, h0, ys, g), 20),
+                    "plain_ms": cuda_ms(lambda: ks.backward_plain(
+                        uzr, uc, wx, h0, ys, g), 3, warmup=1),
+                    # wx, ys, g and h0 read, dwx and dh0 written
+                    **bound(3 * flops, t * b * hw * (2 * 3 * u * 2
+                                                     + 2 * u * 4)
+                            + 2 * b * hw * u * 4)}}
+    rng = np.random.RandomState(SEED + 4)
+    params = {n: torch.from_numpy((rng.randn(*v.shape) * 0.1).astype(
+        np.float32)).cuda().requires_grad_()
+        for n, v in ConvGRU.init(64, u, kernel=(k, k)).items()}
+    xs = torch.from_numpy(rng.randn(t, b, *SMALL_HW, 64).astype(
+        np.float32)).to("cuda", torch.bfloat16).requires_grad_()
+    zero = torch.zeros(b, *SMALL_HW, u, device="cuda")
+
+    def cell(scan, **kw):
+        _, gs = scan(params, xs, zero, compute_dtype=torch.bfloat16, **kw)
+        torch.autograd.grad((gs * g).sum(), [*params.values(), xs])
+
+    turns = {"B5": [], "remat scan": []}
+    for name in ("remat scan", "B5", "B5", "remat scan"):
+        fn = ((lambda: cell(ks.convgru_scan_small)) if name == "B5"
+              else (lambda: cell(ConvGRU.scan, remat=True)))
+        fn()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        turns[name].append((time.perf_counter() - start) * 1e3 / 3)
+    out["cell_fwd_bwd_host_ms"] = turns
+    for d in ("fwd", "bwd"):
+        x = out[d]
+        print(f"timing: convgru_small (B5) {d} T={t} B={b} U={u} {k}x{k} "
+              f"{SMALL_HW} bf16: {x['ms']:.4f} ms, plain "
+              f"{x['plain_ms']:.3f} ms, bound {x['bound_ms']:.4f} ms "
+              f"({x['bound_by']}: {x['gflop']:.2f} GFLOP, "
+              f"{x['mbytes']:.1f} MB) [{card}]", flush=True)
+    print(f"timing: the cascade's top cell forward + backward with its "
+          f"input conv, T={t} B={b}, in turns (host ms a pass): "
+          f"{json.dumps(turns)} [{card}]", flush=True)
+    return out
 
 
 def cluster_lines(card: str, units: int = UNITS,
@@ -730,6 +923,7 @@ def reset_launches() -> None:
     kconv.launches = v2.launches = v1.launches = klstm.launches = 0
     v1.gates_launches = v1.wgrad_launches = 0
     q1.launches = q1.pool_launches = 0
+    ks.launches = ks.bwd_launches = 0
 
 
 def read_int8_launches() -> dict:
@@ -743,7 +937,15 @@ def read_launches() -> dict:
             "convgru_bwd_mono": v1.launches,
             "convgru_bwd_gates": v1.gates_launches,
             "convgru_wgrad": v1.wgrad_launches,
-            "convlstm_fwd": klstm.launches}
+            "convlstm_fwd": klstm.launches,
+            "convgru_small_fwd": ks.launches - ks.bwd_launches,
+            "convgru_small_bwd": ks.bwd_launches}
+
+
+def small_launches(fwd: int = 0, bwd: int = 0) -> dict:
+    """The launches of B5 (the cascade's top cell): `fwd` forwards and
+    `bwd` backwards."""
+    return {"convgru_small_fwd": fwd, "convgru_small_bwd": bwd}
 
 
 def v2_backwards(n: int) -> dict:
@@ -947,7 +1149,7 @@ def train_through_cli(card: str, run: str, prefetch: bool = True) -> dict:
     # B1 once per step and once for the test split's batch, B2 per step
     check(launches == {"convgru_fwd": TRAIN_STEPS + 1,
                        **v2_backwards(TRAIN_STEPS), "convgru_bwd_mono": 0,
-                       "convlstm_fwd": 0},
+                       "convlstm_fwd": 0, **small_launches()},
           f"launches over {TRAIN_STEPS} train steps and the test split: "
           f"{launches}")
     check(saved == [TRAIN_STEPS], f"checkpoints written: {saved}")
@@ -1115,7 +1317,7 @@ def evaluation_cadence(card: str) -> dict:
               f"evaluation scores at step {step}: {scores}")
     check(launches == {"convgru_fwd": TRAIN_STEPS + n_evals,
                        **v2_backwards(TRAIN_STEPS), "convgru_bwd_mono": 0,
-                       "convlstm_fwd": 0},
+                       "convlstm_fwd": 0, **small_launches()},
           f"launches over {TRAIN_STEPS} steps and {n_evals} evaluations: "
           f"{launches}")
     return {"evals": evals, "launches": launches}
@@ -1192,7 +1394,8 @@ def train_through_mono(model, batch: dict) -> dict:
     check(launches == {"convgru_fwd": MONO_STEPS, "convgru_bwd": MONO_STEPS,
                        "convgru_bwd_mono": MONO_STEPS,
                        "convgru_bwd_gates": MONO_STEPS,
-                       "convgru_wgrad": MONO_STEPS, "convlstm_fwd": 0},
+                       "convgru_wgrad": MONO_STEPS, "convlstm_fwd": 0,
+                       **small_launches()},
           f"launches over {MONO_STEPS} train steps: {launches}")
     return {"launches": launches, "losses": losses}
 
@@ -1572,7 +1775,8 @@ def train_fused_through_cli(card: str) -> dict:
             check(all(np.isfinite(losses)), f"{label}: non-finite loss "
                                             f"{losses}")
             check(launches == {"convgru_fwd": steps, **v2_backwards(steps),
-                               "convgru_bwd_mono": 0, "convlstm_fwd": 0},
+                               "convgru_bwd_mono": 0, "convlstm_fwd": 0,
+                               **small_launches()},
                   f"{label}: launches over {steps} steps: {launches}")
             check(saved == [steps], f"{label}: checkpoints {saved}")
             if label == "frozen":
@@ -1770,11 +1974,13 @@ def zoo_inputs(model, b: int, seed: int) -> tuple:
 
 
 def zoo_kernel_launches(name: str, calls: int = 1) -> dict:
-    """The launches of `calls` forwards: B1 for gaze_pupil_grcn, none for
-    the other families of the zoo."""
+    """The launches of `calls` forwards in bf16: B1 for gaze_pupil_grcn,
+    B5 for gaze_grcn_cascade (its top cell), none for the other families
+    of the zoo."""
     fwd = calls if name == "gaze_pupil_grcn" else 0
+    top = calls if name == "gaze_grcn_cascade" else 0
     return {"convgru_fwd": fwd, **v2_backwards(0), "convgru_bwd_mono": 0,
-            "convlstm_fwd": 0}
+            "convlstm_fwd": 0, **small_launches(top)}
 
 
 def c4_kernel_gates(card: str) -> dict:
@@ -1835,8 +2041,9 @@ def zoo_predict_check(card: str) -> dict:
     """Each family's predict (its logits) at its registry T and batch and
     at B=16 in bf16: finite, of shape [B,T,GH,GW], corr >= MAP_MIN_CORR
     against the same weights in f32 with TF32 off; gaze_pupil_grcn
-    launches B1 once per call (its route "kernel"), the others no
-    recurrence kernel."""
+    launches B1 once per call (its route "kernel"), gaze_grcn_cascade B5
+    once per call (its `top_route` "kernel", its `last_route` "scan"), the
+    others no recurrence kernel."""
     out = {}
     for name in ZOO:
         model = zoo_model(name)
@@ -1849,6 +2056,7 @@ def zoo_predict_check(card: str) -> dict:
                 logits = model(frames, c3d)
             launches = read_launches()
             route = getattr(model, "last_route", None)
+            top_route = getattr(model, "top_route", None)
             model.cfg.compute_dtype = "float32"
             try:
                 with tf32_off(), torch.inference_mode():
@@ -1870,6 +2078,8 @@ def zoo_predict_check(card: str) -> dict:
                 check(route == "kernel", f"{name}: route {route}")
             elif route is not None:
                 check(route == "scan", f"{name}: route {route}")
+            if name == "gaze_grcn_cascade":
+                check(top_route == "kernel", f"{name}: top_route {top_route}")
             out[name, b] = {"corr": c, "route": route}
     return out
 
@@ -2004,7 +2214,8 @@ def zoo_train_through_cli(card: str, run: str, name: str,
                           extra: tuple = ()) -> dict:
     """`cli.train_gaze` on a zoo family at its registry T and batch, bf16,
     20 steps at ZOO_LR, batches prefetched: the loss falls; B1 and B2 once
-    per step for gaze_pupil_grcn (and B1 once per batch of the final
+    per step for gaze_pupil_grcn, B5 once each way per step for
+    gaze_grcn_cascade (and B1 / B5's forward once per batch of the final
     test-split evaluation), no launch for the others."""
     argv = ["--model", name, "--dataset", "synthetic", "--compute_dtype",
             "bfloat16", "--max_steps", str(TRAIN_STEPS),
@@ -2027,7 +2238,13 @@ def zoo_train_through_cli(card: str, run: str, name: str,
         test_batches = -(-ZOO_TEST_CLIPS // 7)
         want = {"convgru_fwd": TRAIN_STEPS + test_batches,
                 **v2_backwards(TRAIN_STEPS), "convgru_bwd_mono": 0,
-                "convlstm_fwd": 0}
+                "convlstm_fwd": 0, **small_launches()}
+    elif name == "gaze_grcn_cascade":
+        # B5 once each way per step, and forward once per batch of the
+        # final test-split evaluation
+        test_batches = -(-ZOO_TEST_CLIPS // 7)
+        want = {**zoo_kernel_launches(name, 0),
+                **small_launches(TRAIN_STEPS + test_batches, TRAIN_STEPS)}
     else:
         want = zoo_kernel_launches(name, 0)
     check(launches == want, f"{name}: launches {launches}, want {want}")
@@ -2079,7 +2296,8 @@ def pupil_gradient_check(card: str) -> dict:
     for n, c in corrs.items():
         check(c >= GRAD_MIN_CORR, f"pupil grcn grad {n} corr {c}")
     check(launches == {"convgru_fwd": 1, **v2_backwards(1),
-                       "convgru_bwd_mono": 0, "convlstm_fwd": 0}
+                       "convgru_bwd_mono": 0, "convlstm_fwd": 0,
+                       **small_launches()}
           and sum(plain_launches.values()) == 0,
           f"pupil grcn launches {launches}, plain {plain_launches}")
     check(parts["pupil_loss"] > 0 and abs(loss - joint) <= 1e-5 * abs(loss),
@@ -2089,9 +2307,10 @@ def pupil_gradient_check(card: str) -> dict:
 
 def cascade_remat_check(card: str) -> dict:
     """gaze_grcn_cascade's loss and gradients (B=7, T=42, bf16, no
-    dropout) with each step of both cells rematerialized and without: the
-    same loss, every gradient corr >= REMAT_GRAD_MIN_CORR; the peak memory
-    of each forward + backward."""
+    dropout) with each step of the bottom cell rematerialized and without
+    (the top cell runs B5 either way, once each way a pass): the same loss,
+    every gradient corr >= REMAT_GRAD_MIN_CORR; the peak memory of each
+    forward + backward."""
     model = zoo_model("gaze_grcn_cascade")
     model.cfg.dropout_keep_prob = 1.0
     raw = synthetic.make_clip_windows(7, T, seed=SEED + 4).next_batch(7)
@@ -2100,6 +2319,7 @@ def cascade_remat_check(card: str) -> dict:
     named = [(n, p) for n, p in model.named_parameters()
              if not n.startswith("shallownet.")]
     out = {}
+    reset_launches()
     for remat in (True, False):
         model.cfg.remat_cells = remat
         torch.cuda.synchronize()
@@ -2112,6 +2332,7 @@ def cascade_remat_check(card: str) -> dict:
         out[remat] = (loss.item(), [g.float().cpu().numpy() for g in grads],
                       peak)
     model.cfg.remat_cells = True
+    launches = read_launches()
     rel = abs(out[True][0] - out[False][0]) / abs(out[False][0])
     corrs = {n: corr(a, b) for (n, _), a, b in
              zip(named, out[True][1], out[False][1]) if a.size > 1}
@@ -2121,6 +2342,11 @@ def cascade_remat_check(card: str) -> dict:
           f"memory above the weights and batch: {out[True][2]:.1f} MiB "
           f"(remat) vs {out[False][2]:.1f} MiB [{card}]", flush=True)
     check(rel <= REMAT_LOSS_MAX_REL, f"cascade remat loss rel {rel}")
+    check(model.top_route == "kernel"
+          and launches == {**zoo_kernel_launches("gaze_grcn_cascade", 0),
+                           **small_launches(2, 2)},
+          f"cascade remat check: top_route {model.top_route}, launches "
+          f"{launches}")
     for n, c in corrs.items():
         check(c >= REMAT_GRAD_MIN_CORR, f"cascade remat grad {n} corr {c}")
     return {"loss_rel": rel, "min_corr": min(corrs.values()),
@@ -3667,7 +3893,7 @@ def parallel_phase(card: str, runs: str, data: int = 2, model: int = 1,
     for r in ranks:
         check(r["train"]["launches"] == {
             "convgru_fwd": PAR_STEPS, **v2_backwards(PAR_STEPS),
-            "convgru_bwd_mono": 0, "convlstm_fwd": 0},
+            "convgru_bwd_mono": 0, "convlstm_fwd": 0, **small_launches()},
             f"a rank's launches over {PAR_STEPS} sharded steps: "
             f"{r['train']['launches']}")
 
@@ -3863,6 +4089,9 @@ def main() -> int:
               f"{MIN_CORR}, max_rel_delta <= {F32_MAX_REL_DELTA} for ys and "
               f"final c, final h == ys[-1]): {f32}")
         lstm_parity[b] = bf16
+    # B5, the cascade's top cell, at its train shape against its plain
+    # versions and the control
+    small_gates = small_kernel_gates(card)
 
     # 4. serving at full width through the kernels: gaze_grcn (B1), then
     # gaze_lstm (B3)
@@ -3960,6 +4189,7 @@ def main() -> int:
         k = lstm_timing[b] = lstm_kernel_timing(lstm_fused, b, timing_rng)
         print(f"timing: convlstm_fwd T={T} B={b} U=128 bf16: {per_step(k)} "
               f"[{card}]", flush=True)
+    small_timing = small_kernel_timing(card)
     c3d16 = torch.from_numpy(
         timing_rng.randn(16, T, 1024, 7, 7).astype(np.float32)).cuda()
     for m, served in ((model, grcn_served), (lstm_model, lstm_served)):
@@ -4144,6 +4374,25 @@ def main() -> int:
                    int8_timed["layers"], int8, library=True),
         int8_entry("maxpool3d_int8", "models/quant.py:117",
                    "maxpool3d_int8", int8_timed["pools"], int8),
+        # B5 replaces no Pallas kernel: the JAX package scans the cascade's
+        # top cell with lax.scan. Its times are one forward and one
+        # backward at the cascade's train shape; its launches those of the
+        # cascade's 20 CLI train steps and test-split evaluation
+        {"name": "convgru_small", "route": "cuda",
+         "source": "recurrent_gaze_prediction_tpu_torch/csrc/"
+                   "convgru_small.cu",
+         "replaces": None,
+         "launches": sum(zoo["trained"]["gaze_grcn_cascade"]["launches"][n]
+                         for n in small_launches()),
+         "max_abs_err": small_gates["max_abs_err"],
+         **{key: sum(small_timing[d][key] for d in ("fwd", "bwd"))
+            for key in ("ms", "plain_ms", "bound_ms")},
+         "bound_by": small_timing["bwd"]["bound_by"], "library_ms": None,
+         "phases": {d: {key: small_timing[d][key] for key in
+                        ("ms", "plain_ms", "bound_ms", "bound_by")}
+                    for d in ("fwd", "bwd")},
+         "calls": f"1 forward + 1 backward launch per cascade train step, "
+                  f"T={T}, B={TRAIN_BATCH}"},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,12 +9,19 @@ port's counterpart of the JAX package's `models/gaze_grcn_cascade.py`
         -> per-frame head: fc 4802 + relu + dropout + maxout
                           -> fc 4802 + relu + maxout -> [49,49]
 
-Both cells run their own `ConvGRU.scan`, as in the JAX package: neither
-is a shape of kernel B1 (U=256 does not fit a CTA's shared memory, and
-the top cell is 5x5), which `convgru_route` decides from the shapes. With
-`cfg.remat_cells` in training, each step of both cells is checkpointed
-(`torch.utils.checkpoint`): the 49x49 top cell's per-step gates are 49x
-the bottom cell's, and autograd would otherwise keep all of them.
+Neither cell is a shape of kernel B1 (U=256 does not fit a CTA's shared
+memory, and the top cell is 5x5), which `convgru_route` decides from the
+shapes, so `recurrence_route` and `last_route` read "scan". The bottom cell
+runs its own `ConvGRU.scan`, as in the JAX package. The top cell takes
+kernel B5 (`ops/kernels/convgru_small.py`: its whole sequence in one launch
+forward and one backward) wherever `convgru_small.kernel_takes` says so
+(bf16), and `ConvGRU.scan` otherwise; the forward records its route in
+`top_route`. With `cfg.remat_cells` in training, each step of a plain scan
+is checkpointed (`torch.utils.checkpoint`): on the scan route the 49x49 top
+cell's per-step gates are 49x the bottom cell's, and autograd would
+otherwise keep all of them. B5 keeps only ys and recomputes its gates, so
+remat has no use there. On a CPU tensor B5's wrappers run their plain
+versions.
 
 The ShallowNet branch feeds nothing in the reference (its concat is
 commented out, `gaze_grcn_cascade.py:370-377`); its parameters are kept
@@ -25,7 +32,8 @@ channels where the reference declares 65 (a latent shape bug there,
 
 Spans (`train.profiler`): `gaze.projection`, `gaze.recurrence` (the
 bottom scan), `gaze.upsample`, `gaze.top_recurrence`, `gaze.decoder` (the
-maxout head); each scan counts its steps in `recurrence.plain_steps`.
+maxout head); each plain scan counts its steps in `recurrence.plain_steps`
+(on the card B5 counts none).
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops import initializers as init
 from ..ops.cells import ConvGRU
+from ..ops.kernels import convgru_small
 from ..ops.layers import conv2d_transpose, dropout, linear, maxout2
 from ..train.profiler import span
 from . import shallownet
@@ -56,6 +65,7 @@ class GazeGRCNCascade(GazeModel):
     reads_frames = False    # the ShallowNet branch feeds nothing
     has_shallownet = True
     last_route: Optional[str] = None
+    top_route: Optional[str] = None
 
     def __init__(self, cfg: ModelConfig, *,
                  generator: Optional[torch.Generator] = None):
@@ -79,12 +89,21 @@ class GazeGRCNCascade(GazeModel):
         self.fc2_b = nn.Parameter(init.zeros((FC_WIDTH,)))
 
     def recurrence_route(self, train: bool) -> str:
-        """"scan": the kernels take neither cell (the bottom cell's U=256
+        """"scan": B1's kernels take neither cell (the bottom cell's U=256
         and the top cell's 5x5), judged by `convgru_route`."""
         cdt = compute_dtype_of(self.cfg)
         routes = {convgru_route(self.bottom_cell, (7, 7), cdt, train),
                   convgru_route(self.top_cell, (49, 49), cdt, train)}
         return "kernel" if routes == {"kernel"} else "scan"
+
+    def top_cell_route(self) -> str:
+        """"kernel" when kernel B5 takes the top cell (its kernel size and
+        units at 49x49 in the compute dtype, `convgru_small.kernel_takes`),
+        else "scan". Decided from the shapes alone, before any launch."""
+        takes = convgru_small.kernel_takes(
+            49, 49, self.top_cell["U"].shape[-1], compute_dtype_of(self.cfg),
+            ConvGRU.kernel_size(self.top_cell))
+        return "kernel" if takes else "scan"
 
     def forward(self, frames, c3d: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -98,6 +117,7 @@ class GazeGRCNCascade(GazeModel):
                 self.shallownet, frames.reshape(-1, *frames.shape[2:]),
                 train=False, compute_dtype=cdt).reshape(b, t, 49, 49)
         self.last_route = self.recurrence_route(train)  # always "scan"
+        self.top_route = self.top_cell_route()
 
         embedded = apply_c3d_projection(self.c3d_proj, c3d, keep_prob=1.0,
                                         generator=None, train=False,
@@ -117,9 +137,13 @@ class GazeGRCNCascade(GazeModel):
         with span("gaze.top_recurrence"):
             g0 = ConvGRU.zero_state(b, (49, 49), TOP_UNITS,
                                     device=c3d.device)
-            _, gs = ConvGRU.scan(self.top_cell,
-                                 up.reshape(t, b, 49, 49, UP_CHANNELS), g0,
-                                 compute_dtype=cdt, remat=remat)
+            xs = up.reshape(t, b, 49, 49, UP_CHANNELS)
+            if self.top_route == "kernel":
+                _, gs = convgru_small.convgru_scan_small(
+                    self.top_cell, xs, g0, compute_dtype=cdt)
+            else:
+                _, gs = ConvGRU.scan(self.top_cell, xs, g0,
+                                     compute_dtype=cdt, remat=remat)
         # per-frame maxout head over T*B
         with span("gaze.decoder"):
             x = torch.relu(linear(gs.reshape(t * b, -1), self.fc1_w,

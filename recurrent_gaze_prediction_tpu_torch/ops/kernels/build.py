@@ -62,6 +62,11 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.convgru_bwd_gates.argtypes = [vp] * 10 + [i] * 6 + [vp]
     lib.convgru_wgrad.argtypes = [vp] * 6 + [i] * 6 + [vp]
     lib.convlstm_fwd.argtypes = [vp] * 10 + [i] * 6 + [vp]
+    # B5: pointers, then T, B, H, W, K, U, stream
+    lib.convgru_small_fwd.argtypes = [vp] * 5 + [i] * 6 + [vp]
+    lib.convgru_small_bwd.argtypes = [vp] * 11 + [i] * 6 + [vp]
+    lib.convgru_small_smem_bytes.argtypes = [i] * 5
+    lib.convgru_small_smem_bytes.restype = size
     f = ctypes.c_float
     # x, w, wscale, b, xscale, xscale_next, out_f32, out, N, D, H, W, Cin,
     # Cout, K, the box (bd, bh, bw), bn, stages, stream
@@ -84,7 +89,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         getattr(lib, name).restype = i
     for name in ("convgru_fwd", "convgru_bwd", "convgru_bwd_gates",
                  "convgru_wgrad", "convlstm_fwd", "conv3d_int8",
-                 "maxpool3d_int8"):
+                 "maxpool3d_int8", "convgru_small_fwd", "convgru_small_bwd"):
         getattr(lib, name).restype = i
     for name in ("convgru_fwd_error_string", "convlstm_fwd_error_string",
                  "conv3d_int8_error_string", "maxpool3d_int8_error_string"):

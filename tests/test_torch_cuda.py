@@ -14,7 +14,10 @@ step naming B1 and B2); and the int8 C3D tower (kernel Q1 and Q1-pool
 bitwise against their plain versions, the int8 tower and fused_int8
 predict with their launch counts); and the served video's upload (the
 staged maps bitwise the direct upload's, two callers, a lane's copy beside
-a kernel of the compute stream). They skip without a card. This
+a kernel of the compute stream); and kernel B5, the cascade's small ConvGRU
+(forward and backward against their plain versions, its weight gradients
+bitwise repeatable, its reckoning, its refusals, and the cascade's train
+step launching it once each way). They skip without a card. This
 file imports torch only (no jax), so on a machine with a card it runs
 without the JAX test harness:
 
@@ -64,6 +67,19 @@ def _inputs(t, b, hw, units, dtype, device, seed=0):
         np.float32) * 0.5).to(device)
     return fused, wx, h0
 
+
+# B5 against its plain versions on the card (chip_smoke.py's gates): ys
+# to the plain version's bits (the largest difference over the largest
+# magnitude; B5 makes each conv's f32 sum in the plain conv's order), each
+# gradient by its norm, ||kernel - plain|| / ||plain||, with dwx in bf16 as
+# the wrapper returns it. Each limit lies between the largest sound reading
+# and the smallest of the control (the plain versions with their sums
+# rounded to bf16), seeds 0-2 at B=28, T=42 on an H100: dwx 1.66e-3 /
+# 2.95e-3, dh0 1.63e-3 / 2.66e-3, dU_zr 1.98e-3 / 3.48e-3, dU_c 1.69e-3 /
+# 3.22e-3.
+SMALL_FWD_TOL = 1e-6
+SMALL_BWD_TOL = {"dwx": 2.2e-3, "dh0": 2.1e-3, "dU_zr": 2.6e-3,
+                 "dU_c": 2.4e-3}
 
 # U=128 runs on clusters of 8 CTAs: B=1 and 8 in one wave, 28 (the train
 # batch) and 32 in two
@@ -1183,3 +1199,235 @@ def test_two_ranks_on_one_card_train_and_predict(cuda_no_tf32, tmp_path):
     for rank in results_of(results, "predict"):
         assert np.corrcoef(rank["maps"].ravel(),
                            want.numpy().ravel())[0, 1] >= 0.999
+
+
+# ------------------------------------- B5: the small ConvGRU (cascade top)
+
+# (T, B, (H, W), U, K): the cascade's top cell at its train shape, then
+# the only (K, U) the kernel takes at small ragged grids (one smaller than
+# the kernel's window) and at the largest grid it takes (2,560 pixels: one
+# group of five a thread)
+SMALL_SHAPES = [(42, 28, (49, 49), 3, 5), (3, 2, (2, 3), 3, 5),
+                (4, 3, (13, 6), 3, 5), (3, 2, (40, 64), 3, 5)]
+
+
+def _small_inputs(t, b, hw, units, k, device, seed=0):
+    """Weights whose state convs reach O(1) (std 0.2 over K*K*U taps), wx
+    ~ N(0, 1) in bf16, h0 ~ N(0, 0.25), a cotangent ~ N(0, 1)."""
+    rng = np.random.RandomState(seed)
+
+    def f32(*shape, std=1.0):
+        return torch.from_numpy((rng.randn(*shape) * std).astype(
+            np.float32)).to(device)
+
+    uzr = f32(k, k, units, 2 * units, std=0.2)
+    uc = f32(k, k, units, units, std=0.2)
+    wx = f32(t, b, *hw, 3 * units).to(torch.bfloat16)
+    h0 = f32(b, *hw, units, std=0.5)
+    g = f32(t, b, *hw, units)
+    return uzr, uc, wx, h0, g
+
+
+def _rel(a, b):
+    """The largest difference over b's largest magnitude."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _l2_rel(a, b):
+    """||a - b|| / ||b||."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+
+def _small_readings(ks, uzr, uc, wx, h0, g, ys, grads):
+    """ys by its largest difference, each gradient (dwx in wx's dtype) by
+    its norm, against B5's plain versions on the same inputs."""
+    want_ys = ks.forward_plain(uzr, uc, wx, h0)
+    want = ks.backward_plain(uzr, uc, wx, h0, ys, g)
+    want = (want[0].to(wx.dtype), *want[1:])
+    grads = (grads[0].to(wx.dtype), *grads[1:])
+    return {"ys": _rel(ys, want_ys),
+            **{n: _l2_rel(a, w) for n, a, w in
+               zip(("dwx", "dh0", "dU_zr", "dU_c"), grads, want)}}
+
+
+@pytest.mark.parametrize("t,b,hw,units,k", SMALL_SHAPES)
+def test_convgru_small_matches_plain(cuda_no_tf32, t, b, hw, units, k):
+    """B5's forward against `forward_plain` and its backward against
+    `backward_plain` (on the kernel's ys), both on the card in bf16: the
+    same rounding rule; the forward sums in the plain conv's order, the
+    backward in its own, and the bf16 roundings that order flips move the
+    gradients by a few bf16 steps."""
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import (
+        convgru_small as ks)
+
+    uzr, uc, wx, h0, g = _small_inputs(t, b, hw, units, k, cuda_no_tf32)
+    before = (ks.launches, ks.bwd_launches)
+    with torch.no_grad():
+        ys = ks.recurrence(uzr, uc, wx, h0)
+        got = ks.recurrence_bwd(uzr, uc, wx, h0, ys, g)
+        readings = _small_readings(ks, uzr, uc, wx, h0, g, ys, got)
+    torch.cuda.synchronize()
+    assert (ks.launches, ks.bwd_launches) == (before[0] + 2, before[1] + 1)
+    assert ys.dtype == torch.float32 and got[0].dtype == torch.bfloat16
+    assert [tuple(a.shape) for a in got] == [
+        tuple(wx.shape), tuple(h0.shape), tuple(uzr.shape), tuple(uc.shape)]
+    assert readings["ys"] <= SMALL_FWD_TOL, readings
+    for name in ("dwx", "dh0", "dU_zr", "dU_c"):
+        assert readings[name] <= SMALL_BWD_TOL[name], (name, readings)
+
+
+def test_convgru_small_gates_refuse_bf16_sums(cuda_no_tf32, monkeypatch):
+    """The control: B5's plain versions with every conv's sum rounded to
+    bf16 (a kernel one precision short), read against the sound plain
+    versions by the same gates, fail the forward's limit and a gradient's,
+    at the cascade's train shape."""
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import (
+        convgru_small as ks)
+
+    uzr, uc, wx, h0, g = _small_inputs(42, 28, (49, 49), 3, 5, cuda_no_tf32,
+                                       seed=2)
+    with torch.no_grad():
+        ys = ks.forward_plain(uzr, uc, wx, h0)
+        conv, wgrad = ks.state_conv, ks.weight_grad
+        monkeypatch.setattr(ks, "state_conv", lambda *a: conv(*a).to(
+            torch.bfloat16).float())
+        monkeypatch.setattr(ks, "weight_grad", lambda *a: wgrad(*a).to(
+            torch.bfloat16).float())
+        ctl_ys = ks.forward_plain(uzr, uc, wx, h0)
+        ctl = ks.backward_plain(uzr, uc, wx, h0, ys, g)
+        monkeypatch.undo()
+        readings = _small_readings(ks, uzr, uc, wx, h0, g, ctl_ys, ctl)
+    assert readings["ys"] > SMALL_FWD_TOL, readings
+    assert any(readings[n] > SMALL_BWD_TOL[n]
+               for n in ("dwx", "dh0", "dU_zr", "dU_c")), readings
+
+
+def test_convgru_small_backward_is_bitwise_repeatable(cuda_no_tf32):
+    """The weight gradients are summed in a fixed order (each CTA's
+    chunks, then the B partials): two backwards give the same bits."""
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import (
+        convgru_small as ks)
+
+    uzr, uc, wx, h0, g = _small_inputs(42, 28, (49, 49), 3, 5,
+                                       cuda_no_tf32, seed=1)
+    ys = ks.recurrence(uzr, uc, wx, h0)
+    first = ks.recurrence_bwd(uzr, uc, wx, h0, ys, g)
+    second = ks.recurrence_bwd(uzr, uc, wx, h0, ys, g)
+    torch.cuda.synchronize()
+    for a, k in zip(first, second):
+        assert torch.equal(a, k)
+
+
+@pytest.mark.parametrize("hw", [(49, 49), (7, 7), (2, 3), (13, 6),
+                                (40, 64)])
+@pytest.mark.parametrize("units,k", [(3, 5)])
+def test_convgru_small_reckoning_matches_the_source(cuda_no_tf32, hw, units,
+                                                    k):
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import build
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import (
+        convgru_small as ks)
+
+    lib = build.load()
+    for backward in (False, True):
+        assert lib.convgru_small_smem_bytes(*hw, k, units, int(backward)) \
+            == ks.smem_bytes(*hw, k, units, backward)
+
+
+def test_convgru_small_refuses_what_it_does_not_take(cuda_no_tf32):
+    """A CUDA tensor the kernel does not take raises (no fallback to the
+    plain version): f32 wx; U=16, 1 or 4; a 3x3 or 7x7 kernel; a grid of
+    more than 2,560 pixels."""
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import (
+        convgru_small as ks)
+
+    before = ks.launches
+    uzr, uc, wx, h0, _ = _small_inputs(2, 1, (9, 9), 3, 5, cuda_no_tf32)
+    with pytest.raises(ValueError, match="convgru_small takes"):
+        ks.recurrence(uzr, uc, wx.float(), h0)
+    for units, k, hw in ((16, 3, (9, 9)), (3, 7, (9, 9)), (1, 5, (9, 9)),
+                         (4, 5, (9, 9)), (3, 3, (9, 9)), (3, 5, (51, 51))):
+        uzr, uc, wx, h0, _ = _small_inputs(2, 1, hw, units, k, cuda_no_tf32)
+        with pytest.raises(ValueError, match="convgru_small takes"):
+            ks.recurrence(uzr, uc, wx, h0)
+    assert ks.launches == before
+
+
+def _cascade_on_card(device, t=5):
+    from recurrent_gaze_prediction_tpu_torch import registry
+
+    model = registry.create_model(
+        "gaze_grcn_cascade", device=device, compute_dtype="bfloat16",
+        loss_type="l2", n_lstm_steps=t, dropout_keep_prob=1.0,
+        generator=torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(3)
+    batch = {"c3d": torch.from_numpy(rng.rand(2, t, 1024, 7, 7).astype(
+        np.float32) * 4).to(device),
+        "gazemaps": torch.from_numpy(rng.rand(2, t, 49, 49).astype(
+            np.float32)).to(device)}
+    return model, batch
+
+
+def test_cascade_train_step_launches_b5_once_each_way(cuda_no_tf32):
+    """One cascade train step on the card (bf16, T=5): the top cell takes
+    B5, one launch forward and one backward; `recurrence.plain_steps`
+    reads T (the bottom cell's scan alone), on `gaze.recurrence`;
+    `last_route` still "scan". Its predict launches B5 once."""
+    from recurrent_gaze_prediction_tpu_torch.config import OptimizerConfig
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import (
+        convgru_small as ks)
+    from recurrent_gaze_prediction_tpu_torch.train import profiler
+    from recurrent_gaze_prediction_tpu_torch.train.state import (
+        create_train_state, make_train_step)
+
+    model, batch = _cascade_on_card(cuda_no_tf32)
+    state, tx = create_train_state(model, OptimizerConfig())
+    step = make_train_step(model, tx)
+    step(state, batch, torch.Generator().manual_seed(0))  # warm up
+    before = (ks.launches, ks.bwd_launches)
+    profiler.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        step(state, batch, torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    counted = {r["name"]: r["counts"] for r in profiler.records()
+               if r["counts"]}
+    profiler.clear()
+    assert (ks.launches, ks.bwd_launches) == (before[0] + 2, before[1] + 1)
+    assert counted == {"gaze.recurrence": {"recurrence.plain_steps": 5}}
+    assert model.top_route == "kernel" and model.last_route == "scan"
+    before = ks.launches
+    maps = model.predict(None, batch["c3d"])
+    torch.cuda.synchronize()
+    assert ks.launches == before + 1 and bool(torch.isfinite(maps).all())
+
+
+def test_cascade_gradients_through_b5_match_the_plain_scan(cuda_no_tf32,
+                                                          monkeypatch):
+    """The cascade's loss and the top cell's and upsample's gradients on
+    the card (bf16, T=5), through B5 and through `ConvGRU.scan` (remat):
+    the two rounding rules agree within bf16 resolution."""
+    from recurrent_gaze_prediction_tpu_torch.models import gaze_grcn_cascade
+
+    model, batch = _cascade_on_card(cuda_no_tf32)
+    with torch.no_grad():
+        for p in model.top_cell.values():
+            p.copy_(torch.randn(p.shape, generator=torch.Generator()
+                                .manual_seed(5)).to(p.device) * 0.05)
+    named = [(n, p) for n, p in model.named_parameters()
+             if n.startswith("top_cell.") or n == "up_w"]
+    out = {}
+    for route in ("kernel", "scan"):
+        monkeypatch.setattr(gaze_grcn_cascade.GazeGRCNCascade,
+                            "top_cell_route", lambda self, r=route: r)
+        loss, _ = model.loss(batch, train=True)
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        assert model.top_route == route
+        out[route] = (float(loss), grads)
+    assert abs(out["kernel"][0] - out["scan"][0]) <= 1e-2 * abs(
+        out["scan"][0])
+    for (n, _), a, w in zip(named, out["kernel"][1], out["scan"][1]):
+        assert _rel(a, w) <= 5e-2, n
+        assert float(torch.corrcoef(torch.stack(
+            [a.float().flatten(), w.float().flatten()]))[0, 1]) >= 0.999, n
