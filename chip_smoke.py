@@ -47,9 +47,7 @@ In order, failing (exit 1) on the first check that does not hold:
      metrics.jsonl are written, and the final test-split evaluation (one
      more B1 launch) writes finite `test/<metric>` rows; then the same 20
      steps with `--no_prefetch`, whose per-step losses must equal the
-     prefetched run's (rel 1e-6), and both runs' CLI sec/batch; then takes
-     train steps through `convgru_scan_trainable` (B4 backward: G, B2 and
-     W once per step), counting their launches;
+     prefetched run's (rel 1e-6), and both runs' CLI sec/batch;
   4c. the raw-video front: the C3D tower in bf16 against f32 (TF32 off) on
      16 clips; then the bundle's `fused` program of gaze_grcn and gaze_lstm
      served over HTTP at the JAX package's fused benchmark shape (F=160
@@ -71,8 +69,9 @@ In order, failing (exit 1) on the first check that does not hold:
      batch); `cli.evaluate_gaze` on the gaze_grcn and gaze_lstm CLI runs
      (overall.txt, one scores.txt row per frame, one B1 / B3 launch, mean
      scores within 0.01 of the same evaluation through the plain scan);
-  6. checks the train step's gradients at full width, through either
-     backward, against plain autograd of `ConvGRU.scan` on one batch;
+  6. checks the train step's gradients at full width, through the
+     kernels' backward, against plain autograd of `ConvGRU.scan` on one
+     batch;
   9. the rest of the model zoo, each family at its registry
      width in bf16: the cluster lines of B1 and B2 at U=64 (C=4) and their
      gates at gaze_pupil_grcn's shapes (T=35, 32 -> 64) at B=7, 1 and 28
@@ -271,7 +270,6 @@ T = 42
 N_REQUESTS = 8
 TRAIN_BATCH = 28  # the reference's training batch (cli/train_gaze.py:135)
 TRAIN_STEPS = 20
-MONO_STEPS = 3    # train steps through the B4 backward
 # B4 and its phases G and W: gated and timed at the flagship B=8 and the
 # serving batch B=16; G and W also at the reference's training batch
 B4_BATCHES = (8, 16)
@@ -754,7 +752,7 @@ def library_b4_calls(x: dict) -> dict:
     def v2_backward():
         return v1.convgru_bwd_phased(
             x["uzr"], x["uc"], x["wx"], x["ys"], x["h0"], x["g"],
-            gates=v2.recompute_gates, recursion=v2.dh_bwd,
+            gates=v1.recompute_gates, recursion=v2.dh_bwd,
             tail=v1.wgrad_plain)
 
     return {
@@ -818,12 +816,15 @@ B4_PARTS = (("gates_wgmma", "G"), ("convgru_bwd_kernel", "B2"),
             ("wgrad_wgmma", "W"), ("wgrad_reduce", "W slice sum"))
 
 
-def b4_breakdown(b: int, calls: int = 5) -> dict:
+def b4_breakdown(b: int, calls: int = 5) -> tuple[dict, dict]:
     """Device time of one B4 call by kernel (torch.profiler over `calls`
     calls after warm-up, ms per call): G, B2, W, W's slice sum, and the
-    rest (weight packing, the dwx concatenation)."""
+    rest (weight packing, the dwx concatenation); and the launches of all
+    the calls, warm-up included: each call of B4's wrapper launches G, B2
+    and W once."""
     x = backward_inputs(T, b, 512, UNITS, torch.bfloat16, SEED + b, "cuda")
     args = (x["uzr"], x["uc"], x["wx"], x["ys"], x["h0"], x["g"])
+    reset_launches()
     with torch.no_grad():
         for _ in range(2):
             v1.convgru_bwd(*args)
@@ -844,26 +845,45 @@ def b4_breakdown(b: int, calls: int = 5) -> dict:
         out[label] += us / 1e3 / calls
     check(all(out[label] > 0 for _, label in B4_PARTS),
           f"B4's profile at B={b} misses a kernel: {out}")
-    return out
+    launches = read_launches()
+    check(launches == {"convgru_fwd": 0, **v2_backwards(2 + calls),
+                       "convgru_bwd_mono": 2 + calls, "convlstm_fwd": 0,
+                       **small_launches()},
+          f"launches over {2 + calls} calls of B4's wrapper: {launches}")
+    return out, launches
 
 
 @contextlib.contextmanager
 def v2_stages(route: str):
-    """V2's backward through its kernels (phase G, B2, phase W: the port's
-    route) or, as a yardstick, through its library stages (cuDNN convs for
-    G, matmuls for W: `recompute_gates`, `wgrad_plain`), for the span of
-    the block."""
-    saved = (v2.bwd_gates, v2.wgrad)
+    """V2's backward (`ConvGRUFused`'s) through its kernels (phase G, B2,
+    phase W: the port's route) or, as a yardstick, through its library
+    stages (cuDNN convs for G, matmuls for W: `recompute_gates`,
+    `wgrad_plain`), for the span of the block."""
+    saved = (v1.bwd_gates, v1.wgrad)
     if route == "library":
-        v2.bwd_gates, v2.wgrad = v2.recompute_gates, v1.wgrad_plain
+        v1.bwd_gates, v1.wgrad = v1.recompute_gates, v1.wgrad_plain
     try:
         yield
     finally:
-        v2.bwd_gates, v2.wgrad = saved
+        v1.bwd_gates, v1.wgrad = saved
+
+
+@contextlib.contextmanager
+def plain_route(model, plain: bool = True):
+    """With `plain`, the model's recurrence on its cell's own scan (plain
+    autograd in training: the reference the kernels are held against) for
+    the span of the block."""
+    if plain:
+        model.recurrence_route = lambda train: "scan"
+    try:
+        yield
+    finally:
+        if plain:
+            del model.recurrence_route
 
 
 def v2_route_timing(b: int) -> dict:
-    """V2's backward (`convgru_bwd_phased` as `ConvGRUFusedV2` calls it) at
+    """V2's backward (`convgru_bwd_phased` as `ConvGRUFused` calls it) at
     T=42, U=128 in bf16 through its library stages and through G + B2 + W,
     in turns (library, kernels, kernels, library)."""
     x = backward_inputs(T, b, 512, UNITS, torch.bfloat16, SEED + b, "cuda")
@@ -873,8 +893,8 @@ def v2_route_timing(b: int) -> dict:
         for label in ("library", "kernels", "kernels", "library"):
             with v2_stages(label):
                 runs[label].append(cuda_ms(lambda: v1.convgru_bwd_phased(
-                    *args, gates=v2.bwd_gates, recursion=v2.dh_bwd,
-                    tail=v2.wgrad), 10))
+                    *args, gates=v1.bwd_gates, recursion=v2.dh_bwd,
+                    tail=v1.wgrad), 10))
     return {"library_ms": statistics.mean(runs["library"]),
             "kernels_ms": statistics.mean(runs["kernels"]), "runs": runs}
 
@@ -949,7 +969,7 @@ def small_launches(fwd: int = 0, bwd: int = 0) -> dict:
 
 
 def v2_backwards(n: int) -> dict:
-    """The launches of n V2 backwards (`ConvGRUFusedV2`, the train path):
+    """The launches of n train backwards (`ConvGRUFused`'s, V2's split):
     phase G, B2 and phase W once each."""
     return {"convgru_bwd_gates": n, "convgru_bwd": n, "convgru_wgrad": n}
 
@@ -1370,57 +1390,24 @@ def evaluate_through_cli(card: str, run: str) -> dict:
     return {"overall": overall, "plain": plain, "launches": launches}
 
 
-def train_through_mono(model, batch: dict) -> dict:
-    """Train steps with `convgru_scan_trainable` (forward B1, backward
-    B4), the JAX package's v1 entry point, through `make_train_step`. Each
-    B4 backward launches phase G, B2 and phase W once."""
-    model.train_scan = v1.convgru_scan_trainable
-    try:
-        state, tx = create_train_state(model, OptimizerConfig())
-        step = make_train_step(model, tx)
-        gen = torch.Generator(device="cuda").manual_seed(SEED)
-        reset_launches()
-        losses = [step(state, batch, gen)[1]["loss"]
-                  for _ in range(MONO_STEPS)]
-        launches = read_launches()
-    finally:
-        del model.train_scan
-    losses = [float(x) for x in losses]
-    print(f"train (make_train_step + convgru_scan_trainable, B4 backward "
-          f"= G + B2 + W, "
-          f"B={TRAIN_BATCH}): losses {losses}, launches {launches}",
-          flush=True)
-    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
-    check(launches == {"convgru_fwd": MONO_STEPS, "convgru_bwd": MONO_STEPS,
-                       "convgru_bwd_mono": MONO_STEPS,
-                       "convgru_bwd_gates": MONO_STEPS,
-                       "convgru_wgrad": MONO_STEPS, "convlstm_fwd": 0,
-                       **small_launches()},
-          f"launches over {MONO_STEPS} train steps: {launches}")
-    return {"launches": launches, "losses": losses}
-
-
 def gradient_check(model, batch: dict) -> dict:
     """The train loss and gradients on one batch, from the same weights,
-    through each backward against plain autograd of `ConvGRU.scan` (no
-    dropout; the flip is not applied)."""
+    through the kernels' backward against plain autograd of `ConvGRU.scan`
+    (no dropout; the flip is not applied)."""
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
     keep = model.cfg.dropout_keep_prob
     model.cfg.dropout_keep_prob = 1.0
     out = {}
     try:
-        for label, scan in (("plain", ConvGRU.scan),
-                            ("v2 (G, B2, W)", v2.convgru_scan_trainable_v2),
-                            ("v1 (B4)", v1.convgru_scan_trainable)):
-            model.train_scan = scan
-            loss, _ = model.loss(batch, train=True)
+        for label in ("plain", "v2 (G, B2, W)"):
+            with plain_route(model, label == "plain"):
+                loss, _ = model.loss(batch, train=True)
             grads = torch.autograd.grad(loss, params)
             out[label] = (loss.item(), [g.float().cpu().numpy()
                                         for g in grads])
     finally:
         model.cfg.dropout_keep_prob = keep
-        del model.train_scan
     plain_loss, plain_grads = out.pop("plain")
     scale = max(float(np.abs(g).max()) for g in plain_grads)
     results = {}
@@ -1462,17 +1449,11 @@ def train_step_timing(model, raw: dict) -> dict:
     step = make_train_step(model, tx)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     runs = {"plain": [], "kernels": [], "v2 library stages": []}
-    try:
-        for label in ("plain", "kernels", "v2 library stages",
-                      "v2 library stages", "kernels", "plain"):
-            model.train_scan = (ConvGRU.scan if label == "plain"
-                                else v2.convgru_scan_trainable_v2)
-            with v2_stages("library" if label == "v2 library stages"
-                           else "kernels"):
-                runs[label].append(cuda_ms(lambda: step(state, batch, gen),
-                                           5))
-    finally:
-        del model.train_scan
+    for label in ("plain", "kernels", "v2 library stages",
+                  "v2 library stages", "kernels", "plain"):
+        with plain_route(model, label == "plain"), v2_stages(
+                "library" if label == "v2 library stages" else "kernels"):
+            runs[label].append(cuda_ms(lambda: step(state, batch, gen), 5))
     params = list(state.params.values())
 
     def forward_backward():
@@ -2269,17 +2250,15 @@ def pupil_gradient_check(card: str) -> dict:
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
     out = {}
-    for label, scan in (("plain", ConvGRU.scan),
-                        ("kernels", v2.convgru_scan_trainable_v2)):
-        model.train_scan = scan
+    for label in ("plain", "kernels"):
         reset_launches()
-        loss, aux = model.loss(batch, train=True)
+        with plain_route(model, label == "plain"):
+            loss, aux = model.loss(batch, train=True)
         grads = torch.autograd.grad(loss, params)
         launches = read_launches()
         out[label] = (loss.item(), [g.float().cpu().numpy() for g in grads],
                       launches, {k: aux[k].item() for k in
                                  ("gaze_loss", "pupil_loss")})
-    del model.train_scan
     (plain_loss, plain_grads, plain_launches, _), \
         (loss, grads, launches, parts) = out["plain"], out["kernels"]
     rel = abs(loss - plain_loss) / abs(plain_loss)
@@ -3248,11 +3227,8 @@ def mfu_phase(card: str, tower: dict, raw_batch: dict,
     batch = device_put_batch(raw_batch, dev, stream_casts(torch.bfloat16))
     gen = torch.Generator(device=dev).manual_seed(SEED)
     kernel = mfu.flop_counts(step, state, batch, gen)
-    try:
-        model.train_scan = ConvGRU.scan
+    with plain_route(model):
         plain = mfu.flop_counts(step, state, batch, gen)
-    finally:
-        del model.train_scan
     # V2's backward recomputes the gates (phase G, the contractions of
     # `recompute_gates`) and B2 forms dh0 through U_zr's transposed conv,
     # which plain autograd skips (h0 takes no gradient): both counted on
@@ -3265,7 +3241,7 @@ def mfu_phase(card: str, tower: dict, raw_batch: dict,
         wx = ConvGRU.input_gates(fused, xs, torch.bfloat16)
         h0 = ConvGRU.zero_state(TRAIN_BATCH, (7, 7), UNITS, device=dev)
         _, ys = kconv.convgru_recurrence(fused, wx, h0)
-    recompute = sum(mfu.flop_counts(v2.recompute_gates, fused["Uh_zr"],
+    recompute = sum(mfu.flop_counts(v1.recompute_gates, fused["Uh_zr"],
                                     fused["U_c"], wx, h0, ys).values())
     dh0 = 2 * TRAIN_BATCH * 49 * 9 * UNITS * 2 * UNITS
     check(sum(kernel.values()) == sum(plain.values()) + recompute + dh0,
@@ -4119,8 +4095,7 @@ def main() -> int:
                     for m in (model, lstm_model)}
 
     # 5. training at full width: the normal entry point (B1 + B2),
-    # prefetched and inline, then the v1 entry point (B1 + B4); gaze_lstm
-    # (plain scan); from raw video. 5c. evaluation: the metrics, fit's
+    # prefetched and inline; gaze_lstm (plain scan); from raw video. 5c. evaluation: the metrics, fit's
     # cadence, and cli.evaluate_gaze on the two CLI runs
     runs_dir = tempfile.TemporaryDirectory()
     runs = runs_dir.name
@@ -4132,7 +4107,6 @@ def main() -> int:
     batch = device_put_batch(raw_batch, torch.device("cuda"),
                              stream_casts(torch.bfloat16))
     gradient_check(full_width_model(), batch)  # 6.
-    mono = train_through_mono(full_width_model(), batch)
     train_lstm_through_cli(card, f"{runs}/lstm")
     lstm_gradient_check(full_width_model("gaze_lstm"), batch)
     train_fused_through_cli(card)
@@ -4172,7 +4146,7 @@ def main() -> int:
                             for name in B4_EXTRA_TIMES if name in k)
                   + f" [{card}]", flush=True)
     for b in B4_BATCHES:
-        parts = b4_breakdown(b)
+        parts, b4_launches = b4_breakdown(b)
         print(f"timing: convgru_bwd_mono T={T} B={b} U=128 bf16, device time "
               f"per call by kernel (torch.profiler, ms): " + ", ".join(
                   f"{k} {v:.4f}" for k, v in parts.items()) + f" [{card}]",
@@ -4342,7 +4316,7 @@ def main() -> int:
         # B4 is G + B2 + W, composed in its wrapper: its entry is the whole
         # backward, then one entry for each new phase
         entry("convgru_bwd_mono", "ops/kernels/convgru_vjp.py",
-              "convgru_vjp.py:85", mono["launches"]["convgru_bwd_mono"],
+              "convgru_vjp.py:85", b4_launches["convgru_bwd_mono"],
               max_err(bwd_parity["convgru_bwd_mono", 8]),
               bwd_timing["convgru_bwd_mono", 8],
               phases=["convgru_bwd_gates", "convgru_bwd", "convgru_wgrad"]),

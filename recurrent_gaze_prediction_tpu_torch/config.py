@@ -85,9 +85,9 @@ class ModelConfig:
     param_dtype: str = "float32"
     # Read from configs and manifests written by the JAX package, and has
     # no effect here: on a CUDA tensor the models run the hand-written
-    # recurrence kernels (ops/kernels/) at every width they take and the
-    # cell's own scan at the others (`recurrence_route`); a CPU tensor runs
-    # the kernels' plain PyTorch versions.
+    # recurrence kernels at every shape they take and the cell's own scan
+    # at the others (`ops/kernels/route.py`, read through each model's
+    # `recurrence_route`); a CPU tensor runs the kernels' plain versions.
     use_pallas: bool = False
     # rematerialize each recurrence step in the backward pass: the
     # cascade's two cells run `ConvGRU.scan(remat=True)` in training. The

@@ -8,15 +8,15 @@ deconv decoder. The port's counterpart of the JAX package's
       -> logits [B, T, 49, 49]
 
 and `gaze_grcn77`: the same trunk at 7x7 with a per-cell 128->1 linear
-head and no upsampling. Inference runs the recurrence through the forward
-kernel's wrapper (`ops/kernels/convgru.py`); training runs it through the
-autograd Function `convgru_scan_trainable_v2` (forward kernel B1, backward
-B4's phase G, kernel B2 and phase W, `ops/kernels/convgru_vjp2.py`). On a
-CPU tensor both use their kernels' plain versions. A width the kernels do
-not take (U not a multiple of 16, or a CTA's slice too large for shared
-memory, e.g. U=256) or kernel size (not 3x3) runs `ConvGRU.scan` instead,
-on any device (`convgru_route`); the forward records the route it took in
-`last_route`.
+head and no upsampling. The recurrence runs by the route of its cell
+(`ops/kernels/route.py`, decided from the shapes alone): kernel B1 to
+predict; to train, the autograd Function `convgru_scan_trainable` (forward
+B1, backward B4's phase G, kernel B2 and phase W, `ops/kernels/
+convgru_vjp.py`); `ConvGRU.scan` for a width (U not a multiple of 16, or a
+CTA's slice too large for shared memory, e.g. U=256) or a kernel size (not
+3x3) the kernels do not take, on any device. On a CPU tensor the kernel
+route runs the kernels' plain versions. The forward records the route it
+took in `last_route`.
 
 gaze_grcn does not read `frames`, so the raw-video pipeline skips their
 resize for it (`reads_frames`).
@@ -24,7 +24,8 @@ resize for it (`reads_frames`).
 Unlike the JAX package, whose train step keeps the differentiable
 `lax.scan` (its custom VJP was a fusion barrier for XLA on the TPU), the
 port trains through the kernels; `ConvGRU.scan` under autograd stays the
-plain version of the whole trainable recurrence (`train_scan`).
+plain version of the whole trainable recurrence, run where
+`recurrence_route` answers "scan".
 """
 
 from __future__ import annotations
@@ -37,39 +38,17 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops import initializers as init
 from ..ops.cells import ConvGRU
-from ..ops.kernels import convgru, convgru_vjp
-from ..ops.kernels.convgru_vjp2 import convgru_scan_trainable_v2
+from ..ops.kernels.route import convgru_route, run_convgru
 from ..ops.layers import dropout, linear
 from ..train.profiler import span
 from .common import (GazeModel, apply_c3d_projection, apply_decoder,
                      compute_dtype_of, init_c3d_projection, init_decoder)
 
 
-def convgru_route(cell, hw: tuple[int, int], compute_dtype: torch.dtype,
-                  train: bool) -> str:
-    """"kernel" when the kernels take a ConvGRU cell (params `cell`) on an
-    `hw` grid, judged from its kernel size and units (B1 to predict, B1 and
-    the backward's G, B2 and W to train), else "scan": the cell's own
-    `ConvGRU.scan`, which runs any width and kernel size, as the JAX
-    package's default path does.
-    Decided from the shapes alone, before any launch."""
-    kernel = ConvGRU.kernel_size(cell)
-    units = cell["U"].shape[-1]
-    takes = convgru.kernel_takes(*hw, units, compute_dtype, kernel)
-    if train:
-        takes = takes and convgru_vjp.kernel_takes(*hw, units,
-                                                   compute_dtype, kernel)
-    return "kernel" if takes else "scan"
-
-
 class _GRCNTrunk(GazeModel):
     """Projection + ConvGRU shared by both heads (and by the pupil
     prototype gaze_pupil_grcn, `models/gaze_legacy.py`)."""
 
-    # The recurrence of the train path. An instance may set `ConvGRU.scan`
-    # (plain autograd, the reference the kernels are held against) or
-    # `convgru_scan_trainable` (backward kernel B4) instead.
-    train_scan = staticmethod(convgru_scan_trainable_v2)
     reads_frames = False  # both heads use only the C3D stream
     last_route: Optional[str] = None
 
@@ -100,12 +79,9 @@ class _GRCNTrunk(GazeModel):
         xs = embedded.transpose(0, 1)                      # [T,B,7,7,P]
         h0 = ConvGRU.zero_state(b, (7, 7), units, device=c3d.device)
         self.last_route = self.recurrence_route(train)
-        if self.last_route == "scan":
-            scan = ConvGRU.scan
-        else:
-            scan = self.train_scan if train else convgru.convgru_scan
         with span("gaze.recurrence"):
-            _, ys = scan(self.cell, xs, h0, compute_dtype=cdt)
+            _, ys = run_convgru(self.cell, xs, h0, compute_dtype=cdt,
+                                train=train, route=self.last_route)
         return ys.transpose(0, 1).reshape(b * t, 7, 7, units)
 
 

@@ -9,19 +9,18 @@ port's counterpart of the JAX package's `models/gaze_grcn_cascade.py`
         -> per-frame head: fc 4802 + relu + dropout + maxout
                           -> fc 4802 + relu + maxout -> [49,49]
 
-Neither cell is a shape of kernel B1 (U=256 does not fit a CTA's shared
-memory, and the top cell is 5x5), which `convgru_route` decides from the
-shapes, so `recurrence_route` and `last_route` read "scan". The bottom cell
+Each cell runs by its own route (`ops/kernels/route.py`, decided from the
+shapes alone). No kernel takes the bottom cell (U=256 does not fit a CTA's
+shared memory), so `recurrence_route` and `last_route` read "scan" and it
 runs its own `ConvGRU.scan`, as in the JAX package. The top cell takes
 kernel B5 (`ops/kernels/convgru_small.py`: its whole sequence in one launch
-forward and one backward) wherever `convgru_small.kernel_takes` says so
-(bf16), and `ConvGRU.scan` otherwise; the forward records its route in
-`top_route`. With `cfg.remat_cells` in training, each step of a plain scan
-is checkpointed (`torch.utils.checkpoint`): on the scan route the 49x49 top
-cell's per-step gates are 49x the bottom cell's, and autograd would
-otherwise keep all of them. B5 keeps only ys and recomputes its gates, so
-remat has no use there. On a CPU tensor B5's wrappers run their plain
-versions.
+forward and one backward) in bf16, and `ConvGRU.scan` otherwise; the
+forward records its route in `top_route`. With `cfg.remat_cells` in
+training, each step of a plain scan is checkpointed
+(`torch.utils.checkpoint`): on the scan route the 49x49 top cell's per-step
+gates are 49x the bottom cell's, and autograd would otherwise keep all of
+them. B5 keeps only ys and recomputes its gates, so remat has no use there.
+On a CPU tensor B5's wrappers run their plain versions.
 
 The ShallowNet branch feeds nothing in the reference (its concat is
 commented out, `gaze_grcn_cascade.py:370-377`); its parameters are kept
@@ -46,13 +45,12 @@ from torch import nn
 from ..config import ModelConfig
 from ..ops import initializers as init
 from ..ops.cells import ConvGRU
-from ..ops.kernels import convgru_small
+from ..ops.kernels.route import convgru_route, run_convgru
 from ..ops.layers import conv2d_transpose, dropout, linear, maxout2
 from ..train.profiler import span
 from . import shallownet
 from .common import (GazeModel, apply_c3d_projection, compute_dtype_of,
                      init_c3d_projection)
-from .gaze_grcn import convgru_route
 
 BOTTOM_UNITS = 256       # gaze_grcn_cascade.py:229
 UP_CHANNELS = 64         # gaze_grcn_cascade.py:318
@@ -89,21 +87,10 @@ class GazeGRCNCascade(GazeModel):
         self.fc2_b = nn.Parameter(init.zeros((FC_WIDTH,)))
 
     def recurrence_route(self, train: bool) -> str:
-        """"scan": B1's kernels take neither cell (the bottom cell's U=256
-        and the top cell's 5x5), judged by `convgru_route`."""
-        cdt = compute_dtype_of(self.cfg)
-        routes = {convgru_route(self.bottom_cell, (7, 7), cdt, train),
-                  convgru_route(self.top_cell, (49, 49), cdt, train)}
-        return "kernel" if routes == {"kernel"} else "scan"
-
-    def top_cell_route(self) -> str:
-        """"kernel" when kernel B5 takes the top cell (its kernel size and
-        units at 49x49 in the compute dtype, `convgru_small.kernel_takes`),
-        else "scan". Decided from the shapes alone, before any launch."""
-        takes = convgru_small.kernel_takes(
-            49, 49, self.top_cell["U"].shape[-1], compute_dtype_of(self.cfg),
-            ConvGRU.kernel_size(self.top_cell))
-        return "kernel" if takes else "scan"
+        """The bottom cell's route (`convgru_route`): "scan", since no
+        kernel takes U=256."""
+        return convgru_route(self.bottom_cell, (7, 7),
+                             compute_dtype_of(self.cfg), train)
 
     def forward(self, frames, c3d: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -117,7 +104,7 @@ class GazeGRCNCascade(GazeModel):
                 self.shallownet, frames.reshape(-1, *frames.shape[2:]),
                 train=False, compute_dtype=cdt).reshape(b, t, 49, 49)
         self.last_route = self.recurrence_route(train)  # always "scan"
-        self.top_route = self.top_cell_route()
+        self.top_route = convgru_route(self.top_cell, (49, 49), cdt, train)
 
         embedded = apply_c3d_projection(self.c3d_proj, c3d, keep_prob=1.0,
                                         generator=None, train=False,
@@ -126,8 +113,9 @@ class GazeGRCNCascade(GazeModel):
         with span("gaze.recurrence"):
             h0 = ConvGRU.zero_state(b, (7, 7), BOTTOM_UNITS,
                                     device=c3d.device)
-            _, ys = ConvGRU.scan(self.bottom_cell, embedded.transpose(0, 1),
-                                 h0, compute_dtype=cdt, remat=remat)
+            _, ys = run_convgru(self.bottom_cell, embedded.transpose(0, 1),
+                                h0, compute_dtype=cdt, train=train,
+                                route=self.last_route, remat=remat)
         # upsample every step at once: [T*B,7,7,256] -> [T*B,49,49,64]
         with span("gaze.upsample"):
             up = conv2d_transpose(ys.reshape(t * b, 7, 7, BOTTOM_UNITS),
@@ -137,13 +125,10 @@ class GazeGRCNCascade(GazeModel):
         with span("gaze.top_recurrence"):
             g0 = ConvGRU.zero_state(b, (49, 49), TOP_UNITS,
                                     device=c3d.device)
-            xs = up.reshape(t, b, 49, 49, UP_CHANNELS)
-            if self.top_route == "kernel":
-                _, gs = convgru_small.convgru_scan_small(
-                    self.top_cell, xs, g0, compute_dtype=cdt)
-            else:
-                _, gs = ConvGRU.scan(self.top_cell, xs, g0,
-                                     compute_dtype=cdt, remat=remat)
+            _, gs = run_convgru(self.top_cell,
+                                up.reshape(t, b, 49, 49, UP_CHANNELS), g0,
+                                compute_dtype=cdt, train=train,
+                                route=self.top_route, remat=remat)
         # per-frame maxout head over T*B
         with span("gaze.decoder"):
             x = torch.relu(linear(gs.reshape(t * b, -1), self.fc1_w,

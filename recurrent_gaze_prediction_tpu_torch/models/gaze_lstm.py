@@ -6,14 +6,14 @@ counterpart of the JAX package's `models/gaze_lstm.py`:
       -> per-frame decoder (frozen BN -> deconv x3 -> 12->1 head)
       -> logits [B, T, 49, 49]
 
-The projection and decoder are gaze_grcn's (`models/common.py`).
-Inference runs the recurrence through kernel B3's wrapper
-(`ops/kernels/convlstm.py`). Training runs `ConvLSTM.scan` under autograd,
-which is the JAX package's own train path: it has no backward kernel for
-the ConvLSTM, so the port adds none. On a CPU tensor inference uses the
-kernel's plain version. A width B3 does not take runs `ConvLSTM.scan` for
-inference too (`recurrence_route`); the forward records the route it took
-in `last_route`.
+The projection and decoder are gaze_grcn's (`models/common.py`). The
+recurrence runs by the route of its cell (`ops/kernels/route.py`, decided
+from the shapes alone): inference through kernel B3's wrapper
+(`ops/kernels/convlstm.py`), or `ConvLSTM.scan` at a width B3 does not
+take. Training runs `ConvLSTM.scan` under autograd, which is the JAX
+package's own train path: it has no backward kernel for the ConvLSTM, so
+the port adds none. On a CPU tensor inference uses the kernel's plain
+version. The forward records the route it took in `last_route`.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops.cells import ConvLSTM
-from ..ops.kernels import convlstm
+from ..ops.kernels.route import convlstm_route, run_convlstm
 from ..train.profiler import span
 from .common import (GazeModel, apply_c3d_projection, apply_decoder,
                      compute_dtype_of, init_c3d_projection, init_decoder)
@@ -50,13 +50,10 @@ class GazeLSTM(GazeModel):
             cfg.rnn_state_size, with_batch_norm=True, generator=generator))
 
     def recurrence_route(self, train: bool) -> str:
-        """"kernel" when B3 takes this width (inference only; there is no
-        backward kernel), else "scan": the cell's own `ConvLSTM.scan`, as
-        the JAX package runs any width. Decided from the shapes alone,
-        before any launch."""
-        takes = convlstm.kernel_takes(7, 7, self.cfg.rnn_state_size,
-                                      compute_dtype_of(self.cfg))
-        return "kernel" if takes and not train else "scan"
+        """The route of this model's cell (`convlstm_route`): "kernel" to
+        predict at a width B3 takes, else "scan"."""
+        return convlstm_route(self.cfg.rnn_state_size, (7, 7),
+                              compute_dtype_of(self.cfg), train)
 
     def forward(self, frames, c3d: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -71,10 +68,9 @@ class GazeLSTM(GazeModel):
         xs = embedded.transpose(0, 1)                      # [T,B,7,7,P]
         carry0 = ConvLSTM.zero_state(b, (7, 7), units, device=c3d.device)
         self.last_route = self.recurrence_route(train)
-        scan = (convlstm.convlstm_scan if self.last_route == "kernel"
-                else ConvLSTM.scan)
         with span("gaze.recurrence"):
-            _, ys = scan(self.cell, xs, carry0, compute_dtype=cdt)
+            _, ys = run_convlstm(self.cell, xs, carry0, compute_dtype=cdt,
+                                 route=self.last_route)
         folded = ys.transpose(0, 1).reshape(b * t, 7, 7, units)
         maps = apply_decoder(self.decoder, folded, keep_prob=keep,
                              generator=generator, train=train,

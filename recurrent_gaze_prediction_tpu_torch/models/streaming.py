@@ -15,9 +15,10 @@ streams through fixed-size chunks with full temporal context:
 Each step takes a model and returns (new state, raw per-frame logits
 [B, Tc, 49, 49]), as the JAX steps do. The state stays f32 in both
 directions: it goes back and forth every chunk, and rounding it would
-accumulate error along a long video. On CPU tensors the steps run the
-kernels' plain versions. A width the kernel does not take runs the cell's
-own scan, by the model's `recurrence_route`.
+accumulate error along a long video. Each step runs its cell by the
+model's `recurrence_route` (decided in `ops/kernels/route.py`): a width the
+kernel does not take runs the cell's own scan. On CPU tensors the steps
+run the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -29,8 +30,7 @@ import torch
 
 from ..config import ModelConfig
 from ..ops.cells import ConvGRU, ConvLSTM
-from ..ops.kernels.convgru import convgru_scan
-from ..ops.kernels.convlstm import convlstm_scan
+from ..ops.kernels.route import run_convgru, run_convlstm
 from ..utils import resolve_device
 from .common import (GazeModel, apply_c3d_projection, apply_decoder,
                      compute_dtype_of)
@@ -76,10 +76,11 @@ def grcn_stream_step(model: GazeModel, state: torch.Tensor,
     """One chunk of gaze_grcn: ([B,7,7,U] state, [B,Tc,1024,7,7]) ->
     (new state, [B,Tc,49,49] logits), the recurrence through kernel B1."""
     _require(model, GazeGRCN, "grcn_stream_step")
-    scan = (convgru_scan if model.recurrence_route(train=False) == "kernel"
-            else ConvGRU.scan)
-    final_h, ys = scan(model.cell, _embed(model, c3d_chunk), state.float(),
-                       compute_dtype=compute_dtype_of(model.cfg))
+    final_h, ys = run_convgru(model.cell, _embed(model, c3d_chunk),
+                              state.float(),
+                              compute_dtype=compute_dtype_of(model.cfg),
+                              train=False,
+                              route=model.recurrence_route(train=False))
     return final_h, _decode(model, ys)
 
 
@@ -99,11 +100,10 @@ def lstm_stream_step(model: GazeModel,
     ((c, h), [B,Tc,49,49] logits), the recurrence through kernel B3."""
     _require(model, GazeLSTM, "lstm_stream_step")
     c, h = state
-    scan = (convlstm_scan if model.recurrence_route(train=False) == "kernel"
-            else ConvLSTM.scan)
-    carry, ys = scan(model.cell, _embed(model, c3d_chunk),
-                     (c.float(), h.float()),
-                     compute_dtype=compute_dtype_of(model.cfg))
+    carry, ys = run_convlstm(model.cell, _embed(model, c3d_chunk),
+                             (c.float(), h.float()),
+                             compute_dtype=compute_dtype_of(model.cfg),
+                             route=model.recurrence_route(train=False))
     return carry, _decode(model, ys)
 
 

@@ -1,6 +1,8 @@
-"""ConvGRU recurrence: the hand-written CUDA kernel's wrapper, and the
-packing of the cluster-split kernels' weight slices (B1 here, B2 in
-`convgru_vjp2.py`).
+"""ConvGRU recurrence: the hand-written CUDA kernel's wrapper; what the
+cluster-split kernels (B1 here, B2 in `convgru_vjp2.py`, B3 in
+`convlstm.py`) share: the packing of their weight slices, their shared
+memory reckoning and the rule of which shapes they take; and the plain conv
+helpers of the backward modules and of B5 (`convgru_small.py`).
 
 Replaces the TPU kernel `_convgru_seq_kernel` of the JAX package's
 `ops/pallas/convgru.py` (`convgru_scan_pallas`, wrapper `convgru_scan`).
@@ -25,10 +27,13 @@ which the tests and `chip_smoke.py` hold the kernel against.
 from __future__ import annotations
 
 import threading
+from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..cells import ConvGRU
+from ..layers import conv2d
 from ...utils import mfu
 from . import build
 
@@ -125,18 +130,25 @@ def smem_bytes(h: int, w: int, units: int, elem: int) -> int:
             + align128(2 * 3 * hw * ns * elem))
 
 
-def kernel_takes(h: int, w: int, units: int, dtype: torch.dtype,
-                 kernel: tuple[int, int] = (3, 3)) -> bool:
-    """Whether kernel B1 takes a recurrence of U units with `kernel`-sized
-    state convs on an H x W grid in `dtype` (the dtype of wx): a 3x3 cell
-    (the kernel's convs are 3x3; the cascade's 5x5 top cell is not), U a
-    positive multiple of 16, and one CTA's shared memory (`smem_bytes`)
-    within what `check_fits` allows. A pure function of the shapes: the
-    models decide their route with it before any launch, and `_launch`
-    still raises on what it refuses."""
+def cluster_kernel_takes(smem: Callable[[int, int, int, int], int], h: int,
+                         w: int, units: int, dtype: torch.dtype,
+                         kernel: tuple[int, int] = (3, 3)) -> bool:
+    """The rule of the cluster kernels B1, B2 and B3: whether one takes U
+    units with `kernel`-sized state convs on an H x W grid in `dtype` (the
+    dtype of its conv operands): a 3x3 cell, a dtype of `_DTYPES`, U a
+    positive multiple of 16, and one CTA's shared memory, `smem(h, w,
+    units, elem)`, within `SMEM_LIMIT`. A pure function of the shapes."""
     return (tuple(kernel) == (3, 3) and dtype in _DTYPES and units >= 16
             and units % 16 == 0
-            and smem_bytes(h, w, units, _DTYPES[dtype]) <= SMEM_LIMIT)
+            and smem(h, w, units, _DTYPES[dtype]) <= SMEM_LIMIT)
+
+
+def kernel_takes(h: int, w: int, units: int, dtype: torch.dtype,
+                 kernel: tuple[int, int] = (3, 3)) -> bool:
+    """Whether kernel B1 takes U units with `kernel`-sized state convs on an
+    H x W grid, wx in `dtype` (`cluster_kernel_takes` with B1's
+    `smem_bytes`); `_launch` still raises on what it refuses."""
+    return cluster_kernel_takes(smem_bytes, h, w, units, dtype, kernel)
 
 
 def flops(t: int, b: int, h: int, w: int, units: int, gates: int) -> int:
@@ -159,6 +171,68 @@ def aligned(x: torch.Tensor) -> torch.Tensor:
     """x, or a copy of it whose data starts on 16 bytes (the kernels'
     cp.async and vector loads need that)."""
     return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+# Plain conv helpers of the backward's and B5's plain versions (the JAX
+# package's `_conv3x3_transpose`, `_patches`, `_kernel_grad`), by the
+# numerics rule: operands rounded to the compute dtype, sums in f32.
+
+def mode_of(wx: torch.Tensor) -> Optional[torch.dtype]:
+    """The compute dtype the recurrence ran in: None for f32, else wx's."""
+    return None if wx.dtype == torch.float32 else wx.dtype
+
+
+def round_to(x: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """x rounded to `compute_dtype` (a conv operand, by the numerics rule)
+    and returned in f32; x in f32 when compute_dtype is None."""
+    return x.float() if compute_dtype is None else x.to(compute_dtype).float()
+
+
+def conv3x3(x: torch.Tensor, kernel: torch.Tensor,
+            compute_dtype=None) -> torch.Tensor:
+    """SAME 3x3 conv [N,H,W,Cin] x [3,3,Cin,Cout] -> [N,H,W,Cout] with both
+    operands rounded to `compute_dtype`, products summed in f32."""
+    return conv2d(round_to(x, compute_dtype), round_to(kernel, compute_dtype))
+
+
+def transposed_weight(kernel: torch.Tensor) -> torch.Tensor:
+    """[3,3,Cin,Cout] -> [3,3,Cout,Cin], flipped spatially: the SAME-conv
+    kernel whose conv is the transposed conv of `kernel`."""
+    return kernel.flip(0, 1).transpose(2, 3)
+
+
+def conv3x3_transpose(g: torch.Tensor, kernel: torch.Tensor,
+                      compute_dtype=None) -> torch.Tensor:
+    """Gradient wrt the input of a SAME 3x3 conv: correlate g [N,H,W,Cout]
+    with kernel [3,3,Cin,Cout] -> [N,H,W,Cin]. Equals a SAME conv with the
+    spatially flipped, in/out-swapped kernel (`_conv3x3_transpose`)."""
+    return conv3x3(g, transposed_weight(kernel), compute_dtype)
+
+
+def patches(x: torch.Tensor) -> torch.Tensor:
+    """[N,H,W,C] -> [N,H,W,9,C] of 3x3 SAME neighborhoods (`_patches`)."""
+    h, w = x.shape[1:3]
+    padded = F.pad(x, (0, 0, 1, 1, 1, 1))
+    return torch.stack([padded[:, dy:dy + h, dx:dx + w, :]
+                        for dy in range(3) for dx in range(3)], dim=3)
+
+
+def kernel_grad(x: torch.Tensor, g: torch.Tensor,
+                compute_dtype=None) -> torch.Tensor:
+    """Gradient wrt the kernel of a SAME 3x3 conv, summed over every
+    leading axis: patches(x)^T g as ONE matmul (`_kernel_grad`).
+    x [...,H,W,Cin], g [...,H,W,Cout] -> [3,3,Cin,Cout] in f32."""
+    h, w, cin = x.shape[-3:]
+    cout = g.shape[-1]
+    p = patches(round_to(x, compute_dtype).reshape(-1, h, w, cin))
+    grad = p.reshape(-1, 9 * cin).T @ round_to(g, compute_dtype).reshape(
+        -1, cout)
+    return grad.reshape(3, 3, cin, cout)
+
+
+def hprev_of(h0: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    """The h_{t-1} stream [h0, ys[:-1]] in f32."""
+    return torch.cat([h0[None].float(), ys[:-1].float()], dim=0)
 
 
 def _launch(u_zr: torch.Tensor, u_c: torch.Tensor, wx: torch.Tensor,

@@ -24,7 +24,7 @@ the forward's contractions are 2*T*B*H*W*K*K*U*3U = 3.81 GFLOP (3.9 us)
 against 84.7 MB of wx and ys (25 us): bytes bound it. The backward's are
 three times that (11.4 GFLOP, 11.6 us) against ~170 MB (51 us).
 
-Numerics rule (as `convgru_vjp.py`'s): the state and elementwise math in
+Numerics rule (as `convgru.py`'s plain conv helpers): the state and elementwise math in
 f32; every conv operand (h, r*h, the weights, and the pre-activation
 gradients fed to the transposed convs and the weight products) rounded to
 bf16, products summed in f32, the sums not rounded. The plain versions here
@@ -52,8 +52,8 @@ from ..layers import conv2d
 from ...train.profiler import count
 from ...utils import mfu
 from . import build
-from .convgru import SMEM_LIMIT, align128
-from .convgru_vjp import mode_of, round_to, transposed_weight
+from .convgru import (SMEM_LIMIT, align128, hprev_of, mode_of, round_to,
+                      transposed_weight)
 
 # Launches in this process: of B5 (forward and backward), and of its
 # backward alone
@@ -166,7 +166,7 @@ def backward_plain(uzr, uc, wx, h0, ys, g) -> tuple[torch.Tensor, ...]:
     all f32."""
     cdt = mode_of(wx)
     k = uc.shape[0]
-    hprev = torch.cat([h0[None].float(), ys[:-1].float()], dim=0)
+    hprev = hprev_of(h0, ys)
     dh = torch.zeros_like(hprev[0])
     duzr = torch.zeros(uzr.shape, dtype=torch.float32, device=wx.device)
     duc = torch.zeros(uc.shape, dtype=torch.float32, device=wx.device)

@@ -1,29 +1,32 @@
-"""ConvGRU custom backward, v1 (monolithic, kernel B4): its three
-hand-written phases' wrappers, their plain versions, and the autograd
-Function around them.
+"""ConvGRU custom backward: kernel B4's phases G and W (wrappers and plain
+versions), B4's wrapper over G, B2 and W, and the one autograd Function
+that trains the recurrence through the same three kernels.
 
 Replaces the TPU kernel `_convgru_bwd_kernel` of the JAX package's
 `ops/pallas/convgru_vjp.py` (`_convgru_bwd_pallas`, custom VJP
-`convgru_scan_fused`, entry point `convgru_scan_trainable`). That kernel
-walks T in reverse and, per step, recomputes the gates from h_{t-1}, forms
-both transposed convs and accumulates dU_zr and dU_c. Only the cotangent
-recursion is serial, so on the card B4 is three launches on one stream
+`convgru_scan_fused`, entry point `convgru_scan_trainable`) and the custom
+VJP `convgru_fused` of its `ops/pallas/convgru_vjp2.py` (entry point
+`convgru_scan_trainable_v2`). That kernel walks T in reverse and, per step,
+recomputes the gates from h_{t-1}, forms both transposed convs and
+accumulates dU_zr and dU_c. Only the cotangent recursion is serial, so on
+the card the backward is three launches on one stream
 (`convgru_bwd_phased`):
 
   phase G (`csrc/convgru_bwd_gates.cu`, `bwd_gates`): u, r, c, h_{t-1} and
       r*h_{t-1} for all T*B frames at once (the recompute reads only wx and
       h_{t-1} = [h0, ys[:-1]]); in bf16 wgmma with the weights streamed
       through a TMA ring, two frames per CTA;
-  B2 (`csrc/convgru_bwd.cu`, `convgru_vjp2.dh_bwd`, unchanged): the
-      reverse-time recursion -> dzr = [du_pre|dr_pre], da, dh0;
+  B2 (`csrc/convgru_bwd.cu`, `convgru_vjp2.dh_bwd`): the reverse-time
+      recursion -> dzr = [du_pre|dr_pre], da, dh0;
   phase W (`csrc/convgru_wgrad.cu`, `wgrad`): dU_zr = sum patches(h)^T
       dzr and dU_c = sum patches(r*h)^T da as one split-K implicit GEMM
       with a deterministic sum of the slices; in bf16 wgmma on tiles that
       share one staged frame across all nine taps;
 
-and dwx = [dzr|da] is one concatenation (a copy, no arithmetic). The
-decomposed backward V2 (`convgru_vjp2.ConvGRUFusedV2`, the default train
-path) runs the same three kernels.
+and dwx = [dzr|da] is one concatenation (a copy, no arithmetic). Both JAX
+entry points run the one Function, `ConvGRUFused` (forward B1, backward G,
+B2 and W). B4's wrapper `convgru_bwd`, the same three kernels outside
+autograd, stands for `_convgru_bwd_pallas` in the parity checks.
 
 Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s) at T=42, U=128 in bf16:
 operations, each phase 14.57 / 29.13 / 50.98 GFLOP at B=8 / 16 / 28,
@@ -39,98 +42,35 @@ the card's check compares like with like. The JAX kernel casts its weights
 to f32 (`convgru_vjp.py:173`); on the TPU its f32 dots round their operands
 to bf16 at default precision, which is the rule written out.
 
-Also holds the plain conv helpers shared with v2 (`convgru_vjp2.py`):
-`conv3x3_transpose` and `kernel_grad`, copies of the JAX package's
-`_conv3x3_transpose`, `_conv3x3_kernel_grad`, `_patches` and `_kernel_grad`.
-
-On a CUDA tensor `convgru_bwd` launches G, B2 and W or raises (no
-fallback); `launches` counts one per B4 backward, `gates_launches` and
-`wgrad_launches` one per launch of G and W, and `convgru_vjp2.launches`
-ticks too (B2 runs). On a CPU tensor it runs the plain version of the
-whole, `convgru_bwd_plain`, step by step.
+On a CUDA tensor G, B2 and W launch or raise (no fallback); `launches`
+counts calls of `convgru_bwd`, `gates_launches` and `wgrad_launches` the
+launches of G and W (`convgru_vjp2.launches` B2's). On a CPU tensor
+`convgru_bwd` runs the step-by-step `convgru_bwd_plain`, the Function's
+backward the phases' plain versions `recompute_gates`, `dh_bwd_plain` and
+`wgrad_plain`.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from ..cells import ConvGRU
-from ..layers import conv2d
 from ...utils import mfu
 from . import build
-from .convgru import (SMEM_LIMIT, align128, aligned, convgru_recurrence,
-                      flops, pad_bytes)
+from .convgru import (_DTYPES, SMEM_LIMIT, align128, aligned, check_fits,
+                      conv3x3, conv3x3_transpose, convgru_recurrence, flops,
+                      hprev_of, kernel_grad, mode_of, pad_bytes)
+from .convgru_vjp2 import dh_bwd
+from .convgru_vjp2 import kernel_takes as b2_takes
 
-# Launches in this process: of B4 as a whole, and of its phases G and W;
+# Launches in this process: of B4's wrapper, and of its phases G and W;
 # chip_smoke.py resets them to 0 before driving a path and reads them after.
 launches = 0
 gates_launches = 0
 wgrad_launches = 0
 _count_lock = threading.Lock()
-
-_DTYPES = {torch.bfloat16: 2, torch.float32: 4}
-
-
-def mode_of(wx: torch.Tensor) -> Optional[torch.dtype]:
-    """The compute dtype the recurrence ran in: None for f32, else wx's."""
-    return None if wx.dtype == torch.float32 else wx.dtype
-
-
-def round_to(x: torch.Tensor, compute_dtype) -> torch.Tensor:
-    """x rounded to `compute_dtype` (a conv operand, by the numerics rule)
-    and returned in f32; x in f32 when compute_dtype is None."""
-    return x.float() if compute_dtype is None else x.to(compute_dtype).float()
-
-
-def conv3x3(x: torch.Tensor, kernel: torch.Tensor,
-            compute_dtype=None) -> torch.Tensor:
-    """SAME 3x3 conv [N,H,W,Cin] x [3,3,Cin,Cout] -> [N,H,W,Cout] with both
-    operands rounded to `compute_dtype`, products summed in f32."""
-    return conv2d(round_to(x, compute_dtype), round_to(kernel, compute_dtype))
-
-
-def transposed_weight(kernel: torch.Tensor) -> torch.Tensor:
-    """[3,3,Cin,Cout] -> [3,3,Cout,Cin], flipped spatially: the SAME-conv
-    kernel whose conv is the transposed conv of `kernel`."""
-    return kernel.flip(0, 1).transpose(2, 3)
-
-
-def conv3x3_transpose(g: torch.Tensor, kernel: torch.Tensor,
-                      compute_dtype=None) -> torch.Tensor:
-    """Gradient wrt the input of a SAME 3x3 conv: correlate g [N,H,W,Cout]
-    with kernel [3,3,Cin,Cout] -> [N,H,W,Cin]. Equals a SAME conv with the
-    spatially flipped, in/out-swapped kernel (`_conv3x3_transpose`)."""
-    return conv3x3(g, transposed_weight(kernel), compute_dtype)
-
-
-def patches(x: torch.Tensor) -> torch.Tensor:
-    """[N,H,W,C] -> [N,H,W,9,C] of 3x3 SAME neighborhoods (`_patches`)."""
-    h, w = x.shape[1:3]
-    padded = F.pad(x, (0, 0, 1, 1, 1, 1))
-    return torch.stack([padded[:, dy:dy + h, dx:dx + w, :]
-                        for dy in range(3) for dx in range(3)], dim=3)
-
-
-def kernel_grad(x: torch.Tensor, g: torch.Tensor,
-                compute_dtype=None) -> torch.Tensor:
-    """Gradient wrt the kernel of a SAME 3x3 conv, summed over every
-    leading axis: patches(x)^T g as ONE matmul (`_kernel_grad`).
-    x [...,H,W,Cin], g [...,H,W,Cout] -> [3,3,Cin,Cout] in f32."""
-    h, w, cin = x.shape[-3:]
-    cout = g.shape[-1]
-    p = patches(round_to(x, compute_dtype).reshape(-1, h, w, cin))
-    grad = p.reshape(-1, 9 * cin).T @ round_to(g, compute_dtype).reshape(
-        -1, cout)
-    return grad.reshape(3, 3, cin, cout)
-
-
-def hprev_of(h0: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
-    """The h_{t-1} stream [h0, ys[:-1]] in f32."""
-    return torch.cat([h0[None].float(), ys[:-1].float()], dim=0)
 
 
 def convgru_bwd_plain(uzr: torch.Tensor, uc: torch.Tensor, wx: torch.Tensor,
@@ -164,6 +104,31 @@ def convgru_bwd_plain(uzr: torch.Tensor, uc: torch.Tensor, wx: torch.Tensor,
         dh = dh_new * u + drh * r + conv3x3_transpose(dzr, uzr, cdt)
         dwx.append(torch.cat([du_pre, dr_pre, da], dim=-1))
     return torch.stack(dwx[::-1]), dh, duzr, duc
+
+
+def recompute_gates(uzr, uc, wx, h0, ys) -> tuple[torch.Tensor, ...]:
+    """Stage 1's plain version (phase G's): u, r, c, h_{t-1} and r*h_{t-1}
+    [T,B,H,W,U] in f32 from the forward's wx, h0 and ys, as two convs over
+    all T*B frames.
+    The conv operands round as the forward kernel's did (by wx's dtype),
+    so these are the gates the forward saw."""
+    cdt = mode_of(wx)
+    units = uc.shape[-1]
+    t, b = wx.shape[:2]
+    hprev = hprev_of(h0, ys)
+    wxf = wx.float()
+
+    def frames(x):  # [T,B,H,W,C] -> [T*B,H,W,C]
+        return x.reshape(t * b, *x.shape[2:])
+
+    uh = conv3x3(frames(hprev), uzr, cdt).reshape(*hprev.shape[:-1],
+                                                  2 * units)
+    u = torch.sigmoid(wxf[..., :units] + uh[..., :units])
+    r = torch.sigmoid(wxf[..., units:2 * units] + uh[..., units:])
+    rh = r * hprev
+    c = torch.tanh(wxf[..., 2 * units:]
+                   + conv3x3(frames(rh), uc, cdt).reshape(u.shape))
+    return u, r, c, hprev, rh
 
 
 def wgrad_plain(hprev, dzr, rh, da, compute_dtype=None
@@ -237,11 +202,10 @@ def kernel_takes(h: int, w: int, units: int, dtype: torch.dtype,
                  kernel: tuple[int, int] = (3, 3)) -> bool:
     """Whether B4 takes U units on an H x W grid in `dtype` (wx's): when B2
     takes it (`convgru_vjp2.kernel_takes`) and phases G and W fit. This is
-    also the rule of V2's backward, which runs the same three kernels."""
-    from . import convgru_vjp2
-
+    also the rule of `ConvGRUFused`'s backward, which runs the same three
+    kernels."""
     elem = _DTYPES.get(dtype)
-    return (convgru_vjp2.kernel_takes(h, w, units, dtype, kernel)
+    return (b2_takes(h, w, units, dtype, kernel)
             and gates_smem_bytes(h, w, units, elem) <= SMEM_LIMIT
             and wgrad_takes(h, w, units, elem))
 
@@ -341,11 +305,8 @@ def _launch_gates(uzr, uc, wx, h0, ys) -> tuple[torch.Tensor, ...]:
             f"{tuple(uc.shape)}")
     device = build.same_device("convgru_bwd_gates", uzr, uc, wx, h0, ys)
     elem = _DTYPES[wx.dtype]
-    need = gates_smem_bytes(hh, ww, units, elem)
-    if need > SMEM_LIMIT:
-        raise ValueError(f"convgru_bwd_gates needs {need} B of shared memory "
-                         f"per CTA at H={hh} W={ww} U={units} (limit "
-                         f"{SMEM_LIMIT})")
+    check_fits("convgru_bwd_gates", gates_smem_bytes(hh, ww, units, elem),
+               hh, ww, units)
     wx = aligned(wx.contiguous())
     h0 = aligned(h0.float().contiguous())
     ys = aligned(ys.float().contiguous())
@@ -365,13 +326,11 @@ def bwd_gates(uzr, uc, wx, h0, ys) -> tuple[torch.Tensor, ...]:
     """Phase G: u, r, c, h_{t-1} and r*h_{t-1} [T,B,H,W,U] in f32 for every
     frame, from the forward's wx (bf16 or f32), h0 and ys. On a CUDA tensor
     the kernel (or raises); on a CPU tensor its plain version,
-    `convgru_vjp2.recompute_gates`."""
+    `recompute_gates`."""
     if wx.device.type == "cuda":
         return _launch_gates(uzr, uc, wx, h0, ys)
     if wx.device.type != "cpu":
         raise ValueError(f"no ConvGRU gate kernel for device {wx.device}")
-    from .convgru_vjp2 import recompute_gates
-
     return recompute_gates(uzr, uc, wx, h0, ys)
 
 
@@ -458,8 +417,6 @@ def _launch(uzr: torch.Tensor, uc: torch.Tensor, wx: torch.Tensor,
         raise ValueError(f"convgru_bwd_mono: phase G's or B2's shared memory "
                          f"does not fit at H={hh} W={ww} U={units} "
                          f"({wx.dtype})")
-    from .convgru_vjp2 import dh_bwd
-
     out = convgru_bwd_phased(uzr, uc, wx, ys, h0, g, gates=bwd_gates,
                              recursion=dh_bwd, tail=wgrad)
     with _count_lock:
@@ -481,11 +438,11 @@ def convgru_bwd(uzr: torch.Tensor, uc: torch.Tensor, wx: torch.Tensor,
     return convgru_bwd_plain(uzr, uc, wx, ys, h0, g)
 
 
-class ConvGRUFusedV1(torch.autograd.Function):
+class ConvGRUFused(torch.autograd.Function):
     """The differentiable recurrence over precomputed gates, the port of
-    `convgru_scan_fused`: forward is kernel B1 (`convgru_recurrence`),
-    backward the monolithic kernel. Saves only ys (the gates are
-    recomputed), like the JAX custom VJP."""
+    `convgru_scan_fused` and `convgru_fused`: forward is kernel B1
+    (`convgru_recurrence`), backward phase G, B2 and phase W. Saves only ys
+    (the gates are recomputed), like the JAX custom VJPs."""
 
     @staticmethod
     def forward(ctx, uzr, uc, wx, h0):
@@ -496,7 +453,10 @@ class ConvGRUFusedV1(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         uzr, uc, wx, h0, ys = ctx.saved_tensors
-        dwx, dh0, duzr, duc = convgru_bwd(uzr, uc, wx, ys, h0, g)
+        # on a CPU tensor the phases' plain versions; dwx = [dzr|da]
+        dwx, dh0, duzr, duc = convgru_bwd_phased(
+            uzr, uc, wx, ys, h0, g, gates=bwd_gates, recursion=dh_bwd,
+            tail=wgrad)
         return (duzr.to(uzr.dtype), duc.to(uc.dtype), dwx.to(wx.dtype),
                 dh0.to(h0.dtype))
 
@@ -504,11 +464,15 @@ class ConvGRUFusedV1(torch.autograd.Function):
 def convgru_scan_trainable(params, x_tbhwc: torch.Tensor, h0: torch.Tensor,
                            compute_dtype=torch.bfloat16
                            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Drop-in for `ConvGRU.scan` with the kernels forward AND backward
-    (v1). The input-side conv stays one library conv, differentiated by
-    autograd. Returns (ys[-1], ys)."""
+    """Drop-in for `ConvGRU.scan` with the kernels forward and backward
+    (`ConvGRUFused`). The input-side conv stays one library conv,
+    differentiated by autograd. Returns (ys[-1], ys)."""
     fused = ConvGRU.fuse(params)
     wx_all = ConvGRU.input_gates(fused, x_tbhwc, compute_dtype)
-    ys = ConvGRUFusedV1.apply(fused["Uh_zr"], fused["U_c"], wx_all,
-                              h0.float())
+    ys = ConvGRUFused.apply(fused["Uh_zr"], fused["U_c"], wx_all, h0.float())
     return ys[-1], ys
+
+
+# The JAX package's two entry points differ in how their backward is split;
+# here both run `ConvGRUFused`.
+convgru_scan_trainable_v2 = convgru_scan_trainable

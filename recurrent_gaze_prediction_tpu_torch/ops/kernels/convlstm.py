@@ -34,15 +34,15 @@ import torch
 from ..cells import ConvLSTM
 from ...utils import mfu
 from . import build
-from .convgru import (SMEM_LIMIT, acc_bytes, align128, aligned, check_fits,
-                      cluster_size, flops, pack_slices, pad_bytes)
+from .convgru import (_DTYPES, acc_bytes, align128, aligned, check_fits,
+                      cluster_kernel_takes, cluster_size, flops, pack_slices,
+                      pad_bytes)
 
 # Launches of the CUDA kernel in this process; chip_smoke.py resets it to
 # 0 before driving a path and reads it after.
 launches = 0
 _count_lock = threading.Lock()
 
-_DTYPES = {torch.bfloat16: 2, torch.float32: 4}
 _PEEPHOLES = ("W_ci", "W_cf", "W_co")
 GATES = 4     # i, f, c, o: a CTA's output columns are 4 Ns
 K_GROUPS = 1  # planes of the conv's partial sums (a second does not fit)
@@ -62,9 +62,9 @@ def smem_bytes(h: int, w: int, units: int, elem: int) -> int:
 
 def kernel_takes(h: int, w: int, units: int, dtype: torch.dtype) -> bool:
     """Whether kernel B3 takes U units on an H x W grid in `dtype` (the
-    dtype of gx), reckoned as `convgru.kernel_takes` is for B1."""
-    return (dtype in _DTYPES and units >= 16 and units % 16 == 0
-            and smem_bytes(h, w, units, _DTYPES[dtype]) <= SMEM_LIMIT)
+    dtype of gx), by `convgru.cluster_kernel_takes` with B3's
+    `smem_bytes`."""
+    return cluster_kernel_takes(smem_bytes, h, w, units, dtype)
 
 
 def _check(fused: dict, gx: torch.Tensor, c0: torch.Tensor,

@@ -18,7 +18,7 @@ import torch
 from ...utils import resolve_device
 from ..cells import ConvGRU, ConvLSTM
 from . import convgru_vjp, convgru_vjp2
-from .convgru import convgru_recurrence, convgru_scan
+from .convgru import convgru_recurrence, convgru_scan, mode_of
 from .convlstm import convlstm_scan
 
 # The gate the JAX package puts on its TPU kernel (bf16 production mode):
@@ -150,7 +150,7 @@ def backward_inputs(t: int = 42, b: int = 8, c: int = 512, units: int = 128,
         wx = ConvGRU.input_gates(fused, xs, compute_dtype)
         h0 = ConvGRU.zero_state(b, (7, 7), units, device=dev)
         _, ys = convgru_recurrence(fused, wx, h0)
-        u, r, cand, hprev, rh = convgru_vjp2.recompute_gates(
+        u, r, cand, hprev, rh = convgru_vjp.recompute_gates(
             fused["Uh_zr"], fused["U_c"], wx, h0, ys)
     return {"uzr": fused["Uh_zr"], "uc": fused["U_c"], "wx": wx, "h0": h0,
             "ys": ys, "g": g, "u": u, "r": r, "c": cand, "hprev": hprev,
@@ -164,7 +164,7 @@ def backward_kernel_and_plain(kernel: str, x: dict):
     device), run once here."""
     if kernel == "convgru_bwd":
         args = (x["u"], x["r"], x["c"], x["hprev"], x["g"], x["uzr"],
-                x["uc"], convgru_vjp.mode_of(x["wx"]))
+                x["uc"], mode_of(x["wx"]))
         return (lambda: convgru_vjp2.dh_bwd(*args),
                 lambda: convgru_vjp2.dh_bwd_plain(*args),
                 ("dzr", "da", "dh0"))
@@ -176,10 +176,10 @@ def backward_kernel_and_plain(kernel: str, x: dict):
     if kernel == "convgru_bwd_gates":
         args = (x["uzr"], x["uc"], x["wx"], x["h0"], x["ys"])
         return (lambda: convgru_vjp.bwd_gates(*args),
-                lambda: convgru_vjp2.recompute_gates(*args),
+                lambda: convgru_vjp.recompute_gates(*args),
                 ("u", "r", "c", "hprev", "rh"))
     if kernel == "convgru_wgrad":
-        cdt = convgru_vjp.mode_of(x["wx"])
+        cdt = mode_of(x["wx"])
         with torch.no_grad():
             dzr, da, _ = convgru_vjp2.dh_bwd(x["u"], x["r"], x["c"],
                                              x["hprev"], x["g"], x["uzr"],

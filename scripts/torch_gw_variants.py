@@ -237,7 +237,7 @@ def main(argv: list) -> int:
                                        for n, v in ms.items()}
             if phase == "G":  # each output's largest deviation from plain
                 with torch.no_grad():
-                    want = v2.recompute_gates(x["uzr"], x["uc"], x["wx"],
+                    want = v1.recompute_gates(x["uzr"], x["uc"], x["wx"],
                                               x["h0"], x["ys"])
                     for n in mine:
                         got = run_with(libs[n], call)

@@ -27,8 +27,7 @@ from recurrent_gaze_prediction_tpu_torch.ops.cells import ConvGRU
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru as kconv
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp2 as v2
 from recurrent_gaze_prediction_tpu_torch.ops.kernels.convgru import (
-    cluster_size, column_slices, fragment_order, pack_slices)
-from recurrent_gaze_prediction_tpu_torch.ops.kernels.convgru_vjp import (
+    cluster_size, column_slices, fragment_order, pack_slices,
     transposed_weight)
 from recurrent_gaze_prediction_tpu_torch.ops.layers import conv2d
 

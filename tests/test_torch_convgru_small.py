@@ -24,6 +24,8 @@ from recurrent_gaze_prediction_tpu_torch.ops.cells import ConvGRU
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru as kconv
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_small as ks
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp2 as v2
+from recurrent_gaze_prediction_tpu_torch.ops.kernels.route import (
+    convgru_route)
 from recurrent_gaze_prediction_tpu_torch.train import profiler
 from recurrent_gaze_prediction_tpu_torch.train.state import (
     create_train_state, make_train_step)
@@ -162,10 +164,11 @@ def _cascade_batch():
 @pytest.mark.parametrize("dtype,top", [("bfloat16", "kernel"),
                                        ("float32", "scan")])
 def test_cascade_routes(dtype, top):
-    """`last_route` keeps its meaning (B1's route for both cells: "scan");
+    """`last_route` keeps its meaning (the bottom cell's route: "scan");
     the top cell's own route is B5 in bf16, the plain scan in f32."""
     model = _cascade(dtype)
-    assert model.top_cell_route() == top
+    assert convgru_route(model.top_cell, (49, 49), getattr(torch, dtype),
+                         True) == top
     assert model.recurrence_route(train=True) == "scan"
     with torch.no_grad():
         model(None, _cascade_batch()["c3d"])

@@ -1,6 +1,6 @@
 """The port's ConvGRU backward (plain versions of kernels B2 and B4, B4's
-three-phase composition, and the autograd Functions around them) against
-the JAX package on the CPU.
+three-phase composition, and the autograd Function around it, run by both
+JAX entry points) against the JAX package on the CPU.
 
 The plain versions are held against the JAX Pallas kernels in interpret
 mode (`_dh_bwd_pallas`, `_convgru_bwd_pallas`) at rtol 1e-4 / atol 1e-5, the
@@ -20,6 +20,7 @@ from recurrent_gaze_prediction_tpu.ops.cells import ConvGRU as JConvGRU
 from recurrent_gaze_prediction_tpu.ops.pallas import convgru_vjp as jv1
 from recurrent_gaze_prediction_tpu.ops.pallas import convgru_vjp2 as jv2
 from recurrent_gaze_prediction_tpu_torch.ops.cells import ConvGRU
+from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru as kconv
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp as v1
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp2 as v2
 
@@ -71,7 +72,7 @@ def test_convgru_bwd_plain_matches_jax_kernel_interpret():
     _assert_all_close(got, want)  # dwx, dh0, dU_zr, dU_c
 
 
-PLAIN_PHASES = dict(gates=v2.recompute_gates, recursion=v2.dh_bwd_plain,
+PLAIN_PHASES = dict(gates=v1.recompute_gates, recursion=v2.dh_bwd_plain,
                     tail=v1.wgrad_plain)
 
 
@@ -147,17 +148,17 @@ def test_conv_helpers_match_jax():
     x = _f32(rng, 2, 7, 7, 5)
     kernel = _f32(rng, 3, 3, 5, 6)
     np.testing.assert_allclose(
-        v1.conv3x3_transpose(torch.from_numpy(g),
+        kconv.conv3x3_transpose(torch.from_numpy(g),
                              torch.from_numpy(kernel)).numpy(),
         np.asarray(jv1._conv3x3_transpose(jnp.asarray(g),
                                           jnp.asarray(kernel))), **TOL)
     want = jv1._conv3x3_kernel_grad(jnp.asarray(x), jnp.asarray(g))
-    got = v1.kernel_grad(torch.from_numpy(x), torch.from_numpy(g))
+    got = kconv.kernel_grad(torch.from_numpy(x), torch.from_numpy(g))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     # the batched form over [T, B, ...] sums over both leading axes
     xs, gs = x.reshape(1, 2, 7, 7, 5), g.reshape(1, 2, 7, 7, 6)
     np.testing.assert_allclose(
-        v1.kernel_grad(torch.from_numpy(xs), torch.from_numpy(gs)).numpy(),
+        kconv.kernel_grad(torch.from_numpy(xs), torch.from_numpy(gs)).numpy(),
         np.asarray(jv2._kernel_grad(jnp.asarray(xs), jnp.asarray(gs))),
         **TOL)
 
@@ -175,6 +176,8 @@ def _scan_problem(seed):
 
 @pytest.mark.parametrize("version", ["v1", "v2"])
 def test_trainable_scan_matches_jax_value_and_grad(version):
+    """Each JAX entry point's namesake (both run `ConvGRUFused`) against
+    `jax.value_and_grad` of the JAX `ConvGRU.scan`."""
     params, xs, h0, target = _scan_problem(seed=7)
 
     def j_loss(p):
@@ -185,7 +188,7 @@ def test_trainable_scan_matches_jax_value_and_grad(version):
         {k: jnp.asarray(v) for k, v in params.items()})
 
     scan = {"v1": v1.convgru_scan_trainable,
-            "v2": v2.convgru_scan_trainable_v2}[version]
+            "v2": v1.convgru_scan_trainable_v2}[version]
     tparams = {k: torch.from_numpy(v).requires_grad_()
                for k, v in params.items()}
     before = (v1.launches, v2.launches)
@@ -203,12 +206,12 @@ def test_trainable_scan_matches_jax_value_and_grad(version):
 
 @pytest.mark.parametrize("version", ["v1", "v2"])
 def test_trainable_scan_bf16_tracks_plain_autograd(version):
-    """In bf16 the Functions round every conv operand to bf16 and sum in
+    """In bf16 the Function rounds every conv operand to bf16 and sums in
     f32, where plain autograd of `ConvGRU.scan` also rounds each conv
     result to bf16: they agree to bf16 resolution (the parity gate)."""
     params, xs, h0, target = _scan_problem(seed=8)
     scan = {"v1": v1.convgru_scan_trainable,
-            "v2": v2.convgru_scan_trainable_v2}[version]
+            "v2": v1.convgru_scan_trainable_v2}[version]
     grads = []
     for fn in (ConvGRU.scan, scan):
         tparams = {k: torch.from_numpy(v).requires_grad_()
@@ -224,8 +227,8 @@ def test_trainable_scan_bf16_tracks_plain_autograd(version):
 
 
 def test_v2_backward_runs_phases_g_and_w_and_matches_jax_v2(monkeypatch):
-    """V2's backward composes phase G (`bwd_gates`), B2 and phase W
-    (`wgrad`), once each; on the CPU those are `recompute_gates`,
+    """The Function's backward composes phase G (`bwd_gates`), B2 and phase
+    W (`wgrad`), once each; on the CPU those are `recompute_gates`,
     `dh_bwd_plain` and `wgrad_plain`, so the loss and every gradient stay
     those of the JAX V2 (`convgru_scan_trainable_v2`, `_dh_bwd_pallas` in
     interpret mode)."""
@@ -248,12 +251,12 @@ def test_v2_backward_runs_phases_g_and_w_and_matches_jax_v2(monkeypatch):
             return fn(*args, **kwargs)
         return wrapped
 
-    monkeypatch.setattr(v2, "bwd_gates", recording("G", v1.bwd_gates))
-    monkeypatch.setattr(v2, "dh_bwd", recording("B2", v2.dh_bwd))
-    monkeypatch.setattr(v2, "wgrad", recording("W", v1.wgrad))
+    monkeypatch.setattr(v1, "bwd_gates", recording("G", v1.bwd_gates))
+    monkeypatch.setattr(v1, "dh_bwd", recording("B2", v1.dh_bwd))
+    monkeypatch.setattr(v1, "wgrad", recording("W", v1.wgrad))
     tparams = {k: torch.from_numpy(v).requires_grad_()
                for k, v in params.items()}
-    _, ys = v2.convgru_scan_trainable_v2(
+    _, ys = v1.convgru_scan_trainable_v2(
         tparams, torch.from_numpy(xs), torch.from_numpy(h0),
         compute_dtype=torch.float32)
     loss = ((ys - torch.from_numpy(target)) ** 2).sum()
@@ -278,7 +281,7 @@ def test_backward_wrappers_on_cpu_are_the_plain_versions():
                          v1.convgru_bwd_plain(uzr, uc, wx, ys, h0, g)):
         assert torch.equal(got, want)
     for got, want in zip(v1.bwd_gates(uzr, uc, wx, h0, ys),
-                         v2.recompute_gates(uzr, uc, wx, h0, ys)):
+                         v1.recompute_gates(uzr, uc, wx, h0, ys)):
         assert torch.equal(got, want)
     dzr = torch.cat([g, -g], dim=-1)
     for got, want in zip(v1.wgrad(ys, dzr, h0.expand_as(ys), g),

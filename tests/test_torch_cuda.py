@@ -254,7 +254,7 @@ def test_convgru_bwd_gates_kernel_matches_recompute_gates(
     uzr, uc, wx, ys, h0, _ = _b4_inputs(t, b, hw, units, dtype, cuda_no_tf32)
     before = v1.gates_launches
     got = v1.bwd_gates(uzr, uc, wx, h0, ys)
-    want = v2.recompute_gates(uzr, uc, wx, h0, ys)
+    want = v1.recompute_gates(uzr, uc, wx, h0, ys)
     torch.cuda.synchronize()
     assert v1.gates_launches == before + 1
     assert torch.equal(got[3], want[3])  # h_{t-1} is a copy
@@ -297,9 +297,9 @@ def test_convgru_bwd_mono_is_bitwise_repeatable(cuda_no_tf32, dtype):
 def test_convgru_bwd_mono_runs_no_library_product(cuda_no_tf32, monkeypatch,
                                                   version):
     """With every library product that could stand in for B4's convs and
-    contractions made to raise, B4 (v1) and V2's backward (G, B2 and W
-    inside `ConvGRUFusedV2`) still run on the card: their products are all
-    in the hand-written kernels."""
+    contractions made to raise, B4's wrapper (v1) and the trainable
+    Function's backward (v2: G, B2 and W inside `ConvGRUFused`) still run
+    on the card: their products are all in the hand-written kernels."""
     from recurrent_gaze_prediction_tpu_torch.ops import layers
 
     args = _b4_inputs(4, 8, (7, 7), 128, torch.bfloat16, cuda_no_tf32)
@@ -309,7 +309,7 @@ def test_convgru_bwd_mono_runs_no_library_product(cuda_no_tf32, monkeypatch,
     def v2_backward():
         leaves = [x.detach().requires_grad_() for x in (uzr, uc, wx, h0)]
         with torch.enable_grad():
-            out = v2.ConvGRUFusedV2.apply(*leaves)
+            out = v1.ConvGRUFused.apply(*leaves)
         duzr, duc, dwx, dh0 = torch.autograd.grad(out, leaves, g)
         return dwx.float(), dh0, duzr, duc
 
@@ -319,8 +319,10 @@ def test_convgru_bwd_mono_runs_no_library_product(cuda_no_tf32, monkeypatch,
     for target, name in ((torch, "matmul"), (torch, "mm"), (torch, "bmm"),
                          (torch, "einsum"), (torch.Tensor, "__matmul__"),
                          (torch.nn.functional, "conv2d"), (layers, "conv2d"),
-                         (v1, "conv2d"), (v1, "kernel_grad"),
-                         (v1, "conv3x3"), (v2, "conv3x3"),
+                         (kconv, "conv2d"), (kconv, "kernel_grad"),
+                         (kconv, "conv3x3"), (kconv, "conv3x3_transpose"),
+                         (v1, "kernel_grad"), (v1, "conv3x3"),
+                         (v1, "conv3x3_transpose"),
                          (v2, "conv3x3_transpose")):
         monkeypatch.setattr(target, name, refuse)
     before = _b4_counts()
@@ -356,12 +358,10 @@ def test_b4_phase_reckoning_matches_the_sources(cuda_no_tf32, units, hw):
 
 @pytest.mark.parametrize("version", ["v1", "v2"])
 def test_trainable_scan_grads_match_plain_autograd(cuda_no_tf32, version):
-    """Both autograd Functions on the card against autograd of the plain
-    `ConvGRU.scan`, in f32."""
+    """Both JAX entry points' namesakes (the one Function) on the card
+    against autograd of the plain `ConvGRU.scan`, in f32."""
     from recurrent_gaze_prediction_tpu_torch.ops.kernels.convgru_vjp import (
-        convgru_scan_trainable)
-    from recurrent_gaze_prediction_tpu_torch.ops.kernels.convgru_vjp2 import (
-        convgru_scan_trainable_v2)
+        convgru_scan_trainable, convgru_scan_trainable_v2)
 
     scan = {"v1": convgru_scan_trainable, "v2": convgru_scan_trainable_v2}[
         version]
@@ -778,9 +778,9 @@ def test_kernel_route_counts_the_plain_route_contractions(cuda_no_tf32):
     adds its own count: at T=42, B=8, 512 -> 128 in bf16 the kernel route
     counts what the plain route counts, B1's and B2's share each
     T*B*49*9*U*3U*2 (14.57 GFLOP), B3's T*B*49*9*U*4U*2; training adds
-    only ConvGRUFusedV2's gate recompute (phase G; phase W counts what the
+    only ConvGRUFused's gate recompute (phase G; phase W counts what the
     plain route's weight gradients count)."""
-    from recurrent_gaze_prediction_tpu_torch.ops.kernels.convgru_vjp2 import (
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels.convgru_vjp import (
         convgru_scan_trainable_v2)
 
     dev, cdt = cuda_no_tf32, torch.bfloat16
@@ -813,7 +813,7 @@ def test_kernel_route_counts_the_plain_route_contractions(cuda_no_tf32):
         fused = ConvGRU.fuse(gru)
         wx = ConvGRU.input_gates(fused, xs, cdt)
         _, ys = kconv.convgru_recurrence(fused, wx, h0)
-    recompute = _flops(v2.recompute_gates, fused["Uh_zr"], fused["U_c"], wx,
+    recompute = _flops(v1.recompute_gates, fused["Uh_zr"], fused["U_c"], wx,
                        h0, ys)
     assert kernel["convgru_fwd"] == kernel["convgru_bwd"] == want
     assert kernel["convgru_bwd_gates"] == kernel["convgru_wgrad"] == want
@@ -1407,8 +1407,10 @@ def test_cascade_gradients_through_b5_match_the_plain_scan(cuda_no_tf32,
                                                           monkeypatch):
     """The cascade's loss and the top cell's and upsample's gradients on
     the card (bf16, T=5), through B5 and through `ConvGRU.scan` (remat):
-    the two rounding rules agree within bf16 resolution."""
-    from recurrent_gaze_prediction_tpu_torch.models import gaze_grcn_cascade
+    the two rounding rules agree within bf16 resolution. The scan route
+    is forced by making B5 refuse the cell (`kernel_takes`)."""
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import (
+        convgru_small as ks)
 
     model, batch = _cascade_on_card(cuda_no_tf32)
     with torch.no_grad():
@@ -1419,8 +1421,8 @@ def test_cascade_gradients_through_b5_match_the_plain_scan(cuda_no_tf32,
              if n.startswith("top_cell.") or n == "up_w"]
     out = {}
     for route in ("kernel", "scan"):
-        monkeypatch.setattr(gaze_grcn_cascade.GazeGRCNCascade,
-                            "top_cell_route", lambda self, r=route: r)
+        if route == "scan":
+            monkeypatch.setattr(ks, "kernel_takes", lambda *_: False)
         loss, _ = model.loss(batch, train=True)
         grads = torch.autograd.grad(loss, [p for _, p in named])
         assert model.top_route == route

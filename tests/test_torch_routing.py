@@ -11,11 +11,12 @@ import torch
 
 from recurrent_gaze_prediction_tpu_torch import registry
 from recurrent_gaze_prediction_tpu_torch.models import streaming
-from recurrent_gaze_prediction_tpu_torch.models.gaze_grcn import convgru_route
 from recurrent_gaze_prediction_tpu_torch.ops.cells import ConvGRU
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru as kconv
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp2 as v2
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convlstm as klstm
+from recurrent_gaze_prediction_tpu_torch.ops.kernels.route import (
+    convgru_route)
 
 # U -> whether B1, B2 and B3 take it on a 7x7 grid; the same in bf16 and
 # f32 (U=256: a CTA's slice of the weights, bf16, or its two padded f32
@@ -87,9 +88,10 @@ def test_both_routes_predict_and_stream_the_same_maps(name, units):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_route_checks_the_kernel_size(dtype):
     """B1 and B2 are 3x3 kernels: a 5x5 cell is routed to the scan even at
-    a width they take (U=16), on any grid; the cascade's cells (U=256 3x3
-    at 7x7, U=3 5x5 at 49x49) take the scan; gaze_pupil_grcn's U=64 cell
-    takes the kernels, to predict and to train."""
+    a width they take (U=16), on any grid; the cascade's bottom cell (U=256
+    3x3 at 7x7) takes the scan, its top cell (U=3 5x5 at 49x49) kernel B5
+    in bf16 and the scan in f32; gaze_pupil_grcn's U=64 cell takes the
+    kernels, to predict and to train."""
     tdt = getattr(torch, dtype)
     for kernel, want in (((3, 3), True), ((5, 5), False), ((3, 5), False)):
         assert kconv.kernel_takes(7, 7, 16, tdt, kernel) is want
@@ -101,7 +103,9 @@ def test_route_checks_the_kernel_size(dtype):
     cascade = registry.create_model("gaze_grcn_cascade", device="cpu",
                                     compute_dtype=dtype)
     assert convgru_route(cascade.bottom_cell, (7, 7), tdt, False) == "scan"
-    assert convgru_route(cascade.top_cell, (49, 49), tdt, False) == "scan"
+    for train in (False, True):
+        assert convgru_route(cascade.top_cell, (49, 49), tdt, train) == (
+            "kernel" if dtype == "bfloat16" else "scan")
     assert cascade.recurrence_route(train=True) == "scan"
     pupil = registry.create_model("gaze_pupil_grcn", device="cpu",
                                   compute_dtype=dtype)

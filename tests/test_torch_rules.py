@@ -1,7 +1,10 @@
-"""The port's ground rules: it imports neither jax nor the JAX package, and
-its entry points never carry on quietly on the CPU when the card is
-missing."""
+"""The port's ground rules: it imports neither jax nor the JAX package, its
+entry points never carry on quietly on the CPU when the card is missing,
+and its imports of the recurrence kernels point one way: the models reach
+them through the route module only, and the ConvGRU kernel modules import
+one another at module level."""
 
+import ast
 import os
 import re
 import subprocess
@@ -46,6 +49,51 @@ def test_no_source_imports_jax_or_the_jax_package():
     assert offenders == []
     assert pattern.search("from recurrent_gaze_prediction_tpu.ops import x")
     assert not pattern.search("from recurrent_gaze_prediction_tpu_torch import x")
+
+
+def _relative_imports(node: ast.AST, package: list[str],
+                      level: int = 0) -> list[str]:
+    """The dotted names a node's relative imports bring in (module path and
+    imported name), resolved against `package`, the importing module's
+    package path; only imports of relative level `level` when it is
+    given."""
+    names = []
+    for n in ast.walk(node):
+        if isinstance(n, ast.ImportFrom) and n.level and level in (0,
+                                                                   n.level):
+            mod = package[:len(package) - n.level + 1] + (
+                n.module.split(".") if n.module else [])
+            names += [".".join(mod + [a.name]) for a in n.names]
+    return names
+
+
+def test_models_reach_the_kernels_through_the_route_module_only():
+    """No module under `models/` imports an `ops/kernels` module other than
+    the route module and the int8 tower's `conv3d_int8`."""
+    allowed = ("ops.kernels.route.", "ops.kernels.conv3d_int8.")
+    kernels, offenders = [], []
+    for f in sorted((PKG / "models").glob("*.py")):
+        for name in _relative_imports(ast.parse(f.read_text()), ["models"]):
+            if name.startswith("ops.kernels."):
+                kernels.append(name)
+                if not name.startswith(allowed):
+                    offenders.append(f"{f.name} -> {name}")
+    assert kernels and offenders == []
+
+
+def test_convgru_kernel_modules_import_no_sibling_inside_a_function():
+    """No function in `ops/kernels/convgru*.py` imports a sibling module:
+    their imports point one way, at module level."""
+    files = sorted((PKG / "ops" / "kernels").glob("convgru*.py"))
+    assert len(files) >= 4
+    offenders = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text())):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                offenders += [f"{f.name}:{node.name} -> {name}" for name in
+                              _relative_imports(node, ["ops", "kernels"],
+                                                level=1)]
+    assert offenders == []
 
 
 def test_entry_points_raise_without_cuda(tmp_path):
