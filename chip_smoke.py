@@ -9,8 +9,9 @@ In order, failing (exit 1) on the first check that does not hold:
      together) and prints the build time; prints, for each cluster kernel
      (B1, B2, B3), its cluster size C, the CTAs it launches, the clusters
      that fit on the card at once and its shared memory per CTA (checked
-     against the wrappers' reckoning); drives predict at U=128 (kernel
-     route) and U=24 and 256 (the cell's own scan: fault C1) and prints the
+     against the wrappers' reckoning); drives predict at U=128 (the
+     cluster kernels), U=24 (the cell's own scan: fault C1) and U=256
+     (gaze_grcn's cell on B6, gaze_lstm's on its scan) and prints the
      routes;
   3. holds each kernel against its plain PyTorch version in bf16 under the
      JAX package's gate, and in f32 with TF32 off: the forward recurrence
@@ -29,7 +30,11 @@ In order, failing (exit 1) on the first check that does not hold:
      `forward_plain` within 1e-6 of its largest magnitude, each gradient
      against `backward_plain` by norm, the backward bitwise repeatable,
      and the plain versions with their sums rounded to bf16 (the control)
-     refused;
+     refused; then B6 `convgru_grid`, the cascade's bottom cell (B=28,
+     T=42, U=256, 3x3, 7x7, bf16, three seeds): ys, the final h and the
+     whole backward (the recursion, then phase W) against `forward_plain`,
+     `backward_plain` and `wgrad_plain` by norm, the backward bitwise
+     repeatable, the control refused;
   4. serves full-width gaze_grcn, then gaze_lstm (1024->512->128, T=42,
      49x49 maps, bf16, seeded random weights) over HTTP from a bundle:
      concurrent single-clip POSTs, each reply checked against a plain-scan
@@ -79,21 +84,23 @@ In order, failing (exit 1) on the first check that does not hold:
      gaze_rnn, gaze_rnn77, gaze_c3d_conv, gaze_framewise_shallownet,
      gaze_grcn_cascade, gaze_pupil_grcn and gaze_pupil_gru2 at their
      registry batch and T and at B=16 (finite, corr >= 0.999 vs f32 with
-     TF32 off; B1 once per call for gaze_pupil_grcn, B5 once per call for
-     gaze_grcn_cascade, no launch for the others); gaze_pupil_grcn and
+     TF32 off; B1 once per call for gaze_pupil_grcn, B5 and B6 once per
+     call for gaze_grcn_cascade, no launch for the others); gaze_pupil_grcn
+     and
      gaze_framewise_shallownet served over HTTP (8 concurrent POSTs vs the
      plain path; B1 once per batcher call / none); one fused predict of
      gaze_framewise_shallownet (B=8, F=160 uint8, the frame stream resized
      on the card, the tower skipped) vs the host-resized plain path;
      `cli.pretrain_shallownet` (20 steps,
      B=128), then `cli.train_gaze` 20 steps each of gaze_pupil_grcn (B1 and
-     B2 once per step), gaze_grcn_cascade (B5 once each way per step,
-     the bottom cell rematerialized), gaze_rnn with
+     B2 once per step), gaze_grcn_cascade (B5 and B6 once each way per
+     step), gaze_rnn with
      `--shallownet_pretrain` (its frozen ShallowNet bitwise the file's
      after training) and gaze_framewise_shallownet (its ShallowNet moves),
      each loss falling; gaze_pupil_grcn's gradients through B1 + B2 vs
-     plain autograd (and its pupil term), the cascade's with the bottom
-     cell rematerialized vs without (and the peak memory of each); then
+     plain autograd (and its pupil term), the cascade's with `remat_cells`
+     on vs off (a no-op on its kernels) and through B6 vs the bottom
+     cell's rematerialized scan (the peak memory of each); then
      times B1 and B2 at U=64
      beside their bounds, each family's predict at B=16 and train step at
      its registry batch, a ShallowNet pretraining step at B=128, the
@@ -174,7 +181,11 @@ In order, failing (exit 1) on the first check that does not hold:
      torch.profiler; V2's backward at B=28 on its library stages and on
      G + B2 + W in turns; B5 forward and backward at B=28 beside their
      bounds and plain versions, and the cascade's top cell through B5 and
-     through the rematerialized scan in turns), the
+     through the rematerialized scan in turns; B6 forward and backward
+     recursion at B=28 beside their bounds and plain versions, the bottom
+     cell through B6 and
+     through the rematerialized scan and the cascade's predict through
+     both, in turns), the
      feature-fed predict of both models (B=16) with a breakdown, the HTTP
      requests, the streaming chunk steps (B=1), and the train step (B=28)
      through the kernels, through V2 on its library stages and through
@@ -191,7 +202,7 @@ In order, failing (exit 1) on the first check that does not hold:
      beside the one-process step, and the gradient all-reduce (phase 17);
      with CUDA events or the host clock after warm-up;
   8. prints the kernels' JSON line (B1-B4, B4's phases G and W, B1 and B2
-     at U=64, Q1 and Q1-pool, and B5), then,
+     at U=64, Q1 and Q1-pool, B5 and B6), then,
      last, the device JSON line.
 """
 
@@ -241,6 +252,8 @@ from recurrent_gaze_prediction_tpu_torch.models.common import (
 from recurrent_gaze_prediction_tpu_torch.ops.cells import ConvGRU, ConvLSTM
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import build
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru as kconv
+from recurrent_gaze_prediction_tpu_torch.ops.kernels import (
+    convgru_grid as kg)
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import (
     convgru_small as ks)
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp as v1
@@ -372,6 +385,23 @@ SMALL_GRADS = ("dwx", "dh0", "dU_zr", "dU_c")
 SMALL_FWD_MAX_REL = 1e-6
 SMALL_BWD_L2_REL = {"dwx": 2.2e-3, "dh0": 2.1e-3, "dU_zr": 2.6e-3,
                     "dU_c": 2.4e-3}
+# kernel B6, the cascade's bottom cell (3x3 state convs, U=256, 7x7), gated
+# and timed at the cascade's train shape, on GRID_SEEDS
+GRID_HW, GRID_UNITS, GRID_INPUT = (7, 7), 256, 512
+GRID_SEEDS = (SEED, SEED + 1, SEED + 2)
+GRID_READINGS = ("ys", "h_final", "dwx", "dh0", "dU_zr", "dU_c")
+# B6 sums its mma products in another order than cuDNN's; where that flips
+# a bf16 rounding of a conv operand the flip spreads through the remaining
+# steps, so each reading is held by its norm, ||kernel - plain|| /
+# ||plain|| (dwx in bf16, as the wrapper returns it). Each limit lies
+# between the largest sound reading and the smallest of the control (the
+# plain versions with every conv's sum rounded to bf16), seeds 0-2 at
+# B=28, T=42 on an H100 (sound / control): ys 5.74e-4 / 1.017e-3, h_final
+# 6.17e-4 / 1.032e-3, dwx 1.433e-3 / 1.988e-3, dh0 9.88e-4 / 1.673e-3,
+# dU_zr 1.586e-3 / 2.765e-3, dU_c 1.298e-3 / 2.459e-3 (the -m cuda tests'
+# GRID_TOL)
+GRID_L2_REL = {"ys": 8e-4, "h_final": 8.5e-4, "dwx": 1.7e-3, "dh0": 1.3e-3,
+               "dU_zr": 2.1e-3, "dU_c": 1.8e-3}
 # the research loop: extract_features over 4 seeded videos of 176 uint8
 # frames (11 windows each) at 240x320; extract_map at its CLI defaults
 # (T=105, B=4) over 8 clips of 105..300 windows, streamed in chunks of 42;
@@ -620,6 +650,22 @@ def small_kernel_gates(card: str) -> dict:
     return out
 
 
+def in_turns(fns: dict, iters: int = 3) -> dict:
+    """Host ms a call of each of two functions, in turns (a, b, b, a),
+    each call ending in a synchronize."""
+    a, b = fns
+    turns = {a: [], b: []}
+    for name in (a, b, b, a):
+        fns[name]()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(iters):
+            fns[name]()
+        torch.cuda.synchronize()
+        turns[name].append((time.perf_counter() - start) * 1e3 / iters)
+    return turns
+
+
 def small_kernel_timing(card: str) -> dict:
     """B5 at the cascade's train shape: each launch by CUDA events beside
     its bound and its plain version; then the top cell's whole recurrence,
@@ -660,18 +706,9 @@ def small_kernel_timing(card: str) -> dict:
         _, gs = scan(params, xs, zero, compute_dtype=torch.bfloat16, **kw)
         torch.autograd.grad((gs * g).sum(), [*params.values(), xs])
 
-    turns = {"B5": [], "remat scan": []}
-    for name in ("remat scan", "B5", "B5", "remat scan"):
-        fn = ((lambda: cell(ks.convgru_scan_small)) if name == "B5"
-              else (lambda: cell(ConvGRU.scan, remat=True)))
-        fn()
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        turns[name].append((time.perf_counter() - start) * 1e3 / 3)
-    out["cell_fwd_bwd_host_ms"] = turns
+    turns = out["cell_fwd_bwd_host_ms"] = in_turns({
+        "remat scan": lambda: cell(ConvGRU.scan, remat=True),
+        "B5": lambda: cell(ks.convgru_scan_small)})
     for d in ("fwd", "bwd"):
         x = out[d]
         print(f"timing: convgru_small (B5) {d} T={t} B={b} U={u} {k}x{k} "
@@ -683,6 +720,189 @@ def small_kernel_timing(card: str) -> dict:
           f"input conv, T={t} B={b}, in turns (host ms a pass): "
           f"{json.dumps(turns)} [{card}]", flush=True)
     return out
+
+
+# ------------------------------------------------------------ kernel B6
+
+def grid_inputs(seed: int) -> tuple:
+    """B6's inputs at the cascade's bottom cell's train shape (T=42, B=28,
+    U=256, 7x7): weights whose state convs reach O(1) (std 0.03 over 2,304
+    taps), wx ~ N(0, 1) in bf16, h0 ~ N(0, 0.25), a cotangent ~ N(0, 1)."""
+    rng = np.random.RandomState(seed)
+
+    def f32(*shape, std=1.0):
+        return torch.from_numpy((rng.randn(*shape) * std).astype(
+            np.float32)).cuda()
+
+    u = GRID_UNITS
+    return (f32(3, 3, u, 2 * u, std=0.03), f32(3, 3, u, u, std=0.03),
+            f32(T, TRAIN_BATCH, *GRID_HW, 3 * u).to(torch.bfloat16),
+            f32(TRAIN_BATCH, *GRID_HW, u, std=0.5),
+            f32(T, TRAIN_BATCH, *GRID_HW, u))
+
+
+@contextlib.contextmanager
+def grid_bf16_sums():
+    """B6's plain versions with every conv's sum (the state convs, the
+    transposed convs, phase W's weight products) rounded to bf16: the
+    control that B6's gates must refuse."""
+    conv, conv_t, wgrad = kg.conv3x3, kg.conv3x3_transpose, v1.kernel_grad
+    kg.conv3x3 = lambda *a: conv(*a).to(torch.bfloat16).float()
+    kg.conv3x3_transpose = lambda *a: conv_t(*a).to(torch.bfloat16).float()
+    v1.kernel_grad = lambda *a: wgrad(*a).to(torch.bfloat16).float()
+    try:
+        yield
+    finally:
+        kg.conv3x3, kg.conv3x3_transpose, v1.kernel_grad = conv, conv_t, wgrad
+
+
+def grid_plain_backward(uzr, uc, wx, h0, ys, gates, g) -> tuple:
+    """B6's whole backward in its plain versions on the given ys and
+    gates: the recursion, then phase W's plain weight products -> (dwx in
+    wx's dtype, dh0, dU_zr, dU_c)."""
+    units = uc.shape[-1]
+    dwx, dh0 = kg.backward_plain(uzr, uc, h0, ys, gates, g, wx.dtype)
+    hprev = kconv.hprev_of(h0, ys)
+    duzr, duc = v1.wgrad_plain(hprev, dwx[..., :2 * units], gates[1] * hprev,
+                               dwx[..., 2 * units:], wx.dtype)
+    return dwx.to(wx.dtype), dh0, duzr, duc
+
+
+def grid_readings(ys, grads, want_ys, want) -> dict:
+    """Each of GRID_READINGS by its norm against the plain versions'."""
+    def host(x):
+        return x.float().cpu().numpy().astype(np.float64)
+
+    return {"ys": l2_rel(host(ys), host(want_ys)),
+            "h_final": l2_rel(host(ys[-1]), host(want_ys[-1])),
+            **{n: l2_rel(host(a), host(w))
+               for n, a, w in zip(GRID_READINGS[2:], grads, want)}}
+
+
+def grid_kernel_gates(card: str) -> dict:
+    """Kernel B6 at the cascade's bottom cell and train shape (B=28, T=42,
+    U=256, 3x3, 7x7, bf16) on each of GRID_SEEDS: the forward (ys, the
+    final h) against `forward_plain`, the whole backward (the recursion,
+    then phase W) on the kernel's ys and gates against `backward_plain`
+    and `wgrad_plain`, each reading within its GRID_L2_REL; a second
+    backward bitwise the first; the control (`grid_bf16_sums`) outside the
+    forward's limits and some gradient's."""
+    out = {"max_abs_err": 0.0}
+    for seed in GRID_SEEDS:
+        uzr, uc, wx, h0, g = grid_inputs(seed)
+        with torch.no_grad():
+            ys, gates = kg.recurrence(uzr, uc, wx, h0, True)
+            got = kg.backward(uzr, uc, wx, h0, ys, gates, g)
+            again = kg.backward(uzr, uc, wx, h0, ys, gates, g)
+            want_ys, _ = kg.forward_plain(uzr, uc, wx, h0)
+            want = grid_plain_backward(uzr, uc, wx, h0, ys, gates, g)
+            with grid_bf16_sums():
+                ctl_ys, _ = kg.forward_plain(uzr, uc, wx, h0)
+                ctl = grid_plain_backward(uzr, uc, wx, h0, ys, gates, g)
+        torch.cuda.synchronize()
+        sound = grid_readings(ys, got, want_ys, want)
+        control = grid_readings(ctl_ys, ctl, want_ys, want)
+        repeatable = all(torch.equal(a, b) for a, b in zip(got, again))
+        out["max_abs_err"] = max(
+            [out["max_abs_err"], float((ys - want_ys).abs().max())]
+            + [float((a.float() - w.float()).abs().max())
+               for a, w in zip(got, want)])
+        print(f"parity convgru_grid (B6) bf16 B={TRAIN_BATCH} T={T} U="
+              f"{GRID_UNITS} 3x3 {GRID_HW} seed {seed}: l2_rel "
+              f"{json.dumps(sound)}; control (sums rounded to bf16) "
+              f"{json.dumps(control)}; backward bitwise repeatable "
+              f"{repeatable} [{card}]", flush=True)
+        for n in GRID_READINGS:
+            check(sound[n] <= GRID_L2_REL[n],
+                  f"B6 seed {seed}: {n} l2_rel {sound[n]}")
+        check(repeatable, f"B6 backward seed {seed} not bitwise repeatable")
+        check(control["ys"] > GRID_L2_REL["ys"]
+              and control["h_final"] > GRID_L2_REL["h_final"]
+              and any(control[n] > GRID_L2_REL[n]
+                      for n in GRID_READINGS[2:]),
+              f"B6's gates pass the control (bf16 sums) at seed {seed}: "
+              f"{control}")
+        out[seed] = {"sound": sound, "control": control}
+    return out
+
+
+def grid_kernel_timing(card: str) -> dict:
+    """B6 at the cascade's train shape: the forward (with the gates a
+    backward reads) and the backward's recursion by CUDA events beside
+    their bound and plain versions, the whole backward (the recursion and
+    phase W); the bottom cell's whole recurrence,
+    forward + backward with its input conv, through B6 and through the
+    rematerialized `ConvGRU.scan` it replaces, and the cascade's predict
+    at B=16 through both, in turns (host ms a pass)."""
+    uzr, uc, wx, h0, g = grid_inputs(SEED + 5)
+    t, b, u = T, TRAIN_BATCH, GRID_UNITS
+    hw = GRID_HW[0] * GRID_HW[1]
+    flops = kg.flops(t, b, *GRID_HW, u)
+    state = t * b * hw * u * 4  # one f32 [T,B,H,W,U] stream
+    with torch.no_grad():
+        ys, gates = kg.recurrence(uzr, uc, wx, h0, True)
+        out = {
+            "fwd": {"ms": cuda_ms(lambda: kg.recurrence(uzr, uc, wx, h0,
+                                                        True), 20),
+                    "plain_ms": cuda_ms(lambda: kg.forward_plain(
+                        uzr, uc, wx, h0, True), 3, warmup=1),
+                    # wx and h0 read; ys and the three gates written
+                    **bound(flops, t * b * hw * 3 * u * 2 + 4 * state
+                            + b * hw * u * 4)},
+            "bwd": {"ms": cuda_ms(lambda: kg.recurrence_bwd(
+                uzr, uc, wx, h0, ys, gates, g), 20),
+                    "plain_ms": cuda_ms(lambda: kg.backward_plain(
+                        uzr, uc, h0, ys, gates, g, torch.bfloat16), 3,
+                        warmup=1),
+                    # the gates, ys and g read; dwx and dh0 written
+                    **bound(flops, 5 * state + t * b * hw * 3 * u * 2
+                            + 2 * b * hw * u * 4)},
+            "bwd_with_wgrad_ms": cuda_ms(lambda: kg.backward(
+                uzr, uc, wx, h0, ys, gates, g), 10)}
+    rng = np.random.RandomState(SEED + 6)
+    params = {n: torch.from_numpy((rng.randn(*v.shape) * 0.02).astype(
+        np.float32)).cuda().requires_grad_()
+        for n, v in ConvGRU.init(GRID_INPUT, u).items()}
+    xs = torch.from_numpy(rng.randn(t, b, *GRID_HW, GRID_INPUT).astype(
+        np.float32)).to("cuda", torch.bfloat16).requires_grad_()
+    zero = torch.zeros(b, *GRID_HW, u, device="cuda")
+
+    def cell(scan, **kw):
+        _, gs = scan(params, xs, zero, compute_dtype=torch.bfloat16, **kw)
+        torch.autograd.grad((gs * g).sum(), [*params.values(), xs])
+
+    out["cell_fwd_bwd_host_ms"] = in_turns({
+        "remat scan": lambda: cell(ConvGRU.scan, remat=True),
+        "B6": lambda: cell(kg.convgru_scan_grid)})
+    model = zoo_model("gaze_grcn_cascade")
+    _, c3d = zoo_inputs(model, ZOO_PREDICT_BATCH, SEED + 23)
+    with torch.inference_mode():
+        out["cascade_predict_host_ms"] = in_turns({
+            "scan": lambda: plain_predict_cascade(model, c3d),
+            "B6": lambda: model.predict(None, c3d)})
+    del model
+    for d in ("fwd", "bwd"):
+        x = out[d]
+        print(f"timing: convgru_grid (B6) {d} T={t} B={b} U={u} 3x3 "
+              f"{GRID_HW} bf16: {x['ms']:.4f} ms ({x['ms'] * 1e3 / t:.1f} "
+              f"us a step), plain {x['plain_ms']:.3f} ms, bound "
+              f"{x['bound_ms']:.4f} ms ({x['bound_by']}: {x['gflop']:.1f} "
+              f"GFLOP, {x['mbytes']:.1f} MB) [{card}]", flush=True)
+    print(f"timing: convgru_grid (B6) whole backward (recursion + phase W) "
+          f"{out['bwd_with_wgrad_ms']:.4f} ms [{card}]", flush=True)
+    print(f"timing: the cascade's bottom cell forward + backward with its "
+          f"input conv, T={t} B={b}, in turns (host ms a pass): "
+          f"{json.dumps(out['cell_fwd_bwd_host_ms'])}; the cascade's predict "
+          f"B={ZOO_PREDICT_BATCH} T={t}: "
+          f"{json.dumps(out['cascade_predict_host_ms'])} [{card}]",
+          flush=True)
+    return out
+
+
+def plain_predict_cascade(model, c3d):
+    """The cascade's predict with its bottom cell on its own scan."""
+    with plain_route(model):
+        return model.predict(None, c3d)
 
 
 def cluster_lines(card: str, units: int = UNITS,
@@ -848,7 +1068,7 @@ def b4_breakdown(b: int, calls: int = 5) -> tuple[dict, dict]:
     launches = read_launches()
     check(launches == {"convgru_fwd": 0, **v2_backwards(2 + calls),
                        "convgru_bwd_mono": 2 + calls, "convlstm_fwd": 0,
-                       **small_launches()},
+                       **cascade_launches()},
           f"launches over {2 + calls} calls of B4's wrapper: {launches}")
     return out, launches
 
@@ -944,6 +1164,7 @@ def reset_launches() -> None:
     v1.gates_launches = v1.wgrad_launches = 0
     q1.launches = q1.pool_launches = 0
     ks.launches = ks.bwd_launches = 0
+    kg.launches = kg.bwd_launches = 0
 
 
 def read_int8_launches() -> dict:
@@ -959,13 +1180,18 @@ def read_launches() -> dict:
             "convgru_wgrad": v1.wgrad_launches,
             "convlstm_fwd": klstm.launches,
             "convgru_small_fwd": ks.launches - ks.bwd_launches,
-            "convgru_small_bwd": ks.bwd_launches}
+            "convgru_small_bwd": ks.bwd_launches,
+            "convgru_grid_fwd": kg.launches - kg.bwd_launches,
+            "convgru_grid_bwd": kg.bwd_launches}
 
 
-def small_launches(fwd: int = 0, bwd: int = 0) -> dict:
-    """The launches of B5 (the cascade's top cell): `fwd` forwards and
-    `bwd` backwards."""
-    return {"convgru_small_fwd": fwd, "convgru_small_bwd": bwd}
+def cascade_launches(fwd: int = 0, bwd: int = 0) -> dict:
+    """The launches of the cascade's two cell kernels, B5 (the top cell)
+    and B6 (the bottom cell): `fwd` forwards and `bwd` backwards of each
+    (each of B6's backwards also runs phase W, `convgru_wgrad`, which the
+    callers count)."""
+    return {"convgru_small_fwd": fwd, "convgru_small_bwd": bwd,
+            "convgru_grid_fwd": fwd, "convgru_grid_bwd": bwd}
 
 
 def v2_backwards(n: int) -> dict:
@@ -1169,7 +1395,7 @@ def train_through_cli(card: str, run: str, prefetch: bool = True) -> dict:
     # B1 once per step and once for the test split's batch, B2 per step
     check(launches == {"convgru_fwd": TRAIN_STEPS + 1,
                        **v2_backwards(TRAIN_STEPS), "convgru_bwd_mono": 0,
-                       "convlstm_fwd": 0, **small_launches()},
+                       "convlstm_fwd": 0, **cascade_launches()},
           f"launches over {TRAIN_STEPS} train steps and the test split: "
           f"{launches}")
     check(saved == [TRAIN_STEPS], f"checkpoints written: {saved}")
@@ -1337,7 +1563,7 @@ def evaluation_cadence(card: str) -> dict:
               f"evaluation scores at step {step}: {scores}")
     check(launches == {"convgru_fwd": TRAIN_STEPS + n_evals,
                        **v2_backwards(TRAIN_STEPS), "convgru_bwd_mono": 0,
-                       "convlstm_fwd": 0, **small_launches()},
+                       "convlstm_fwd": 0, **cascade_launches()},
           f"launches over {TRAIN_STEPS} steps and {n_evals} evaluations: "
           f"{launches}")
     return {"evals": evals, "launches": launches}
@@ -1531,9 +1757,10 @@ def predict_breakdown(model, c3d: torch.Tensor) -> dict:
 
 def route_check(card: str) -> dict:
     """Fault C1's rule on the card: predict of gaze_grcn and gaze_lstm at
-    a width the kernels take (U=128) and two they do not (U=24, 256), each
-    route decided from the shapes before any launch and checked by the
-    launch counts."""
+    a width the cluster kernels take (U=128), one no kernel takes (U=24)
+    and one too wide for them (U=256: gaze_grcn's cell takes B6, gaze_lstm's
+    the scan), each route decided from the shapes before any launch and
+    checked by the launch counts."""
     rng = np.random.RandomState(SEED + 11)
     c3d = torch.from_numpy(rng.randn(2, T, 1024, 7, 7).astype(
         np.float32)).cuda()
@@ -1547,10 +1774,13 @@ def route_check(card: str) -> dict:
             reset_launches()
             maps = model.predict(None, c3d)
             launches = read_launches()
-            want = 1 if units == 128 else 0
+            kernel = {128: FORWARD_KERNEL[name],
+                      256: "convgru_grid_fwd" if name == "gaze_grcn"
+                      else None}.get(units)
+            want = int(kernel is not None)
             out[name, units] = model.last_route
             check(model.last_route == ("kernel" if want else "scan")
-                  and launches[FORWARD_KERNEL[name]] == want
+                  and (not want or launches[kernel] == 1)
                   and sum(launches.values()) == want
                   and bool(torch.isfinite(maps).all())
                   and tuple(maps.shape) == (2, T, 49, 49),
@@ -1757,7 +1987,7 @@ def train_fused_through_cli(card: str) -> dict:
                                             f"{losses}")
             check(launches == {"convgru_fwd": steps, **v2_backwards(steps),
                                "convgru_bwd_mono": 0, "convlstm_fwd": 0,
-                               **small_launches()},
+                               **cascade_launches()},
                   f"{label}: launches over {steps} steps: {launches}")
             check(saved == [steps], f"{label}: checkpoints {saved}")
             if label == "frozen":
@@ -1956,12 +2186,12 @@ def zoo_inputs(model, b: int, seed: int) -> tuple:
 
 def zoo_kernel_launches(name: str, calls: int = 1) -> dict:
     """The launches of `calls` forwards in bf16: B1 for gaze_pupil_grcn,
-    B5 for gaze_grcn_cascade (its top cell), none for the other families
-    of the zoo."""
+    B5 and B6 for gaze_grcn_cascade (its top and bottom cells), none for
+    the other families of the zoo."""
     fwd = calls if name == "gaze_pupil_grcn" else 0
     top = calls if name == "gaze_grcn_cascade" else 0
     return {"convgru_fwd": fwd, **v2_backwards(0), "convgru_bwd_mono": 0,
-            "convlstm_fwd": 0, **small_launches(top)}
+            "convlstm_fwd": 0, **cascade_launches(top)}
 
 
 def c4_kernel_gates(card: str) -> dict:
@@ -2023,7 +2253,7 @@ def zoo_predict_check(card: str) -> dict:
     at B=16 in bf16: finite, of shape [B,T,GH,GW], corr >= MAP_MIN_CORR
     against the same weights in f32 with TF32 off; gaze_pupil_grcn
     launches B1 once per call (its route "kernel"), gaze_grcn_cascade B5
-    once per call (its `top_route` "kernel", its `last_route` "scan"), the
+    and B6 once per call (its `top_route` and `last_route` "kernel"), the
     others no recurrence kernel."""
     out = {}
     for name in ZOO:
@@ -2055,7 +2285,7 @@ def zoo_predict_check(card: str) -> dict:
             check(c >= MAP_MIN_CORR, f"{name} B={b}: corr {c} vs f32")
             check(launches == zoo_kernel_launches(name),
                   f"{name} B={b}: launches {launches}")
-            if name == "gaze_pupil_grcn":
+            if name in ("gaze_pupil_grcn", "gaze_grcn_cascade"):
                 check(route == "kernel", f"{name}: route {route}")
             elif route is not None:
                 check(route == "scan", f"{name}: route {route}")
@@ -2195,9 +2425,10 @@ def zoo_train_through_cli(card: str, run: str, name: str,
                           extra: tuple = ()) -> dict:
     """`cli.train_gaze` on a zoo family at its registry T and batch, bf16,
     20 steps at ZOO_LR, batches prefetched: the loss falls; B1 and B2 once
-    per step for gaze_pupil_grcn, B5 once each way per step for
-    gaze_grcn_cascade (and B1 / B5's forward once per batch of the final
-    test-split evaluation), no launch for the others."""
+    per step for gaze_pupil_grcn, B5 and B6 once each way per step (and
+    B6's phase W) for gaze_grcn_cascade (and B1 / B5's and B6's forwards
+    once per batch of the final test-split evaluation), no launch for the
+    others."""
     argv = ["--model", name, "--dataset", "synthetic", "--compute_dtype",
             "bfloat16", "--max_steps", str(TRAIN_STEPS),
             "--steps_per_logprint", "1", "--learning_rate", str(ZOO_LR),
@@ -2219,13 +2450,14 @@ def zoo_train_through_cli(card: str, run: str, name: str,
         test_batches = -(-ZOO_TEST_CLIPS // 7)
         want = {"convgru_fwd": TRAIN_STEPS + test_batches,
                 **v2_backwards(TRAIN_STEPS), "convgru_bwd_mono": 0,
-                "convlstm_fwd": 0, **small_launches()}
+                "convlstm_fwd": 0, **cascade_launches()}
     elif name == "gaze_grcn_cascade":
-        # B5 once each way per step, and forward once per batch of the
-        # final test-split evaluation
+        # B5 and B6 once each way per step (and B6's phase W), and
+        # forward once per batch of the final test-split evaluation
         test_batches = -(-ZOO_TEST_CLIPS // 7)
         want = {**zoo_kernel_launches(name, 0),
-                **small_launches(TRAIN_STEPS + test_batches, TRAIN_STEPS)}
+                **cascade_launches(TRAIN_STEPS + test_batches, TRAIN_STEPS),
+                "convgru_wgrad": TRAIN_STEPS}
     else:
         want = zoo_kernel_launches(name, 0)
     check(launches == want, f"{name}: launches {launches}, want {want}")
@@ -2276,7 +2508,7 @@ def pupil_gradient_check(card: str) -> dict:
         check(c >= GRAD_MIN_CORR, f"pupil grcn grad {n} corr {c}")
     check(launches == {"convgru_fwd": 1, **v2_backwards(1),
                        "convgru_bwd_mono": 0, "convlstm_fwd": 0,
-                       **small_launches()}
+                       **cascade_launches()}
           and sum(plain_launches.values()) == 0,
           f"pupil grcn launches {launches}, plain {plain_launches}")
     check(parts["pupil_loss"] > 0 and abs(loss - joint) <= 1e-5 * abs(loss),
@@ -2286,10 +2518,14 @@ def pupil_gradient_check(card: str) -> dict:
 
 def cascade_remat_check(card: str) -> dict:
     """gaze_grcn_cascade's loss and gradients (B=7, T=42, bf16, no
-    dropout) with each step of the bottom cell rematerialized and without
-    (the top cell runs B5 either way, once each way a pass): the same loss,
-    every gradient corr >= REMAT_GRAD_MIN_CORR; the peak memory of each
-    forward + backward."""
+    dropout) in three arms: both cells on their kernels (B6 and B5, once
+    each way a pass) with `remat_cells` on and off, and the bottom cell on
+    its rematerialized `ConvGRU.scan` (`plain_route`). The kernels keep no
+    per-step graph, so the flag changes nothing: the same loss, every
+    gradient corr >= REMAT_GRAD_MIN_CORR. Through B6 against the plain
+    scan, whose cuDNN convs round their sums to bf16: the loss within
+    LOSS_MAX_REL, every gradient corr >= GRAD_MIN_CORR. The peak memory of
+    each forward + backward."""
     model = zoo_model("gaze_grcn_cascade")
     model.cfg.dropout_keep_prob = 1.0
     raw = synthetic.make_clip_windows(7, T, seed=SEED + 4).next_batch(7)
@@ -2297,39 +2533,62 @@ def cascade_remat_check(card: str) -> dict:
                              stream_casts(torch.bfloat16))
     named = [(n, p) for n, p in model.named_parameters()
              if not n.startswith("shallownet.")]
-    out = {}
+    out, routes = {}, {}
     reset_launches()
-    for remat in (True, False):
+    for arm, remat in (("remat", True), ("no_remat", False),
+                       ("plain_remat", True)):
         model.cfg.remat_cells = remat
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        loss, _ = model.loss(batch, train=True)
-        grads = torch.autograd.grad(loss, [p for _, p in named])
+        with plain_route(model, arm == "plain_remat"):
+            loss, _ = model.loss(batch, train=True)
+            grads = torch.autograd.grad(loss, [p for _, p in named])
         torch.cuda.synchronize()
         peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-        out[remat] = (loss.item(), [g.float().cpu().numpy() for g in grads],
-                      peak)
+        routes[arm] = (model.last_route, model.top_route)
+        out[arm] = (loss.item(), [g.float().cpu().numpy() for g in grads],
+                    peak)
     model.cfg.remat_cells = True
     launches = read_launches()
-    rel = abs(out[True][0] - out[False][0]) / abs(out[False][0])
-    corrs = {n: corr(a, b) for (n, _), a, b in
-             zip(named, out[True][1], out[False][1]) if a.size > 1}
-    print(f"cascade remat check (B=7, T={T}, bf16): loss {out[True][0]} "
-          f"(remat) vs {out[False][0]} (rel {rel:.3g}), min grad corr "
-          f"{min(corrs.values()):.7f} ({min(corrs, key=corrs.get)}); peak "
-          f"memory above the weights and batch: {out[True][2]:.1f} MiB "
-          f"(remat) vs {out[False][2]:.1f} MiB [{card}]", flush=True)
+
+    def compare(arm, against):
+        rel = abs(out[arm][0] - out[against][0]) / abs(out[against][0])
+        corrs = {n: corr(a, b) for (n, _), a, b in
+                 zip(named, out[arm][1], out[against][1]) if a.size > 1}
+        return rel, corrs
+
+    rel, corrs = compare("remat", "no_remat")
+    plain_rel, plain_corrs = compare("remat", "plain_remat")
+    print(f"cascade remat check (B=7, T={T}, bf16): loss {out['remat'][0]} "
+          f"(remat) vs {out['no_remat'][0]} (rel {rel:.3g}), min grad corr "
+          f"{min(corrs.values()):.7f} ({min(corrs, key=corrs.get)}); "
+          f"through B6 vs the bottom cell's remat scan: loss "
+          f"{out['plain_remat'][0]} (rel {plain_rel:.3g}), min grad corr "
+          f"{min(plain_corrs.values()):.7f} "
+          f"({min(plain_corrs, key=plain_corrs.get)}); peak memory above "
+          f"the weights and batch (MiB): "
+          f"{json.dumps({a: round(v[2], 1) for a, v in out.items()})}; "
+          f"routes (bottom, top) {json.dumps(routes)} [{card}]", flush=True)
     check(rel <= REMAT_LOSS_MAX_REL, f"cascade remat loss rel {rel}")
-    check(model.top_route == "kernel"
+    check(plain_rel <= LOSS_MAX_REL,
+          f"cascade loss through B6 vs the plain scan: rel {plain_rel}")
+    check(routes == {"remat": ("kernel", "kernel"),
+                     "no_remat": ("kernel", "kernel"),
+                     "plain_remat": ("scan", "kernel")}
           and launches == {**zoo_kernel_launches("gaze_grcn_cascade", 0),
-                           **small_launches(2, 2)},
-          f"cascade remat check: top_route {model.top_route}, launches "
-          f"{launches}")
+                           **cascade_launches(2, 2), "convgru_small_fwd": 3,
+                           "convgru_small_bwd": 3, "convgru_wgrad": 2},
+          f"cascade remat check: routes {routes}, launches {launches}")
     for n, c in corrs.items():
         check(c >= REMAT_GRAD_MIN_CORR, f"cascade remat grad {n} corr {c}")
+    for n, c in plain_corrs.items():
+        check(c >= GRAD_MIN_CORR,
+              f"cascade grad {n} through B6 vs the plain scan: corr {c}")
     return {"loss_rel": rel, "min_corr": min(corrs.values()),
-            "peak_mib": {"remat": out[True][2], "no_remat": out[False][2]}}
+            "plain_loss_rel": plain_rel,
+            "plain_min_corr": min(plain_corrs.values()),
+            "peak_mib": {a: v[2] for a, v in out.items()}}
 
 
 def zoo_train_step_timing(name: str, remat: bool = True) -> dict:
@@ -3869,7 +4128,7 @@ def parallel_phase(card: str, runs: str, data: int = 2, model: int = 1,
     for r in ranks:
         check(r["train"]["launches"] == {
             "convgru_fwd": PAR_STEPS, **v2_backwards(PAR_STEPS),
-            "convgru_bwd_mono": 0, "convlstm_fwd": 0, **small_launches()},
+            "convgru_bwd_mono": 0, "convlstm_fwd": 0, **cascade_launches()},
             f"a rank's launches over {PAR_STEPS} sharded steps: "
             f"{r['train']['launches']}")
 
@@ -4068,6 +4327,8 @@ def main() -> int:
     # B5, the cascade's top cell, at its train shape against its plain
     # versions and the control
     small_gates = small_kernel_gates(card)
+    # B6, the cascade's bottom cell, the same way
+    grid_gates = grid_kernel_gates(card)
 
     # 4. serving at full width through the kernels: gaze_grcn (B1), then
     # gaze_lstm (B3)
@@ -4164,6 +4425,7 @@ def main() -> int:
         print(f"timing: convlstm_fwd T={T} B={b} U=128 bf16: {per_step(k)} "
               f"[{card}]", flush=True)
     small_timing = small_kernel_timing(card)
+    grid_timing = grid_kernel_timing(card)
     c3d16 = torch.from_numpy(
         timing_rng.randn(16, T, 1024, 7, 7).astype(np.float32)).cuda()
     for m, served in ((model, grcn_served), (lstm_model, lstm_served)):
@@ -4357,12 +4619,33 @@ def main() -> int:
                    "convgru_small.cu",
          "replaces": None,
          "launches": sum(zoo["trained"]["gaze_grcn_cascade"]["launches"][n]
-                         for n in small_launches()),
+                         for n in ("convgru_small_fwd", "convgru_small_bwd")),
          "max_abs_err": small_gates["max_abs_err"],
          **{key: sum(small_timing[d][key] for d in ("fwd", "bwd"))
             for key in ("ms", "plain_ms", "bound_ms")},
          "bound_by": small_timing["bwd"]["bound_by"], "library_ms": None,
          "phases": {d: {key: small_timing[d][key] for key in
+                        ("ms", "plain_ms", "bound_ms", "bound_by")}
+                    for d in ("fwd", "bwd")},
+         "calls": f"1 forward + 1 backward launch per cascade train step, "
+                  f"T={T}, B={TRAIN_BATCH}"},
+        # B6 replaces no Pallas kernel: the JAX package scans the cascade's
+        # bottom cell with lax.scan. Its times are one forward and one
+        # backward recursion at the cascade's train shape (phase W's
+        # weight products after it are convgru_wgrad's); its launches
+        # those of the cascade's 20 CLI train steps and test-split
+        # evaluation
+        {"name": "convgru_grid", "route": "cuda",
+         "source": "recurrent_gaze_prediction_tpu_torch/csrc/"
+                   "convgru_grid.cu",
+         "replaces": None,
+         "launches": sum(zoo["trained"]["gaze_grcn_cascade"]["launches"][n]
+                         for n in ("convgru_grid_fwd", "convgru_grid_bwd")),
+         "max_abs_err": grid_gates["max_abs_err"],
+         **{key: sum(grid_timing[d][key] for d in ("fwd", "bwd"))
+            for key in ("ms", "plain_ms", "bound_ms")},
+         "bound_by": grid_timing["bwd"]["bound_by"], "library_ms": None,
+         "phases": {d: {key: grid_timing[d][key] for key in
                         ("ms", "plain_ms", "bound_ms", "bound_by")}
                     for d in ("fwd", "bwd")},
          "calls": f"1 forward + 1 backward launch per cascade train step, "

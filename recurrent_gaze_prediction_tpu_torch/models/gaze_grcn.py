@@ -12,11 +12,12 @@ head and no upsampling. The recurrence runs by the route of its cell
 (`ops/kernels/route.py`, decided from the shapes alone): kernel B1 to
 predict; to train, the autograd Function `convgru_scan_trainable` (forward
 B1, backward B4's phase G, kernel B2 and phase W, `ops/kernels/
-convgru_vjp.py`); `ConvGRU.scan` for a width (U not a multiple of 16, or a
-CTA's slice too large for shared memory, e.g. U=256) or a kernel size (not
-3x3) the kernels do not take, on any device. On a CPU tensor the kernel
-route runs the kernels' plain versions. The forward records the route it
-took in `last_route`.
+convgru_vjp.py`); for a bf16 width too large for B1's shared memory (a
+multiple of 128, e.g. U=256) kernel B6 (`ops/kernels/convgru_grid.py`)
+both ways; `ConvGRU.scan` for a width (U not a multiple of 16) or a kernel
+size (not 3x3) the kernels do not take, on any device. On a CPU tensor the
+kernel route runs the kernels' plain versions. The forward records the
+route it took in `last_route`.
 
 gaze_grcn does not read `frames`, so the raw-video pipeline skips their
 resize for it (`reads_frames`).

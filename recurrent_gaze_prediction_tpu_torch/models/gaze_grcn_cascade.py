@@ -10,17 +10,19 @@ port's counterpart of the JAX package's `models/gaze_grcn_cascade.py`
                           -> fc 4802 + relu + maxout -> [49,49]
 
 Each cell runs by its own route (`ops/kernels/route.py`, decided from the
-shapes alone). No kernel takes the bottom cell (U=256 does not fit a CTA's
-shared memory), so `recurrence_route` and `last_route` read "scan" and it
-runs its own `ConvGRU.scan`, as in the JAX package. The top cell takes
-kernel B5 (`ops/kernels/convgru_small.py`: its whole sequence in one launch
-forward and one backward) in bf16, and `ConvGRU.scan` otherwise; the
-forward records its route in `top_route`. With `cfg.remat_cells` in
-training, each step of a plain scan is checkpointed
+shapes alone). In bf16 the bottom cell takes kernel B6
+(`ops/kernels/convgru_grid.py`: its whole sequence in one launch forward,
+the backward's recursion in one more, then phase W's weight products) and
+the top cell kernel B5 (`ops/kernels/convgru_small.py`: one launch
+forward and one backward); in f32 both run their own `ConvGRU.scan`, as
+in the JAX package. The forward records the bottom cell's route in
+`last_route` (`recurrence_route`) and the top cell's in `top_route`. With
+`cfg.remat_cells` in training, each step of a plain scan is checkpointed
 (`torch.utils.checkpoint`): on the scan route the 49x49 top cell's per-step
 gates are 49x the bottom cell's, and autograd would otherwise keep all of
-them. B5 keeps only ys and recomputes its gates, so remat has no use there.
-On a CPU tensor B5's wrappers run their plain versions.
+them. The kernels keep no per-step graph (B5 recomputes its gates from ys,
+B6 stores its gates from the forward), so remat has no use on their route.
+On a CPU tensor their wrappers run their plain versions.
 
 The ShallowNet branch feeds nothing in the reference (its concat is
 commented out, `gaze_grcn_cascade.py:370-377`); its parameters are kept
@@ -30,9 +32,10 @@ channels where the reference declares 65 (a latent shape bug there,
 `gaze_grcn_cascade.py:17-20`), as in the JAX package.
 
 Spans (`train.profiler`): `gaze.projection`, `gaze.recurrence` (the
-bottom scan), `gaze.upsample`, `gaze.top_recurrence`, `gaze.decoder` (the
+bottom cell), `gaze.upsample`, `gaze.top_recurrence`, `gaze.decoder` (the
 maxout head); each plain scan counts its steps in `recurrence.plain_steps`
-(on the card B5 counts none).
+(on the card B5 and B6 count none), B6's forward its steps in
+`recurrence.kernel_steps`.
 """
 
 from __future__ import annotations
@@ -87,8 +90,8 @@ class GazeGRCNCascade(GazeModel):
         self.fc2_b = nn.Parameter(init.zeros((FC_WIDTH,)))
 
     def recurrence_route(self, train: bool) -> str:
-        """The bottom cell's route (`convgru_route`): "scan", since no
-        kernel takes U=256."""
+        """The bottom cell's route (`convgru_route`): "kernel" (B6) in
+        bf16, "scan" in f32."""
         return convgru_route(self.bottom_cell, (7, 7),
                              compute_dtype_of(self.cfg), train)
 
@@ -103,7 +106,7 @@ class GazeGRCNCascade(GazeModel):
             net["frm_sal"] = shallownet.apply(
                 self.shallownet, frames.reshape(-1, *frames.shape[2:]),
                 train=False, compute_dtype=cdt).reshape(b, t, 49, 49)
-        self.last_route = self.recurrence_route(train)  # always "scan"
+        self.last_route = self.recurrence_route(train)
         self.top_route = convgru_route(self.top_cell, (49, 49), cdt, train)
 
         embedded = apply_c3d_projection(self.c3d_proj, c3d, keep_prob=1.0,

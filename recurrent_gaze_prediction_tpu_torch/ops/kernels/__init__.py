@@ -5,5 +5,6 @@ it), `convgru` (forward, B1, and what the cluster kernels share),
 `convgru_vjp2` (the backward's recursion, B2), `convgru_vjp` (B4's phases G
 and W, B4's wrapper, and the one trainable ConvGRU Function over G, B2 and
 W), `convgru_small` (the cascade's small ConvGRU forward and backward, B5),
-`convlstm` (the peephole ConvLSTM forward, B3) and `conv3d_int8` (a layer
-of the int8 C3D tower and its int8 max pool, Q1)."""
+`convgru_grid` (the cascade's wide ConvGRU forward and backward's
+recursion, B6), `convlstm` (the peephole ConvLSTM forward, B3) and
+`conv3d_int8` (a layer of the int8 C3D tower and its int8 max pool, Q1)."""

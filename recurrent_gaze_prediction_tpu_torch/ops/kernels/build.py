@@ -67,6 +67,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.convgru_small_bwd.argtypes = [vp] * 11 + [i] * 6 + [vp]
     lib.convgru_small_smem_bytes.argtypes = [i] * 5
     lib.convgru_small_smem_bytes.restype = size
+    # B6: pointers, then T, B, H, W, U, stream
+    lib.convgru_grid_fwd.argtypes = [vp] * 8 + [i] * 5 + [vp]
+    lib.convgru_grid_bwd.argtypes = [vp] * 11 + [i] * 5 + [vp]
+    lib.convgru_grid_smem_bytes.argtypes = [i] * 4
+    lib.convgru_grid_smem_bytes.restype = size
+    lib.convgru_grid_max_ctas.argtypes = [i] * 4
+    lib.convgru_grid_max_ctas.restype = i
     f = ctypes.c_float
     # x, w, wscale, b, xscale, xscale_next, out_f32, out, N, D, H, W, Cin,
     # Cout, K, the box (bd, bh, bw), bn, stages, stream
@@ -89,7 +96,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         getattr(lib, name).restype = i
     for name in ("convgru_fwd", "convgru_bwd", "convgru_bwd_gates",
                  "convgru_wgrad", "convlstm_fwd", "conv3d_int8",
-                 "maxpool3d_int8", "convgru_small_fwd", "convgru_small_bwd"):
+                 "maxpool3d_int8", "convgru_small_fwd", "convgru_small_bwd",
+                 "convgru_grid_fwd", "convgru_grid_bwd"):
         getattr(lib, name).restype = i
     for name in ("convgru_fwd_error_string", "convlstm_fwd_error_string",
                  "conv3d_int8_error_string", "maxpool3d_int8_error_string"):

@@ -33,8 +33,8 @@ round the same way, so the card's check compares like with like.
 `kernel_takes` decides from the shapes, and takes only what is built and
 tested: the cascade's top cell (a 5x5 kernel, U=3, wx in bf16) on a grid of
 at most `MAX_PIXELS` (one group of five pixels a thread), within
-`SMEM_LIMIT`. The bottom cell (U=256) and every shape of B1 (U a multiple
-of 16) are refused. On a CUDA tensor the wrappers launch the
+`SMEM_LIMIT`. Every 3x3 cell is refused: the bottom cell (U=256) is B6's
+(`convgru_grid.py`), every shape of B1 (U a multiple of 16) B1's. On a CUDA tensor the wrappers launch the
 kernel or raise (no fallback); on a CPU tensor they run the plain versions
 `forward_plain` and `backward_plain`. `launches` counts every launch of B5
 (forward or backward), `bwd_launches` the backward's.

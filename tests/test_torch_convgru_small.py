@@ -22,6 +22,7 @@ from recurrent_gaze_prediction_tpu_torch import registry
 from recurrent_gaze_prediction_tpu_torch.config import OptimizerConfig
 from recurrent_gaze_prediction_tpu_torch.ops.cells import ConvGRU
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru as kconv
+from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_grid as kg
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_small as ks
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp2 as v2
 from recurrent_gaze_prediction_tpu_torch.ops.kernels.route import (
@@ -164,25 +165,27 @@ def _cascade_batch():
 @pytest.mark.parametrize("dtype,top", [("bfloat16", "kernel"),
                                        ("float32", "scan")])
 def test_cascade_routes(dtype, top):
-    """`last_route` keeps its meaning (the bottom cell's route: "scan");
-    the top cell's own route is B5 in bf16, the plain scan in f32."""
+    """`last_route` keeps its meaning (the bottom cell's route: B6 in bf16,
+    the plain scan in f32); the top cell's own route is B5 in bf16, the
+    plain scan in f32."""
     model = _cascade(dtype)
     assert convgru_route(model.top_cell, (49, 49), getattr(torch, dtype),
                          True) == top
-    assert model.recurrence_route(train=True) == "scan"
+    assert model.recurrence_route(train=True) == top
     with torch.no_grad():
         model(None, _cascade_batch()["c3d"])
-    assert model.last_route == "scan" and model.top_route == top
+    assert model.last_route == top and model.top_route == top
 
 
 def test_cascade_bf16_step_tree_counts_both_plain_loops():
-    """A bf16 train step on the CPU: the top cell on B5's plain versions
-    (one launch's worth of work, no kernel), still 3 + 3 plain steps,
-    counted on each cell's span; no B1/B2 launch."""
+    """A bf16 train step on the CPU: the bottom cell on B6's plain
+    versions, the top cell on B5's (each one launch's worth of work, no
+    kernel), still 3 + 3 plain steps, counted on each cell's span; no
+    B1/B2/B5/B6 launch."""
     model = _cascade("bfloat16")
     state, tx = create_train_state(model, OptimizerConfig())
     step = make_train_step(model, tx)
-    before = (ks.launches, kconv.launches, v2.launches)
+    before = (ks.launches, kg.launches, kconv.launches, v2.launches)
     profiler.clear()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):
@@ -190,7 +193,7 @@ def test_cascade_bf16_step_tree_counts_both_plain_loops():
     counted = {r["name"]: r["counts"] for r in profiler.records()
                if r["counts"]}
     profiler.clear()
-    assert model.top_route == "kernel"
+    assert model.top_route == "kernel" and model.last_route == "kernel"
     assert counted == {"gaze.recurrence": {"recurrence.plain_steps": T},
                        "gaze.top_recurrence": {"recurrence.plain_steps": T}}
-    assert (ks.launches, kconv.launches, v2.launches) == before
+    assert (ks.launches, kg.launches, kconv.launches, v2.launches) == before

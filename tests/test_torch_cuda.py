@@ -17,7 +17,11 @@ staged maps bitwise the direct upload's, two callers, a lane's copy beside
 a kernel of the compute stream); and kernel B5, the cascade's small ConvGRU
 (forward and backward against their plain versions, its weight gradients
 bitwise repeatable, its reckoning, its refusals, and the cascade's train
-step launching it once each way). They skip without a card. This
+step launching it once each way); and kernel B6, the cascade's wide
+ConvGRU (the same, with the plain versions' sums rounded to bf16 as the
+control its gates refuse, a batch larger than one launch holds, and the
+cascade's gradients through it against the plain scan's). They skip
+without a card. This
 file imports torch only (no jax), so on a machine with a card it runs
 without the JAX test harness:
 
@@ -449,26 +453,32 @@ def test_convlstm_kernel_rejects_a_width_whose_slice_does_not_fit(
 # ---------------------------------------------------------------- fault C1
 
 @pytest.mark.parametrize("name", ["gaze_grcn", "gaze_lstm"])
-@pytest.mark.parametrize("units,launched", [(256, 0), (24, 0), (128, 1)])
+@pytest.mark.parametrize("units", [256, 24, 128])
 def test_predict_routes_widths_the_kernels_do_not_take_to_the_scan(
-        cuda_no_tf32, name, units, launched):
-    """U=256 and U=24 run the cell's own scan (no launch), U=128 the
-    kernel (one launch), each decided before any launch."""
+        cuda_no_tf32, name, units):
+    """U=24 runs the cell's own scan (no launch), U=128 the cluster kernel
+    (one launch); U=256, too wide for the cluster kernels, runs gaze_grcn's
+    cell on B6 (one launch) and gaze_lstm's on its scan; each decided
+    before any launch."""
     from recurrent_gaze_prediction_tpu_torch import registry
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import (
+        convgru_grid as kg)
 
     model = registry.create_model(name, rnn_state_size=units, n_lstm_steps=5,
                                   compute_dtype="bfloat16",
                                   device=cuda_no_tf32)
     c3d = torch.from_numpy(np.random.RandomState(0).randn(
         2, 5, 1024, 7, 7).astype(np.float32)).to(cuda_no_tf32)
-    module = kconv if name == "gaze_grcn" else klstm
-    before = (kconv.launches, klstm.launches, v2.launches)
+    grcn = name == "gaze_grcn"
+    kernel = {128: kconv if grcn else klstm, 256: kg if grcn else None}.get(
+        units)
+    counters = (kconv, klstm, v2, kg)
+    before = [m.launches for m in counters]
     maps = model.predict(None, c3d)
     torch.cuda.synchronize()
-    after = (kconv.launches, klstm.launches, v2.launches)
-    assert model.last_route == ("kernel" if launched else "scan")
-    assert sum(after) - sum(before) == launched
-    assert module.launches - before[0 if module is kconv else 1] == launched
+    launched = [m.launches - b for m, b in zip(counters, before)]
+    assert model.last_route == ("scan" if kernel is None else "kernel")
+    assert launched == [int(m is kernel) for m in counters]
     assert maps.shape == (2, 5, 49, 49) and bool(torch.isfinite(maps).all())
     sums = maps.reshape(10, -1).sum(-1)
     assert float((sums - 1).abs().max()) <= 1e-3
@@ -1211,7 +1221,7 @@ SMALL_SHAPES = [(42, 28, (49, 49), 3, 5), (3, 2, (2, 3), 3, 5),
                 (4, 3, (13, 6), 3, 5), (3, 2, (40, 64), 3, 5)]
 
 
-def _small_inputs(t, b, hw, units, k, device, seed=0):
+def _small_inputs(t, b, hw, units, k, device, seed=0, std=0.2):
     """Weights whose state convs reach O(1) (std 0.2 over K*K*U taps), wx
     ~ N(0, 1) in bf16, h0 ~ N(0, 0.25), a cotangent ~ N(0, 1)."""
     rng = np.random.RandomState(seed)
@@ -1220,8 +1230,8 @@ def _small_inputs(t, b, hw, units, k, device, seed=0):
         return torch.from_numpy((rng.randn(*shape) * std).astype(
             np.float32)).to(device)
 
-    uzr = f32(k, k, units, 2 * units, std=0.2)
-    uc = f32(k, k, units, units, std=0.2)
+    uzr = f32(k, k, units, 2 * units, std=std)
+    uc = f32(k, k, units, units, std=std)
     wx = f32(t, b, *hw, 3 * units).to(torch.bfloat16)
     h0 = f32(b, *hw, units, std=0.5)
     g = f32(t, b, *hw, units)
@@ -1371,9 +1381,10 @@ def _cascade_on_card(device, t=5):
 
 def test_cascade_train_step_launches_b5_once_each_way(cuda_no_tf32):
     """One cascade train step on the card (bf16, T=5): the top cell takes
-    B5, one launch forward and one backward; `recurrence.plain_steps`
-    reads T (the bottom cell's scan alone), on `gaze.recurrence`;
-    `last_route` still "scan". Its predict launches B5 once."""
+    B5, one launch forward and one backward; no plain step runs
+    (`recurrence.plain_steps` is not counted: the bottom cell is on B6,
+    which counts T `recurrence.kernel_steps` on `gaze.recurrence`). Its
+    predict launches B5 once."""
     from recurrent_gaze_prediction_tpu_torch.config import OptimizerConfig
     from recurrent_gaze_prediction_tpu_torch.ops.kernels import (
         convgru_small as ks)
@@ -1395,8 +1406,8 @@ def test_cascade_train_step_launches_b5_once_each_way(cuda_no_tf32):
                if r["counts"]}
     profiler.clear()
     assert (ks.launches, ks.bwd_launches) == (before[0] + 2, before[1] + 1)
-    assert counted == {"gaze.recurrence": {"recurrence.plain_steps": 5}}
-    assert model.top_route == "kernel" and model.last_route == "scan"
+    assert counted == {"gaze.recurrence": {"recurrence.kernel_steps": 5}}
+    assert model.top_route == "kernel" and model.last_route == "kernel"
     before = ks.launches
     maps = model.predict(None, batch["c3d"])
     torch.cuda.synchronize()
@@ -1426,6 +1437,251 @@ def test_cascade_gradients_through_b5_match_the_plain_scan(cuda_no_tf32,
         loss, _ = model.loss(batch, train=True)
         grads = torch.autograd.grad(loss, [p for _, p in named])
         assert model.top_route == route
+        out[route] = (float(loss), grads)
+    assert abs(out["kernel"][0] - out["scan"][0]) <= 1e-2 * abs(
+        out["scan"][0])
+    for (n, _), a, w in zip(named, out["kernel"][1], out["scan"][1]):
+        assert _rel(a, w) <= 5e-2, n
+        assert float(torch.corrcoef(torch.stack(
+            [a.float().flatten(), w.float().flatten()]))[0, 1]) >= 0.999, n
+
+
+# -------------------------------------- B6: the wide ConvGRU (cascade bottom)
+
+# (T, B, (H, W), U): the cascade's bottom cell at its train shape, a
+# smaller grid, and a batch larger than one cooperative launch holds (132
+# CTAs at 4 an element: 33), which the wrapper runs in two launches each
+# way
+GRID_SHAPES = [(42, 28, (7, 7), 256), (3, 2, (5, 6), 256),
+               (4, 40, (7, 7), 256)]
+GRID_READINGS = ("ys", "h_final", "dwx", "dh0", "dU_zr", "dU_c")
+# B6 against its plain versions on the card, each reading by its norm,
+# ||kernel - plain|| / ||plain|| (dwx in bf16, as the wrapper returns
+# it): the mma sums run in another order than cuDNN's, and where that
+# flips a bf16 rounding of a conv operand the flip spreads through the
+# remaining steps. Each limit lies between the largest sound reading and
+# the smallest of the control (the plain versions with every conv's sum
+# rounded to bf16), seeds 0-2 at B=28, T=42 on an H100 (sound / control):
+# ys 5.74e-4 / 1.017e-3, h_final 6.17e-4 / 1.032e-3, dwx 1.433e-3 /
+# 1.988e-3, dh0 9.88e-4 / 1.673e-3, dU_zr 1.586e-3 / 2.765e-3, dU_c
+# 1.298e-3 / 2.459e-3 (the kept gates: 3.71e-4, held to ys's limit).
+GRID_TOL = {"ys": 8e-4, "h_final": 8.5e-4, "dwx": 1.7e-3, "dh0": 1.3e-3,
+            "dU_zr": 2.1e-3, "dU_c": 1.8e-3}
+
+
+def _grid_inputs(t, b, hw, units, device, seed=0):
+    """Weights whose state convs reach O(1) (std 0.03 over 9U = 2,304
+    taps), wx ~ N(0, 1) in bf16, h0 ~ N(0, 0.25), a cotangent ~ N(0, 1)."""
+    return _small_inputs(t, b, hw, units, 3, device, seed, std=0.03)
+
+
+def _grid_want(kg, uzr, uc, wx, h0, g, ys, gates):
+    """The plain versions on the kernel's gates and ys: (dwx in wx's dtype,
+    dh0, dU_zr, dU_c)."""
+    units = uc.shape[-1]
+    dwx, dh0 = kg.backward_plain(uzr, uc, h0, ys, gates, g, wx.dtype)
+    hprev = kconv.hprev_of(h0, ys)
+    duzr, duc = v1.wgrad_plain(hprev, dwx[..., :2 * units],
+                               gates[1] * hprev, dwx[..., 2 * units:],
+                               wx.dtype)
+    return dwx.to(wx.dtype), dh0, duzr, duc
+
+
+def _grid_readings(ys, grads, want_ys, want):
+    return {"ys": _l2_rel(ys, want_ys), "h_final": _l2_rel(ys[-1],
+                                                           want_ys[-1]),
+            **{n: _l2_rel(a, w) for n, a, w in
+               zip(GRID_READINGS[2:], grads, want)}}
+
+
+@pytest.mark.parametrize("t,b,hw,units", GRID_SHAPES)
+def test_convgru_grid_matches_plain(cuda_no_tf32, t, b, hw, units):
+    """B6's forward (ys, the final h, the gates it keeps) against
+    `forward_plain`, its whole backward (the recursion, then phase W)
+    against the plain recursion and phase W's plain version on the
+    kernel's ys and gates, both in bf16 on the card; the forward counts T
+    `recurrence.kernel_steps`."""
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import (
+        convgru_grid as kg)
+    from recurrent_gaze_prediction_tpu_torch.train import profiler
+
+    uzr, uc, wx, h0, g = _grid_inputs(t, b, hw, units, cuda_no_tf32)
+    chunks = -(-b // kg.max_batch(*hw, units, False, cuda_no_tf32))
+    before = (kg.launches, kg.bwd_launches, v1.wgrad_launches)
+    profiler.clear()
+    with torch.no_grad():
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            ys, gates = kg.recurrence(uzr, uc, wx, h0, keep_gates=True)
+        counts = profiler.counts()
+        profiler.clear()
+        got = kg.backward(uzr, uc, wx, h0, ys, gates, g)
+        want_ys, want_gates = kg.forward_plain(uzr, uc, wx, h0, True)
+        readings = _grid_readings(ys, got, want_ys, _grid_want(
+            kg, uzr, uc, wx, h0, g, ys, gates))
+        gates_rel = _l2_rel(gates, want_gates)
+    torch.cuda.synchronize()
+    assert counts == {"recurrence.kernel_steps": t}
+    assert (kg.launches, kg.bwd_launches, v1.wgrad_launches) == (
+        before[0] + 2 * chunks, before[1] + chunks, before[2] + 1)
+    assert ys.dtype == torch.float32 and got[0].dtype == torch.bfloat16
+    assert [tuple(a.shape) for a in got] == [
+        tuple(wx.shape), tuple(h0.shape), tuple(uzr.shape), tuple(uc.shape)]
+    assert gates_rel <= GRID_TOL["ys"], gates_rel
+    for name in GRID_READINGS:
+        assert readings[name] <= GRID_TOL[name], (name, readings)
+
+
+def test_convgru_grid_gates_refuse_bf16_sums(cuda_no_tf32, monkeypatch):
+    """The control: B6's plain versions with every conv's sum rounded to
+    bf16 (the state convs, the transposed convs, the weight products: a
+    kernel one precision short), read against the sound plain versions by
+    the same gates, fail the forward's limits and a gradient's, at the
+    cascade's train shape."""
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import (
+        convgru_grid as kg)
+
+    uzr, uc, wx, h0, g = _grid_inputs(42, 28, (7, 7), 256, cuda_no_tf32,
+                                      seed=2)
+
+    def rounded(fn):
+        return lambda *a: fn(*a).to(torch.bfloat16).float()
+
+    with torch.no_grad():
+        ys, gates = kg.forward_plain(uzr, uc, wx, h0, True)
+        want = _grid_want(kg, uzr, uc, wx, h0, g, ys, gates)
+        monkeypatch.setattr(kg, "conv3x3", rounded(kg.conv3x3))
+        monkeypatch.setattr(kg, "conv3x3_transpose",
+                            rounded(kg.conv3x3_transpose))
+        monkeypatch.setattr(v1, "kernel_grad", rounded(v1.kernel_grad))
+        ctl_ys, _ = kg.forward_plain(uzr, uc, wx, h0)
+        ctl = _grid_want(kg, uzr, uc, wx, h0, g, ys, gates)
+        monkeypatch.undo()
+        readings = _grid_readings(ctl_ys, ctl, ys, want)
+    assert readings["ys"] > GRID_TOL["ys"], readings
+    assert readings["h_final"] > GRID_TOL["h_final"], readings
+    assert any(readings[n] > GRID_TOL[n] for n in GRID_READINGS[2:]), \
+        readings
+
+
+def test_convgru_grid_backward_is_bitwise_repeatable(cuda_no_tf32):
+    """No atomics: the recursion's sums run in a fixed order in each CTA,
+    phase W adds its slices in order; two backwards give the same bits,
+    and two forwards."""
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import (
+        convgru_grid as kg)
+
+    uzr, uc, wx, h0, g = _grid_inputs(42, 28, (7, 7), 256, cuda_no_tf32,
+                                      seed=1)
+    ys, gates = kg.recurrence(uzr, uc, wx, h0, True)
+    again, _ = kg.recurrence(uzr, uc, wx, h0)
+    first = kg.backward(uzr, uc, wx, h0, ys, gates, g)
+    second = kg.backward(uzr, uc, wx, h0, ys, gates, g)
+    torch.cuda.synchronize()
+    assert torch.equal(ys, again)
+    for a, k in zip(first, second):
+        assert torch.equal(a, k)
+
+
+@pytest.mark.parametrize("hw", [(7, 7), (5, 6), (1, 9), (6, 8)])
+def test_convgru_grid_reckoning_matches_the_source(cuda_no_tf32, hw):
+    """The wrapper's shared memory against the source's, for one and two
+    padded operands; the card holds the whole train batch's CTAs (B=28 at
+    U=256: 112) in one cooperative launch each way."""
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import build
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import (
+        convgru_grid as kg)
+
+    lib = build.load()
+    for pads in (1, 2):
+        assert lib.convgru_grid_smem_bytes(*hw, 256, pads) == \
+            kg.smem_bytes(*hw, 256, pads)
+    for backward in (False, True):
+        assert kg.max_batch(7, 7, 256, backward, cuda_no_tf32) >= 28
+
+
+def test_convgru_grid_refuses_what_it_does_not_take(cuda_no_tf32):
+    """A CUDA tensor the kernel does not take raises (no fallback to the
+    plain version): f32 wx; U=128 (B1's), 384 (not built); a 5x5 kernel;
+    an 8x7 grid (72 output rows)."""
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import (
+        convgru_grid as kg)
+
+    before = kg.launches
+    uzr, uc, wx, h0, _ = _grid_inputs(2, 1, (7, 7), 256, cuda_no_tf32)
+    with pytest.raises(ValueError, match="convgru_grid takes"):
+        kg.recurrence(uzr, uc, wx.float(), h0)
+    for units, k, hw in ((128, 3, (7, 7)), (384, 3, (7, 7)),
+                         (256, 5, (7, 7)), (256, 3, (8, 7))):
+        uzr, uc, wx, h0, _ = _small_inputs(2, 1, hw, units, k, cuda_no_tf32)
+        with pytest.raises(ValueError, match="convgru_grid takes"):
+            kg.recurrence(uzr, uc, wx, h0)
+    assert kg.launches == before
+
+
+def test_cascade_train_step_launches_b6_once_each_way(cuda_no_tf32):
+    """One cascade train step on the card (bf16, T=5): the bottom cell
+    takes B6, one launch forward and one backward (and phase W once), with
+    its T steps counted as `recurrence.kernel_steps` on `gaze.recurrence`
+    and no plain step; its predict launches B6's forward once and keeps
+    no gates."""
+    from recurrent_gaze_prediction_tpu_torch.config import OptimizerConfig
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import (
+        convgru_grid as kg)
+    from recurrent_gaze_prediction_tpu_torch.train import profiler
+    from recurrent_gaze_prediction_tpu_torch.train.state import (
+        create_train_state, make_train_step)
+
+    model, batch = _cascade_on_card(cuda_no_tf32)
+    state, tx = create_train_state(model, OptimizerConfig())
+    step = make_train_step(model, tx)
+    step(state, batch, torch.Generator().manual_seed(0))  # warm up
+    before = (kg.launches, kg.bwd_launches, v1.wgrad_launches)
+    profiler.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        step(state, batch, torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    counts = profiler.counts()
+    profiler.clear()
+    assert (kg.launches, kg.bwd_launches, v1.wgrad_launches) == (
+        before[0] + 2, before[1] + 1, before[2] + 1)
+    assert counts == {"recurrence.kernel_steps": 5}
+    assert model.last_route == "kernel"
+    kept = []
+    forward = kg._launch_fwd
+    kg._launch_fwd = lambda *a, **kw: kept.append(a[4]) or forward(*a, **kw)
+    try:
+        before = kg.launches
+        maps = model.predict(None, batch["c3d"])
+        torch.cuda.synchronize()
+    finally:
+        kg._launch_fwd = forward
+    assert kg.launches == before + 1 and kept == [False]
+    assert bool(torch.isfinite(maps).all())
+
+
+def test_cascade_gradients_through_b6_match_the_plain_scan(cuda_no_tf32,
+                                                          monkeypatch):
+    """The cascade's loss and the bottom cell's and projection's gradients
+    on the card (bf16, T=5), through B6 and through `ConvGRU.scan` (remat,
+    forced by the model's `recurrence_route`): the two rounding rules
+    agree within bf16 resolution."""
+    model, batch = _cascade_on_card(cuda_no_tf32)
+    with torch.no_grad():
+        for p in model.bottom_cell.values():
+            p.copy_(torch.randn(p.shape, generator=torch.Generator()
+                                .manual_seed(6)).to(p.device) * 0.02)
+    named = [(n, p) for n, p in model.named_parameters()
+             if n.startswith(("bottom_cell.", "c3d_proj."))]
+    out = {}
+    for route in ("kernel", "scan"):
+        if route == "scan":
+            monkeypatch.setattr(model, "recurrence_route",
+                                lambda train: "scan")
+        loss, _ = model.loss(batch, train=True)
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+        assert model.last_route == route
         out[route] = (float(loss), grads)
     assert abs(out["kernel"][0] - out["scan"][0]) <= 1e-2 * abs(
         out["scan"][0])
