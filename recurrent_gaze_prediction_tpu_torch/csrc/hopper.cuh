@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the kernels that feed wgmma
-// from shared memory: kernel Q1 (conv3d_int8.cu) and B4's phases G and W
-// (convgru_bwd_gates.cu, convgru_wgrad.cu).
+// from shared memory: kernel Q1 (conv3d_int8.cu), B4's phases G and W
+// (convgru_bwd_gates.cu, convgru_wgrad.cu) and M1 (gemm_bf16.cu).
 //
 //   * mbarriers: init, expect-tx, arrive, and a wait that traps instead of
 //     hanging the card;

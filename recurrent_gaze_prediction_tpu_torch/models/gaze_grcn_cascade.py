@@ -119,11 +119,12 @@ class GazeGRCNCascade(GazeModel):
             _, ys = run_convgru(self.bottom_cell, embedded.transpose(0, 1),
                                 h0, compute_dtype=cdt, train=train,
                                 route=self.last_route, remat=remat)
-        # upsample every step at once: [T*B,7,7,256] -> [T*B,49,49,64]
+        # upsample every step at once: [T*B,7,7,256] -> [T*B,49,49,64], in
+        # the compute dtype the top cell's input conv rounds it to anyway
         with span("gaze.upsample"):
             up = conv2d_transpose(ys.reshape(t * b, 7, 7, BOTTOM_UNITS),
                                   self.up_w, stride=7, padding="SAME",
-                                  compute_dtype=cdt)
+                                  compute_dtype=cdt, out_dtype=cdt)
         # top recurrence at 49x49
         with span("gaze.top_recurrence"):
             g0 = ConvGRU.zero_state(b, (49, 49), TOP_UNITS,

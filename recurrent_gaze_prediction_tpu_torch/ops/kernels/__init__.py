@@ -6,5 +6,6 @@ it), `convgru` (forward, B1, and what the cluster kernels share),
 and W, B4's wrapper, and the one trainable ConvGRU Function over G, B2 and
 W), `convgru_small` (the cascade's small ConvGRU forward and backward, B5),
 `convgru_grid` (the cascade's wide ConvGRU forward and backward's
-recursion, B6), `convlstm` (the peephole ConvLSTM forward, B3) and
-`conv3d_int8` (a layer of the int8 C3D tower and its int8 max pool, Q1)."""
+recursion, B6), `convlstm` (the peephole ConvLSTM forward, B3),
+`conv3d_int8` (a layer of the int8 C3D tower and its int8 max pool, Q1) and
+`gemm` (the dense layers' bf16 products with f32 sums, M1)."""

@@ -74,6 +74,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.convgru_grid_smem_bytes.restype = size
     lib.convgru_grid_max_ctas.argtypes = [i] * 4
     lib.convgru_grid_max_ctas.restype = i
+    # M1: each operand's pointer, dims (inner, planes, outer), strides
+    # (plane, outer), trans, seg; then C, its rows, columns and row
+    # stride, R, segments, splits, stream
+    ll = ctypes.c_longlong
+    operand = [vp] + [ll] * 5 + [i] * 2
+    lib.gemm_bf16.argtypes = (operand * 2 + [vp] + [i] * 2 + [ll] * 2
+                              + [i] * 2 + [vp])
     f = ctypes.c_float
     # x, w, wscale, b, xscale, xscale_next, out_f32, out, N, D, H, W, Cin,
     # Cout, K, the box (bd, bh, bw), bn, stages, stream
@@ -97,7 +104,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     for name in ("convgru_fwd", "convgru_bwd", "convgru_bwd_gates",
                  "convgru_wgrad", "convlstm_fwd", "conv3d_int8",
                  "maxpool3d_int8", "convgru_small_fwd", "convgru_small_bwd",
-                 "convgru_grid_fwd", "convgru_grid_bwd"):
+                 "convgru_grid_fwd", "convgru_grid_bwd", "gemm_bf16"):
         getattr(lib, name).restype = i
     for name in ("convgru_fwd_error_string", "convlstm_fwd_error_string",
                  "conv3d_int8_error_string", "maxpool3d_int8_error_string"):

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from .collectives import gather_columns, shard_of, sum_cotangent
+from .kernels import gemm
 
 
 def _cast(x: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -41,16 +42,24 @@ def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
 def conv2d(x: torch.Tensor, kernel: torch.Tensor, *, stride: int = 1,
            padding: str = "SAME", compute_dtype=None,
            out_dtype=None) -> torch.Tensor:
-    """2-D convolution, NHWC x HWIO -> NHWC."""
+    """2-D convolution, NHWC x HWIO -> NHWC. On the card, SAME pads that
+    are equal on both sides (an odd kernel at stride 1) go to cuDNN with
+    the conv, which pads as it reads: no padded copy of the input, and no
+    slice of its gradient (elsewhere `F.pad` pads, as the JAX package's
+    layout asks)."""
     xc = _cast(x, compute_dtype).permute(0, 3, 1, 2)
     w = _cast(kernel, compute_dtype).permute(3, 2, 0, 1)
+    pad = (0, 0)
     if padding == "SAME":
         ph = _same_pads(xc.shape[2], w.shape[2], stride)
         pw = _same_pads(xc.shape[3], w.shape[3], stride)
-        xc = F.pad(xc, (pw[0], pw[1], ph[0], ph[1]))
+        if xc.is_cuda and ph[0] == ph[1] and pw[0] == pw[1]:
+            pad = (ph[0], pw[0])
+        else:
+            xc = F.pad(xc, (pw[0], pw[1], ph[0], ph[1]))
     elif padding != "VALID":
         raise ValueError(f"padding must be SAME|VALID, got {padding!r}")
-    out = F.conv2d(xc, w, stride=stride).permute(0, 2, 3, 1)
+    out = F.conv2d(xc, w, stride=stride, padding=pad).permute(0, 2, 3, 1)
     return _cast(out, out_dtype if out_dtype is not None else torch.float32)
 
 
@@ -67,6 +76,50 @@ def _transpose_pads(k: int, s: int, padding: str) -> tuple[int, int]:
     return pad_a, pad_len - pad_a
 
 
+def _transpose_crop(k: int, s: int, padding: str) -> Optional[int]:
+    """What `lax.conv_transpose` cuts from each end of the full transposed
+    conv ((size - 1) * s + k) along an axis of kernel size k, where it cuts
+    the same from both ends and pads nothing; else None."""
+    pad_a, pad_b = _transpose_pads(k, s, padding)
+    return k - 1 - pad_a if pad_a == pad_b <= k - 1 else None
+
+
+class _TransposeConv(torch.autograd.Function):
+    """`F.conv_transpose2d(x, w, stride, padding=crop)` whose backward
+    hands cuDNN the cotangent of the uncropped output, zero-extended to a
+    multiple of the stride: on the cascade's 11x11 stride-7 upsample
+    cuDNN's heuristic takes the input gradient of the cropped 49x49 map to
+    a CUDA-core kernel (`precomputed_convolve_sgemm`, 6.8 ms at B=28,
+    T=42), and that of the 56x56 map to a tensor-core one (0.53 ms). The
+    same products, zeros added: the gradients are the library's, summed in
+    another order."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, crop):
+        ctx.save_for_backward(x, w)
+        ctx.geometry = (stride, crop)
+        return F.conv_transpose2d(x, w, stride=stride, padding=crop)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        s, crop = ctx.geometry
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            full = [-(-((x.shape[i] - 1) * s + w.shape[i]) // s) * s
+                    for i in (2, 3)]
+            gf = g.new_zeros((g.shape[0], *full, g.shape[1])).permute(
+                0, 3, 1, 2)
+            gf[:, :, crop[0]:crop[0] + g.shape[2],
+               crop[1]:crop[1] + g.shape[3]] = g
+            dx = F.conv2d(gf, w, stride=s)
+        if ctx.needs_input_grad[1]:
+            dw = torch.ops.aten.convolution_backward(
+                g, x, w, None, [s, s], list(crop), [1, 1], True, [0, 0], 1,
+                [False, True, False])[1]
+        return dx, dw, None, None
+
+
 def conv2d_transpose(x: torch.Tensor, kernel: torch.Tensor, *, stride: int,
                      padding: str = "VALID", compute_dtype=None,
                      out_dtype=None) -> torch.Tensor:
@@ -78,10 +131,18 @@ def conv2d_transpose(x: torch.Tensor, kernel: torch.Tensor, *, stride: int,
     y[o] = sum_i x[i] * flip(K)[o - s*i + (k-1-pad_a)]. PyTorch's
     `conv_transpose2d` scatters its weight unflipped, so the kernel is
     flipped and permuted HWIO -> IOHW, the full output is formed, and the
-    window JAX keeps is cut out (zero-extended where JAX pads past it).
+    window JAX keeps is cut out (zero-extended where JAX pads past it). On
+    the card, where JAX cuts the same from both ends of each axis (every
+    transposed conv of the port), the conv crops as it writes
+    (`_TransposeConv`).
     """
     xc = _cast(x, compute_dtype).permute(0, 3, 1, 2)
     w = _cast(kernel, compute_dtype).flip(0, 1).permute(2, 3, 0, 1)
+    crops = [_transpose_crop(k, stride, padding) for k in w.shape[2:]]
+    if xc.is_cuda and None not in crops:
+        out = _TransposeConv.apply(xc, w, stride, tuple(crops))
+        return _cast(out.permute(0, 2, 3, 1),
+                     out_dtype if out_dtype is not None else torch.float32)
     full = F.conv_transpose2d(xc, w, stride=stride)
     for axis, (size, k) in ((2, (xc.shape[2], w.shape[2])),
                             (3, (xc.shape[3], w.shape[3]))):
@@ -211,10 +272,89 @@ def resize_bilinear(x: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
     return out.permute(0, 2, 3, 1)
 
 
+# bf16 elements in 16 bytes: TMA (kernel M1) reads rows that start on 16
+# bytes, so the operands of `_TensorCoreMatmul` are zero-padded to it (an
+# odd K, as fc1's 7,203, would not be)
+_ALIGN = 8
+
+
+def _padded(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    """x [r, c] in bf16 in the top-left corner of a zero [rows, cols]."""
+    if tuple(x.shape) == (rows, cols):
+        return x.to(torch.bfloat16).contiguous()
+    out = x.new_zeros((rows, cols), dtype=torch.bfloat16)
+    out[:x.shape[0], :x.shape[1]] = x
+    return out
+
+
+def _up(n: int) -> int:
+    return -(-n // _ALIGN) * _ALIGN
+
+
+def split_bf16(g: torch.Tensor, cols: int) -> torch.Tensor:
+    """An f32 matrix g [M, N] as three bf16 terms, hi = bf16(g), mid =
+    bf16(g - hi), lo = bf16(g - hi - mid), in [M, 3, cols] (cols >= N, the
+    columns past N zero). Each residual is exact in f32 and bf16 has f32's
+    exponent range, so hi + mid + lo == g for every f32 whose lo stays
+    normal (3 x 8 significant bits = 24)."""
+    m, n = g.shape
+    terms = (g.new_empty if cols == n else g.new_zeros)(
+        (m, 3, cols), dtype=torch.bfloat16)
+    terms[:, 0, :n] = g
+    rest = g - terms[:, 0, :n]
+    terms[:, 1, :n] = rest
+    rest -= terms[:, 1, :n]
+    terms[:, 2, :n] = rest
+    return terms
+
+
+class _TensorCoreMatmul(torch.autograd.Function):
+    """a [M, K] @ b [K, N] with both operands rounded to bf16 and f32 sums,
+    forward and backward, through kernel M1 (`ops/kernels/gemm.py`).
+
+    The forward multiplies the rounded operands. The backward's cotangent g
+    is f32 and unrounded, as in `jnp.dot`'s transpose (an f32 cotangent
+    times the bf16 operand, the result rounded to the operand's dtype): g
+    is split exactly into three bf16 terms (`split_bf16`), and each
+    gradient is one product whose reduction runs over the three terms,
+    smallest first, with f32 sums; it is then rounded to bf16 and cast to
+    the operand's dtype, as `_cast(.., bf16).float()`'s autograd does.
+    Saves the bf16 operands (zero-padded to `_ALIGN`), not f32 copies."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        (m, k), n = a.shape, b.shape[1]
+        a16, b16 = _padded(a, m, _up(k)), _padded(b, _up(k), _up(n))
+        ctx.save_for_backward(a16, b16)
+        ctx.dims = (k, n)
+        ctx.dtypes = (a.dtype, b.dtype)
+        return gemm.forward(a16, b16, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        a16, b16 = ctx.saved_tensors
+        k, n = ctx.dims
+        terms = split_bf16(g, b16.shape[1])
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = gemm.input_grad(terms, b16, k).to(torch.bfloat16).to(
+                ctx.dtypes[0])
+        if ctx.needs_input_grad[1]:
+            db = gemm.weight_grad(a16, terms, k, n).to(torch.bfloat16).to(
+                ctx.dtypes[1])
+        return da, db
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor,
                compute_dtype=None) -> torch.Tensor:
     """a @ b with operands rounded to `compute_dtype` and products summed
-    in f32 (`jnp.dot(..., preferred_element_type=f32)`); returns f32."""
+    in f32 (`jnp.dot(..., preferred_element_type=f32)`); returns f32. On
+    the card in bf16 the products run on the tensor cores, forward and
+    backward (`_TensorCoreMatmul`); elsewhere both operands are cast back
+    to f32 and multiplied there."""
+    if a.is_cuda and compute_dtype == torch.bfloat16 and b.dim() == 2:
+        out = _TensorCoreMatmul.apply(a.reshape(-1, a.shape[-1]), b)
+        return out.reshape(*a.shape[:-1], b.shape[1])
     return torch.matmul(_cast(a, compute_dtype).float(),
                         _cast(b, compute_dtype).float())
 

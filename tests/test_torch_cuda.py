@@ -20,7 +20,11 @@ bitwise repeatable, its reckoning, its refusals, and the cascade's train
 step launching it once each way); and kernel B6, the cascade's wide
 ConvGRU (the same, with the plain versions' sums rounded to bf16 as the
 control its gates refuse, a batch larger than one launch holds, and the
-cascade's gradients through it against the plain scan's). They skip
+cascade's gradients through it against the plain scan's); and kernel M1,
+the dense layers' bf16 products (each product at the cascade's shapes
+within 2x of an f32 GEMM's error, the single-term control refused, odd
+shapes against its plain versions, the route's rounding and repeatability),
+with the cascade's input conv and upsample on their card routes. They skip
 without a card. This
 file imports torch only (no jax), so on a machine with a card it runs
 without the JAX test harness:
@@ -1689,3 +1693,258 @@ def test_cascade_gradients_through_b6_match_the_plain_scan(cuda_no_tf32,
         assert _rel(a, w) <= 5e-2, n
         assert float(torch.corrcoef(torch.stack(
             [a.float().flatten(), w.float().flatten()]))[0, 1]) >= 0.999, n
+
+
+# ------------------------- M1: the dense layers' bf16 products, and the convs
+
+# (M, K, N, weight std): the cascade's fc1 and fc2 over T*B = 1,176 frames
+# and its projection over T*B*49 positions, with the configuration's init
+# stds (rgp_bench/configs/gaze_grcn_cascade.json)
+M1_SHAPES = {"fc1": (1176, 7203, 4802, 0.02), "fc2": (1176, 2401, 4802, 0.02),
+             "proj": (57624, 1024, 512, 0.005)}
+M1_READINGS = ("forward", "input_grad", "weight_grad")
+
+
+def _m1_operands(name, seed, device):
+    """The layer's input as the step feeds it (the projection's relu(N(0,
+    1)) * 10 features in bf16; the top cell's states in (-1, 1) for fc1;
+    relu'd activations for fc2), its weight, and an f32 cotangent."""
+    m, k, n, std = M1_SHAPES[name]
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randn(m, k, generator=g, device=device)
+    a = {"proj": lambda v: (v.relu() * 10).bfloat16(), "fc1": torch.tanh,
+         "fc2": torch.relu}[name](a)
+    w = torch.randn(k, n, generator=g, device=device) * std
+    cot = torch.randn(m, n, generator=g, device=device) * 1e-4
+    return a, w, cot
+
+
+def _m1_readings(a, w, cot, single_term=False):
+    """Each product's f32 sums through M1 and through the parent's f32 GEMM
+    of f32 copies of the rounded operands, by ||x - f64|| / ||f64|| against
+    the f64 product of the same rounded operands and the unrounded
+    cotangent: {reading: (M1, parent)}. `single_term` feeds M1 the
+    cotangent rounded to one bf16 term (the control)."""
+    from recurrent_gaze_prediction_tpu_torch.ops import layers
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import gemm
+
+    (m, k), n = a.shape, w.shape[1]
+    a16, w16 = a.bfloat16(), w.bfloat16()
+    ap = layers._padded(a, m, layers._up(k))
+    wp = layers._padded(w, layers._up(k), layers._up(n))
+    terms = layers.split_bf16(cot.bfloat16().float() if single_term
+                              else cot, wp.shape[1])
+    a64, w64, c64 = a16.double(), w16.double(), cot.double()
+    af, wf = a16.float(), w16.float()
+    pairs = {
+        "forward": (gemm.forward(ap, wp, n), af @ wf, a64 @ w64),
+        "input_grad": (gemm.input_grad(terms, wp, k), cot @ wf.t(),
+                       c64 @ w64.t()),
+        "weight_grad": (gemm.weight_grad(ap, terms, k, n), af.t() @ cot,
+                        a64.t() @ c64)}
+    return {r: (_l2_rel(new, want), _l2_rel(old, want))
+            for r, (new, old, want) in pairs.items()}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("name", sorted(M1_SHAPES))
+def test_m1_products_within_twice_the_f32_gemm_error(cuda_no_tf32, name,
+                                                     seed):
+    """M1's forward, input gradient and weight gradient at the cascade's
+    shapes: each within 2x of the f32 GEMM's error against the f64
+    product; the control (the cotangent rounded to one bf16 term) is
+    refused by the gradients' gate."""
+    a, w, cot = _m1_operands(name, seed, cuda_no_tf32)
+    got = _m1_readings(a, w, cot)
+    ctl = _m1_readings(a, w, cot, single_term=True)
+    torch.cuda.synchronize()
+    print(f"m1 {name} seed {seed}: " + ", ".join(
+        f"{r} {got[r][0]:.3e} / f32 {got[r][1]:.3e} (control "
+        f"{ctl[r][0]:.3e})" for r in M1_READINGS))
+    for r in M1_READINGS:
+        assert got[r][0] <= 2 * got[r][1], (r, got[r])
+    for r in M1_READINGS[1:]:
+        assert ctl[r][0] > 2 * ctl[r][1], (r, ctl[r])
+
+
+def test_m1_route_rounds_the_kernel_sums_and_repeats(cuda_no_tf32):
+    """`matmul_f32` in bf16 on the card goes through M1 (three launches a
+    forward and backward): its output is M1's forward, its gradients M1's
+    sums rounded to bf16 in the operands' dtypes, bit for bit, twice; the
+    projection's input (no gradient) gets no product."""
+    from recurrent_gaze_prediction_tpu_torch.ops import layers
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import gemm
+
+    bf = torch.bfloat16
+    for name in ("fc2", "proj"):
+        a, w, cot = _m1_operands(name, 4, cuda_no_tf32)
+        wanted = name != "proj"
+        runs = []
+        for _ in range(2):
+            aa = a.detach().clone().requires_grad_(wanted)
+            ww = w.detach().clone().requires_grad_(True)
+            before = gemm.launches
+            out = layers.matmul_f32(aa, ww, bf)
+            grads = torch.autograd.grad(out, [aa, ww] if wanted else [ww],
+                                        cot)
+            torch.cuda.synchronize()
+            assert gemm.launches == before + 2 + wanted
+            runs.append((out, *grads))
+        for x, y in zip(*runs):
+            assert torch.equal(x, y)
+        (m, k), n = a.shape, w.shape[1]
+        ap = layers._padded(a, m, layers._up(k))
+        wp = layers._padded(w, layers._up(k), layers._up(n))
+        terms = layers.split_bf16(cot, wp.shape[1])
+        assert torch.equal(runs[0][0], gemm.forward(ap, wp, n))
+        assert torch.equal(runs[0][-1],
+                           gemm.weight_grad(ap, terms, k, n).to(bf).float())
+        if wanted:
+            assert torch.equal(runs[0][1],
+                               gemm.input_grad(terms, wp, k).to(bf).float())
+
+
+# (M, K, N): ragged edges in every dimension, a single row, products too
+# small to fill the card (split over grid.z) and a wide one
+M1_ODD_SHAPES = [(1, 9, 3), (37, 75, 53), (300, 130, 70), (28, 1056, 384),
+                 (130, 4000, 200), (2, 8, 1030)]
+
+
+@pytest.mark.parametrize("m,k,n", M1_ODD_SHAPES)
+def test_m1_matches_its_plain_versions_at_odd_shapes(cuda_no_tf32, m, k, n):
+    """M1's three uses against their plain versions (the same bf16 values
+    multiplied in f32, terms summed smallest first) at shapes the cascade
+    does not have: within 1e-5 by norm (summation order)."""
+    from recurrent_gaze_prediction_tpu_torch.ops import layers
+    from recurrent_gaze_prediction_tpu_torch.ops.kernels import gemm
+
+    g = torch.Generator(device=cuda_no_tf32).manual_seed(m + k + n)
+    a = torch.randn(m, k, generator=g, device=cuda_no_tf32)
+    w = torch.randn(k, n, generator=g, device=cuda_no_tf32) * 0.05
+    cot = torch.randn(m, n, generator=g, device=cuda_no_tf32)
+    ap = layers._padded(a, m, layers._up(k))
+    wp = layers._padded(w, layers._up(k), layers._up(n))
+    terms = layers.split_bf16(cot, wp.shape[1])
+    pairs = [(gemm.forward(ap, wp, n), gemm.forward_plain(ap, wp, n)),
+             (gemm.input_grad(terms, wp, k),
+              gemm.input_grad_plain(terms, wp, k)),
+             (gemm.weight_grad(ap, terms, k, n),
+              gemm.weight_grad_plain(ap, terms, k, n))]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert got.shape == want.shape and got.dtype == torch.float32
+        assert _l2_rel(got, want) <= 1e-5, (got.shape, _l2_rel(got, want))
+
+
+# The cascade's convs whose card route this file's M1 section gates: the
+# bottom cell's hoisted input conv (3x3, 512 -> 768 over 1,176 7x7 frames;
+# SAME pads now inside cuDNN) and the 11x11 stride-7 upsample (256 -> 64,
+# 7x7 -> 49x49; `_TransposeConv`): (x shape, kernel HWIO, cotangent shape,
+# weight std)
+CONV_CASES = {
+    "input_conv": ((1176, 7, 7, 512), (3, 3, 512, 768), (1176, 7, 7, 768),
+                   0.015),
+    "upsample": ((1176, 7, 7, 256), (11, 11, 256, 64), (1176, 49, 49, 64),
+                 0.03)}
+CONV_READINGS = ("y", "dx", "dw")
+
+
+def _conv_call(name, x, w):
+    from recurrent_gaze_prediction_tpu_torch.ops import layers
+
+    bf = torch.bfloat16
+    if name == "input_conv":
+        return layers.conv2d(x, w, compute_dtype=bf, out_dtype=bf)
+    return layers.conv2d_transpose(x, w, stride=7, padding="SAME",
+                                   compute_dtype=bf, out_dtype=bf)
+
+
+def _conv_f64(name, x, w, cot):
+    """The f64 conv of the same bf16-rounded operands and its gradients."""
+    import torch.nn.functional as F
+
+    x64 = x.bfloat16().double().permute(0, 3, 1, 2).requires_grad_(True)
+    w64 = w.bfloat16().double().requires_grad_(True)
+    if name == "input_conv":
+        y = F.conv2d(x64, w64.permute(3, 2, 0, 1), padding=1)
+    else:
+        y = F.conv_transpose2d(x64, w64.flip(0, 1).permute(2, 3, 0, 1),
+                               stride=7)[:, :, 2:51, 2:51]
+    dx, dw = torch.autograd.grad(y, (x64, w64),
+                                 cot.double().permute(0, 3, 1, 2))
+    return y.permute(0, 2, 3, 1), dx.permute(0, 2, 3, 1), dw
+
+
+def _conv_run(name, x, w, cot, chunks=1):
+    """The conv through the port's route and its gradients (y, dx, dw). With
+    `chunks` > 1 (the control) each reduction is cut in that many parts,
+    each part's result rounded to bf16 and the parts added in bf16: y's
+    and dx's over the input and output channels, dw's over the frames."""
+    bf = torch.bfloat16
+
+    def grads(xx, ww, cc):
+        xx = xx.detach().requires_grad_(True)
+        ww = ww.detach().requires_grad_(True)
+        y = _conv_call(name, xx, ww)
+        dx, dw = torch.autograd.grad(y, (xx, ww), cc)
+        return y, dx, dw.to(bf)
+
+    if chunks == 1:
+        return grads(x, w, cot)
+    cin, cout, n = w.shape[2], w.shape[3], x.shape[0]
+    y = dx = dw = None
+    for c in range(chunks):
+        i = slice(c * cin // chunks, (c + 1) * cin // chunks)
+        o = slice(c * cout // chunks, (c + 1) * cout // chunks)
+        f = slice(c * n // chunks, (c + 1) * n // chunks)
+        part_y = _conv_call(name, x[..., i], w[:, :, i, :])
+        part_dx = grads(x, w[..., o], cot[..., o])[1]
+        part_dw = grads(x[f], w, cot[f])[2]
+        y = part_y if y is None else y + part_y
+        dx = part_dx if dx is None else dx + part_dx
+        dw = part_dw if dw is None else dw + part_dw
+    return y, dx, dw
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("name", sorted(CONV_CASES))
+def test_cascade_convs_within_twice_the_parent_route_error(cuda_no_tf32,
+                                                            monkeypatch,
+                                                            name, seed):
+    """The input conv and the upsample in bf16 on the card, forward and
+    both gradients, against the f64 conv of the same rounded operands:
+    each within 2x of the route it replaces (F.pad before the conv; the
+    full transposed conv cut by views); the control, the same route with
+    its sums cut in 16 parts each rounded to bf16, is refused."""
+    from recurrent_gaze_prediction_tpu_torch.ops import layers
+
+    xs, ws, cs, std = CONV_CASES[name]
+    g = torch.Generator(device=cuda_no_tf32).manual_seed(seed)
+    x = torch.randn(xs, generator=g, device=cuda_no_tf32)
+    x = (x if name == "input_conv" else torch.tanh(x)).bfloat16()
+    w = torch.randn(ws, generator=g, device=cuda_no_tf32) * std
+    cot = torch.randn(cs, generator=g, device=cuda_no_tf32).bfloat16()
+    want = _conv_f64(name, x, w, cot)
+    new = _conv_run(name, x, w, cot)
+    ctl = _conv_run(name, x, w, cot, chunks=16)
+    if name == "input_conv":
+        import torch.nn.functional as F
+
+        def padded(xx, ww, **_):
+            out = F.conv2d(F.pad(xx.permute(0, 3, 1, 2), (1, 1, 1, 1)),
+                           ww.bfloat16().permute(3, 2, 0, 1))
+            return out.permute(0, 2, 3, 1)
+        monkeypatch.setattr(layers, "conv2d", padded)
+    else:
+        monkeypatch.setattr(layers, "_transpose_crop", lambda *a: None)
+    old = _conv_run(name, x, w, cot)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    readings = {r: (_l2_rel(a, b), _l2_rel(o, b), _l2_rel(c, b))
+                for r, a, o, c, b in zip(CONV_READINGS, new, old, ctl, want)}
+    print(f"conv {name} seed {seed}: " + ", ".join(
+        f"{r} {v[0]:.4e} / parent {v[1]:.4e} (control {v[2]:.4e})"
+        for r, v in readings.items()))
+    for r, (got, parent, control) in readings.items():
+        assert got <= 2 * parent, (r, readings)
+        assert control > 2 * parent, (r, readings)
