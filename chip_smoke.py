@@ -34,7 +34,11 @@ In order, failing (exit 1) on the first check that does not hold:
      T=42, U=256, 3x3, 7x7, bf16, three seeds): ys, the final h and the
      whole backward (the recursion, then phase W) against `forward_plain`,
      `backward_plain` and `wgrad_plain` by norm, the backward bitwise
-     repeatable, the control refused;
+     repeatable, the control refused; then M1 `gemm_bf16`, the dense
+     layers' bf16 products, at the cascade's fc1, fc2 and projection
+     (three seeds): the forward, input and weight gradients against their
+     plain versions by norm, the controls (the forward's sums in bf16, a
+     one-term cotangent) refused;
   4. serves full-width gaze_grcn, then gaze_lstm (1024->512->128, T=42,
      49x49 maps, bf16, seeded random weights) over HTTP from a bundle:
      concurrent single-clip POSTs, each reply checked against a plain-scan
@@ -94,7 +98,7 @@ In order, failing (exit 1) on the first check that does not hold:
      `cli.pretrain_shallownet` (20 steps,
      B=128), then `cli.train_gaze` 20 steps each of gaze_pupil_grcn (B1 and
      B2 once per step), gaze_grcn_cascade (B5 and B6 once each way per
-     step), gaze_rnn with
+     step; M1 8 times a step and 3 a test batch), gaze_rnn with
      `--shallownet_pretrain` (its frozen ShallowNet bitwise the file's
      after training) and gaze_framewise_shallownet (its ShallowNet moves),
      each loss falling; gaze_pupil_grcn's gradients through B1 + B2 vs
@@ -185,7 +189,9 @@ In order, failing (exit 1) on the first check that does not hold:
      recursion at B=28 beside their bounds and plain versions, the bottom
      cell through B6 and
      through the rematerialized scan and the cascade's predict through
-     both, in turns), the
+     both, in turns; M1's three uses at fc1, fc2 and the projection beside
+     their bounds, plain versions and cuBLAS's bf16 GEMM, and the route
+     forward + backward beside the f32 cast chain it replaced), the
      feature-fed predict of both models (B=16) with a breakdown, the HTTP
      requests, the streaming chunk steps (B=1), and the train step (B=28)
      through the kernels, through V2 on its library stages and through
@@ -260,9 +266,11 @@ from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp as v1
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convgru_vjp2 as v2
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import convlstm as klstm
 from recurrent_gaze_prediction_tpu_torch.ops.kernels import conv3d_int8 as q1
+from recurrent_gaze_prediction_tpu_torch.ops.kernels import gemm
 from recurrent_gaze_prediction_tpu_torch.ops.kernels.parity import (
     MIN_CORR, backward_inputs, backward_kernel_and_plain, backward_parity,
     backward_parity_ok, convgru_parity, convlstm_parity, parity_ok)
+from recurrent_gaze_prediction_tpu_torch.ops import layers
 from recurrent_gaze_prediction_tpu_torch.ops.layers import resize_bilinear
 from recurrent_gaze_prediction_tpu_torch.ops.normalize import (
     normalize_probability_map, softmax_2d)
@@ -402,6 +410,28 @@ GRID_READINGS = ("ys", "h_final", "dwx", "dh0", "dU_zr", "dU_c")
 # GRID_TOL)
 GRID_L2_REL = {"ys": 8e-4, "h_final": 8.5e-4, "dwx": 1.7e-3, "dh0": 1.3e-3,
                "dU_zr": 2.1e-3, "dU_c": 1.8e-3}
+# kernel M1, the dense layers' bf16 products: (M, K, N, weight std) of the
+# cascade's fc1 and fc2 over T*B = 1,176 frames and its projection over
+# T*B*49 positions (the -m cuda tests' M1_SHAPES), on M1_SEEDS
+M1_SHAPES = {"fc1": (T * TRAIN_BATCH, 7203, 4802, 0.02),
+             "fc2": (T * TRAIN_BATCH, 2401, 4802, 0.02),
+             "proj": (T * TRAIN_BATCH * 49, 1024, 512, 0.005)}
+M1_USES = ("forward", "input_grad", "weight_grad")
+M1_SEEDS = (SEED, SEED + 1, SEED + 2)
+# M1 against its plain versions (the same bf16 values multiplied in f32 by
+# cuBLAS, TF32 off; the terms summed smallest first) differs by summation
+# order alone, so each use is held by its norm, ||kernel - plain|| /
+# ||plain||. The limit (the -m cuda tests' against the plain versions at odd
+# shapes) lies between the largest sound reading and the smallest of the
+# controls (the forward's sums rounded to bf16; the gradients of the
+# cotangent rounded to one bf16 term), seeds 0-2 on an H100: forward
+# 3.83e-7 / 1.655e-3, input gradient 7.00e-7 / 1.654e-3, weight gradient
+# 4.92e-7 / 1.611e-3
+M1_L2_REL = 1e-5
+# a cascade train step's M1 launches: the forwards of the projection, fc1
+# and fc2, then fc1's and fc2's two gradients and the projection's weight
+# gradient (its input, the features, takes none); a predict's: 3
+M1_STEP_LAUNCHES, M1_PREDICT_LAUNCHES = 8, 3
 # the research loop: extract_features over 4 seeded videos of 176 uint8
 # frames (11 windows each) at 240x320; extract_map at its CLI defaults
 # (T=105, B=4) over 8 clips of 105..300 windows, streamed in chunks of 42;
@@ -899,6 +929,144 @@ def grid_kernel_timing(card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ kernel M1
+
+def m1_operands(name: str, seed: int) -> tuple:
+    """M1's operands at one of M1_SHAPES on the card, as the layer's
+    product takes them: the input (the projection's relu(N(0, 1)) * 10
+    features; the top cell's states in (-1, 1) for fc1; relu'd
+    activations for fc2) and weight rounded to bf16 and zero-padded to 8
+    elements a row, an f32 cotangent, and the true (K, N)."""
+    m, k, n, std = M1_SHAPES[name]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn(m, k, generator=g, device="cuda")
+    a = {"proj": lambda v: v.relu() * 10, "fc1": torch.tanh,
+         "fc2": torch.relu}[name](a)
+    w = torch.randn(k, n, generator=g, device="cuda") * std
+    cot = torch.randn(m, n, generator=g, device="cuda") * 1e-4
+    ap = layers._padded(a, m, layers._up(k))
+    wp = layers._padded(w, layers._up(k), layers._up(n))
+    return ap, wp, cot, k, n
+
+
+def m1_use(use: str, ap, wp, terms, k: int, n: int, plain: bool = False
+           ) -> torch.Tensor:
+    """One of M1_USES on the given operands (its plain version with
+    `plain`)."""
+    if use == "forward":
+        return (gemm.forward_plain if plain else gemm.forward)(ap, wp, n)
+    if use == "input_grad":
+        return (gemm.input_grad_plain if plain else gemm.input_grad)(
+            terms, wp, k)
+    return (gemm.weight_grad_plain if plain else gemm.weight_grad)(
+        ap, terms, k, n)
+
+
+def m1_kernel_gates(card: str) -> dict:
+    """Kernel M1 at the cascade's fc1, fc2 and projection shapes on each of
+    M1_SEEDS: the forward, input gradient and weight gradient against their
+    plain versions (TF32 off) within M1_L2_REL by norm; the controls (the
+    forward's sums rounded to bf16, the gradients of the cotangent rounded
+    to one bf16 term) outside it."""
+    out = {"max_abs_err": 0.0}
+    for name in M1_SHAPES:
+        for seed in M1_SEEDS:
+            ap, wp, cot, k, n = m1_operands(name, seed)
+            terms = layers.split_bf16(cot, wp.shape[1])
+            single = layers.split_bf16(cot.bfloat16().float(), wp.shape[1])
+            with torch.no_grad(), tf32_off():
+                got = {u: m1_use(u, ap, wp, terms, k, n) for u in M1_USES}
+                want = {u: m1_use(u, ap, wp, terms, k, n, plain=True)
+                        for u in M1_USES}
+                ctl = {u: m1_use(u, ap, wp, single, k, n) for u in M1_USES}
+                ctl["forward"] = got["forward"].bfloat16().float()
+            torch.cuda.synchronize()
+            sound = {u: l2_rel(got[u].double().cpu().numpy(),
+                               want[u].double().cpu().numpy())
+                     for u in M1_USES}
+            control = {u: l2_rel(ctl[u].double().cpu().numpy(),
+                                 want[u].double().cpu().numpy())
+                       for u in M1_USES}
+            out["max_abs_err"] = max(
+                [out["max_abs_err"]]
+                + [float((got[u] - want[u]).abs().max()) for u in M1_USES])
+            print(f"parity gemm_bf16 (M1) {name} {tuple(M1_SHAPES[name][:3])}"
+                  f" seed {seed}: l2_rel {json.dumps(sound)}; control "
+                  f"(forward sums in bf16, one-term cotangent) "
+                  f"{json.dumps(control)} [{card}]", flush=True)
+            for u in M1_USES:
+                check(sound[u] <= M1_L2_REL,
+                      f"M1 {name} seed {seed}: {u} l2_rel {sound[u]}")
+                check(control[u] > M1_L2_REL,
+                      f"M1's gate passes the control at {name} seed {seed}: "
+                      f"{u} {control[u]}")
+            out[name, seed] = {"sound": sound, "control": control}
+    return out
+
+
+def m1_kernel_timing(card: str) -> dict:
+    """M1 at each of M1_SHAPES by CUDA events: each use beside its bound,
+    its plain version (f32 cuBLAS on f32 copies, TF32 off) and cuBLAS's
+    bf16 GEMM with an f32 result (`torch.mm(out_dtype=)`; for a gradient
+    the three terms stacked, before their sum); then the route,
+    `matmul_f32` in bf16 forward + backward, against the f32 cast chain
+    it replaced."""
+    f32 = torch.float32
+    out = {}
+    for name in M1_SHAPES:
+        m = M1_SHAPES[name][0]
+        ap, wp, cot, k, n = m1_operands(name, SEED + 7)
+        terms = layers.split_bf16(cot, wp.shape[1])
+        kp, np_ = wp.shape
+        products = 2 * m * k * n
+        library = {
+            "forward": lambda: torch.mm(ap, wp, out_dtype=f32),
+            "input_grad": lambda: torch.mm(terms.view(-1, np_), wp.t(),
+                                           out_dtype=f32),
+            "weight_grad": lambda: torch.mm(ap.t(), terms.view(m, -1),
+                                            out_dtype=f32)}
+        # each operand read once, the f32 result written once
+        nbytes = {"forward": (m * kp + kp * np_) * 2 + m * n * 4,
+                  "input_grad": (3 * m * np_ + kp * np_) * 2 + m * k * 4,
+                  "weight_grad": (m * kp + 3 * m * np_) * 2 + k * n * 4}
+        row = {}
+        with torch.no_grad(), tf32_off():
+            for u in M1_USES:
+                row[u] = {
+                    "ms": cuda_ms(lambda: m1_use(u, ap, wp, terms, k, n),
+                                  20),
+                    "plain_ms": cuda_ms(lambda: m1_use(
+                        u, ap, wp, terms, k, n, plain=True), 5),
+                    "library_ms": cuda_ms(library[u], 20),
+                    **bound(products * (1 if u == "forward" else 3),
+                            nbytes[u])}
+        a = ap[:, :k].float().requires_grad_(name != "proj")
+        w = wp[:k, :n].float().requires_grad_()
+        wanted = [a, w] if name != "proj" else [w]
+
+        def route(fn):
+            torch.autograd.grad(fn(), wanted, cot)
+
+        with tf32_off():
+            row["route_ms"] = cuda_ms(lambda: route(
+                lambda: layers.matmul_f32(a, w, torch.bfloat16)), 10)
+            row["f32_route_ms"] = cuda_ms(lambda: route(
+                lambda: torch.matmul(a.bfloat16().float(),
+                                     w.bfloat16().float())), 5)
+        out[name] = row
+        print(f"timing: gemm_bf16 (M1) {name} {m} x {k} -> {n} bf16, f32 "
+              f"sums: " + "; ".join(
+                  f"{u} {row[u]['ms']:.4f} ms ("
+                  f"{row[u]['gflop'] / row[u]['ms']:.0f} TFLOP/s), plain {row[u]['plain_ms']:.3f}, cuBLAS bf16 "
+                  f"{row[u]['library_ms']:.4f}, bound {row[u]['bound_ms']:.4f}"
+                  f" ({row[u]['bound_by']}: {row[u]['gflop']:.1f} GFLOP, "
+                  f"{row[u]['mbytes']:.1f} MB)" for u in M1_USES)
+              + f"; the route forward + backward {row['route_ms']:.3f} ms, "
+              f"the f32 cast chain {row['f32_route_ms']:.3f} ms [{card}]",
+              flush=True)
+    return out
+
+
 def plain_predict_cascade(model, c3d):
     """The cascade's predict with its bottom cell on its own scan."""
     with plain_route(model):
@@ -1165,6 +1333,7 @@ def reset_launches() -> None:
     q1.launches = q1.pool_launches = 0
     ks.launches = ks.bwd_launches = 0
     kg.launches = kg.bwd_launches = 0
+    gemm.launches = 0
 
 
 def read_int8_launches() -> dict:
@@ -2438,13 +2607,14 @@ def zoo_train_through_cli(card: str, run: str, name: str,
     rc = train_gaze.main(argv)
     seconds = time.perf_counter() - start
     launches = read_launches()
+    m1_launches = gemm.launches
     check(rc == 0, f"cli.train_gaze --model {name} returned {rc}")
     losses, steps = train_records(run)
     print(f"train {name} (cli.train_gaze {' '.join(extra)}, registry B and "
           f"T, bf16, {TRAIN_STEPS} steps at lr {ZOO_LR}, {seconds:.1f} s wall "
           f"with data and model set-up): losses "
-          f"{[round(x, 4) for x in losses]}, launches {launches} [{card}]",
-          flush=True)
+          f"{[round(x, 4) for x in losses]}, launches {launches}, M1 "
+          f"{m1_launches} [{card}]", flush=True)
     check_learned(name, losses, steps, TRAIN_STEPS)
     if name == "gaze_pupil_grcn":
         test_batches = -(-ZOO_TEST_CLIPS // 7)
@@ -2458,13 +2628,17 @@ def zoo_train_through_cli(card: str, run: str, name: str,
         want = {**zoo_kernel_launches(name, 0),
                 **cascade_launches(TRAIN_STEPS + test_batches, TRAIN_STEPS),
                 "convgru_wgrad": TRAIN_STEPS}
+        want_m1 = (M1_STEP_LAUNCHES * TRAIN_STEPS
+                   + M1_PREDICT_LAUNCHES * test_batches)
+        check(m1_launches == want_m1,
+              f"{name}: M1 launches {m1_launches}, want {want_m1}")
     else:
         want = zoo_kernel_launches(name, 0)
     check(launches == want, f"{name}: launches {launches}, want {want}")
     saved = torch.load(f"{run}/model/{TRAIN_STEPS}/state.pt",
                        weights_only=True)["params"]
     return {"losses": losses, "launches": launches, "params": saved,
-            "seconds": seconds}
+            "seconds": seconds, "m1_launches": m1_launches}
 
 
 def pupil_gradient_check(card: str) -> dict:
@@ -4329,6 +4503,8 @@ def main() -> int:
     small_gates = small_kernel_gates(card)
     # B6, the cascade's bottom cell, the same way
     grid_gates = grid_kernel_gates(card)
+    # M1, the dense layers' products, at the cascade's three layers
+    m1_gates = m1_kernel_gates(card)
 
     # 4. serving at full width through the kernels: gaze_grcn (B1), then
     # gaze_lstm (B3)
@@ -4426,6 +4602,7 @@ def main() -> int:
               f"[{card}]", flush=True)
     small_timing = small_kernel_timing(card)
     grid_timing = grid_kernel_timing(card)
+    m1_timing = m1_kernel_timing(card)
     c3d16 = torch.from_numpy(
         timing_rng.randn(16, T, 1024, 7, 7).astype(np.float32)).cuda()
     for m, served in ((model, grcn_served), (lstm_model, lstm_served)):
@@ -4650,6 +4827,26 @@ def main() -> int:
                     for d in ("fwd", "bwd")},
          "calls": f"1 forward + 1 backward launch per cascade train step, "
                   f"T={T}, B={TRAIN_BATCH}"},
+        # M1 replaces no Pallas kernel: the JAX package leaves the dense
+        # products to XLA. Its times are fc1's three uses at the cascade's
+        # train shape (library_ms: cuBLAS's bf16 GEMM with an f32 result);
+        # its launches those of the cascade's 20 CLI train steps and
+        # test-split evaluation
+        {"name": "gemm_bf16", "route": "cuda",
+         "source": "recurrent_gaze_prediction_tpu_torch/csrc/gemm_bf16.cu",
+         "replaces": None,
+         "launches": zoo["trained"]["gaze_grcn_cascade"]["m1_launches"],
+         "max_abs_err": m1_gates["max_abs_err"],
+         **{key: sum(m1_timing["fc1"][u][key] for u in M1_USES)
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         "bound_by": m1_timing["fc1"]["forward"]["bound_by"],
+         "phases": {u: {key: m1_timing["fc1"][u][key] for key in
+                        ("ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms")} for u in M1_USES},
+         "calls": f"{M1_STEP_LAUNCHES} launches per cascade train step "
+                  f"(3 forwards, 5 gradients), fc1 "
+                  f"{' x '.join(map(str, M1_SHAPES['fc1'][:2]))} -> "
+                  f"{M1_SHAPES['fc1'][2]}"},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,18 +42,17 @@ def _same_pads(size: int, k: int, s: int) -> tuple[int, int]:
 def conv2d(x: torch.Tensor, kernel: torch.Tensor, *, stride: int = 1,
            padding: str = "SAME", compute_dtype=None,
            out_dtype=None) -> torch.Tensor:
-    """2-D convolution, NHWC x HWIO -> NHWC. On the card, SAME pads that
-    are equal on both sides (an odd kernel at stride 1) go to cuDNN with
-    the conv, which pads as it reads: no padded copy of the input, and no
-    slice of its gradient (elsewhere `F.pad` pads, as the JAX package's
-    layout asks)."""
+    """2-D convolution, NHWC x HWIO -> NHWC. SAME pads that are equal on
+    both sides (an odd kernel at stride 1) go to the library's conv, which
+    pads as it reads: no padded copy of the input, and no slice of its
+    gradient; unequal ones (TF/XLA's extra pad at the end) `F.pad`."""
     xc = _cast(x, compute_dtype).permute(0, 3, 1, 2)
     w = _cast(kernel, compute_dtype).permute(3, 2, 0, 1)
     pad = (0, 0)
     if padding == "SAME":
         ph = _same_pads(xc.shape[2], w.shape[2], stride)
         pw = _same_pads(xc.shape[3], w.shape[3], stride)
-        if xc.is_cuda and ph[0] == ph[1] and pw[0] == pw[1]:
+        if ph[0] == ph[1] and pw[0] == pw[1]:
             pad = (ph[0], pw[0])
         else:
             xc = F.pad(xc, (pw[0], pw[1], ph[0], ph[1]))
@@ -131,15 +130,14 @@ def conv2d_transpose(x: torch.Tensor, kernel: torch.Tensor, *, stride: int,
     y[o] = sum_i x[i] * flip(K)[o - s*i + (k-1-pad_a)]. PyTorch's
     `conv_transpose2d` scatters its weight unflipped, so the kernel is
     flipped and permuted HWIO -> IOHW, the full output is formed, and the
-    window JAX keeps is cut out (zero-extended where JAX pads past it). On
-    the card, where JAX cuts the same from both ends of each axis (every
-    transposed conv of the port), the conv crops as it writes
-    (`_TransposeConv`).
+    window JAX keeps is cut out (zero-extended where JAX pads past it).
+    Where JAX cuts the same from both ends of each axis (every transposed
+    conv of the port), the conv crops as it writes (`_TransposeConv`).
     """
     xc = _cast(x, compute_dtype).permute(0, 3, 1, 2)
     w = _cast(kernel, compute_dtype).flip(0, 1).permute(2, 3, 0, 1)
     crops = [_transpose_crop(k, stride, padding) for k in w.shape[2:]]
-    if xc.is_cuda and None not in crops:
+    if None not in crops:
         out = _TransposeConv.apply(xc, w, stride, tuple(crops))
         return _cast(out.permute(0, 2, 3, 1),
                      out_dtype if out_dtype is not None else torch.float32)

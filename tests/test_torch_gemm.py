@@ -1,10 +1,11 @@
 """The dense layers' bf16 products on the tensor cores (kernel M1's route,
-`ops/layers._TensorCoreMatmul`) and the transposed conv's card route
-(`ops/layers._TransposeConv`), on the CPU: the three-term split of an f32
+`ops/layers._TensorCoreMatmul`) and the convs' cropping and padding routes
+(`ops/layers._TransposeConv`, `conv2d`'s equal SAME pads), on the CPU: the three-term split of an f32
 cotangent, the Function's algebra through M1's plain versions against
 `matmul_f32`'s f32 products, `matmul_f32` on a CPU tensor as it was, the
-split-K plan, and the transposed conv's padded backward against autograd
-of the cropped full conv. The kernel itself runs on the card
+split-K plan, the transposed conv's padded backward against autograd
+of the cropped full conv, and both convs against the routes they replaced
+(an `F.pad` copy; the full transposed conv cut by views). The kernel itself runs on the card
 (`tests/test_torch_cuda.py -k m1`)."""
 
 import numpy as np
@@ -146,7 +147,7 @@ TRANSPOSE_CASES = [(7, 8, 4, 11, 7, "SAME"), (7, 6, 5, 5, 3, "VALID"),
 @pytest.mark.parametrize("size,cin,cout,k,s,padding", TRANSPOSE_CASES)
 def test_transpose_conv_padded_backward_matches_autograd(size, cin, cout, k,
                                                          s, padding):
-    """`_TransposeConv` (the card's route: crop by the conv's padding, the
+    """`_TransposeConv` (the route: crop by the conv's padding, the
     backward on the stride-aligned cotangent) against autograd of the full
     transposed conv cut to the window `lax.conv_transpose` keeps, in f64:
     the output, both gradients."""
@@ -173,6 +174,62 @@ def test_transpose_conv_padded_backward_matches_autograd(size, cin, cout, k,
 
 def test_transpose_crop_refuses_a_window_that_pads():
     """A VALID transposed conv whose stride exceeds its kernel keeps more
-    than the full conv (zero-extended): the card route refuses it."""
+    than the full conv (zero-extended): the cropping route refuses it."""
     assert layers._transpose_crop(2, 3, "VALID") is None
     assert layers._transpose_crop(11, 7, "SAME") == 2
+
+
+# (input size, Cin, Cout, kernel, stride): SAME pads equal on both sides
+# (odd kernels at stride 1: the ConvGRU / ConvLSTM state and input convs),
+# and unequal ones (an even kernel, a stride of 2)
+SAME_CASES = [(7, 6, 9, 3, 1), (9, 3, 4, 5, 1), (8, 3, 4, 4, 1),
+              (9, 3, 4, 3, 2)]
+
+
+@pytest.mark.parametrize("size,cin,cout,k,s", SAME_CASES)
+def test_conv2d_same_pads_match_the_padded_copy(size, cin, cout, k, s):
+    """`conv2d` under SAME against the conv of an `F.pad` copy (extra pad
+    at the end), in f64: the output and both gradients."""
+    g = torch.Generator().manual_seed(size * k + s)
+    x = torch.randn(2, size, size, cin, dtype=torch.float64, generator=g,
+                    requires_grad=True)
+    w = torch.randn(k, k, cin, cout, dtype=torch.float64, generator=g,
+                    requires_grad=True)
+    y = layers.conv2d(x, w, stride=s, out_dtype=torch.float64)
+    ph = layers._same_pads(size, k, s)
+    want = F.conv2d(F.pad(x.permute(0, 3, 1, 2), (*ph, *ph)),
+                    w.permute(3, 2, 0, 1), stride=s).permute(0, 2, 3, 1)
+    assert y.shape == want.shape
+    assert torch.allclose(y, want, rtol=1e-12, atol=1e-12)
+    cot = torch.randn(y.shape, dtype=torch.float64, generator=g)
+    for a, b in zip(torch.autograd.grad(y, (x, w), cot),
+                    torch.autograd.grad(want, (x, w), cot)):
+        assert torch.allclose(a, b, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("size,cin,cout,k,s,padding", TRANSPOSE_CASES)
+def test_conv2d_transpose_matches_the_cut_full_conv(monkeypatch, size, cin,
+                                                    cout, k, s, padding):
+    """`conv2d_transpose` through `_TransposeConv` against the same call
+    with the crop refused (the full transposed conv cut by views), in f64:
+    the output and both gradients."""
+    g = torch.Generator().manual_seed(size * k + s + 1)
+    x = torch.randn(2, size, size, cin, dtype=torch.float64, generator=g,
+                    requires_grad=True)
+    w = torch.randn(k, k, cin, cout, dtype=torch.float64, generator=g,
+                    requires_grad=True)
+
+    def run():
+        return layers.conv2d_transpose(x, w, stride=s, padding=padding,
+                                       out_dtype=torch.float64)
+
+    y = run()
+    cot = torch.randn(y.shape, dtype=torch.float64, generator=g)
+    got = torch.autograd.grad(y, (x, w), cot)
+    monkeypatch.setattr(layers, "_transpose_crop", lambda *a: None)
+    want_y = run()
+    want = torch.autograd.grad(want_y, (x, w), cot)
+    assert y.shape == want_y.shape
+    assert torch.allclose(y, want_y, rtol=1e-12, atol=1e-12)
+    for a, b in zip(got, want):
+        assert torch.allclose(a, b, rtol=1e-12, atol=1e-12)
